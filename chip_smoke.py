@@ -1,29 +1,46 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-Drives the port's main path end to end, through the entry points a user
+Drives the port's main paths end to end, through the entry points a user
 calls, and fails (non-zero exit) if any phase fails:
 
 1. environment: the card's name and power limit, CUDA, nvcc;
-2. build: every kernel source from this checkout, with nvcc's
-   ``-Xptxas -v`` report (registers, shared memory, spills);
-3. kernel vs plain: the GEMM kernel under every tile of the Hopper knob
-   space against a float64 oracle on ragged and aligned shapes,
-   ``alpha``/``beta`` with C, stacks with per-item and shared B, held to
-   ``F32_TOL`` (tighter than the reference conformance harness's 5e-4, so
-   that a TF32 product fails it); stacked results must equal per-item
-   results bit for bit;
-4. install: ``repro_torch.launch.calibrate`` times the kernel on the card
-   and persists ``hopper__gemm_b4.adsala`` into a temporary registry;
-5. serve: a fresh process loads that artifact into a new ``AdsalaRuntime``
-   and runs ``run_op("gemm", ...)`` on the llama3-8b linear shapes (d_model
-   4096, 8 KV heads x 128, d_ff 14336) at 8 and 2048 tokens, plus one
-   bucket-shaped stack with a shared weight; every decision must come from
-   the model, every call must launch the kernel and every result must be
-   within ``F32_TOL`` of the plain version;
-6. times (CUDA events): the kernel under the tuned and the default tile
-   and under the best tile of the space (a sweep of all 27), ``torch.matmul``
-   as a yardstick the port never calls, the plain version and the float32
+2. build: every kernel source from this checkout (``gemm``, ``symm``,
+   ``rank_k``, ``rank_k_packed``), all nvcc runs started together, with
+   nvcc's ``-Xptxas -v`` report (registers, shared memory, spills);
+3. kernel vs oracle: every kernel under every candidate of its Hopper knob
+   space against a float64 oracle, held to ``F32_TOL`` (tighter than the
+   reference conformance harness's 5e-4, so that a TF32 product fails it):
+   the GEMM on ragged and aligned shapes, ``alpha``/``beta`` with C, stacks
+   with per-item and shared B; symm, syrk/syr2k (every variant) and trsm
+   through the port's conformance harness on its ragged dims and one
+   aligned shape, with and without C, single and stacked (the error taken
+   relative to ``conformance.error_scale``: the largest output, floored
+   for a 1 x 1 syr2k whose one dot product may cancel).  Stacked results
+   must equal per-item results bit for bit, and syrk/syr2k ``tri_packed``
+   must equal ``tri`` bit for bit;
+4. install: ``repro_torch.launch.calibrate`` times the kernels on the card
+   and persists ``hopper__{gemm,symm,syrk,syr2k,trsm}_b4.adsala`` into a
+   temporary registry;
+5. serve: a fresh process loads those artifacts into a new
+   ``AdsalaRuntime`` and calls ``run_op``: the GEMMs of the llama3-8b
+   linears (d_model 4096, 8 KV heads x 128, d_ff 14336) at 8 and 2048
+   tokens and one serving bucket with a shared weight; and the operations
+   of a Shampoo-style preconditioner of its (4096, 14336) MLP weight G:
+   ``syrk`` for L = G G^T and R = G^T G (each as an update
+   ``0.05 * G G^T + 0.95 * L`` of the last one), ``symm`` of a (4096, 4096)
+   sym(A) against G, ``syr2k`` at (4096, 4096), ``trsm`` of a (4096, 4096)
+   tril(A) against G, and one stacked (8, 512, 512) call per op.  Every
+   decision must come from the model, every call must launch exactly the
+   kernels its knob names (trsm: ``2 ceil(m / bm) - 1`` GEMMs) and every
+   result must be within ``F32_TOL`` of the plain version.  Then syrk and
+   syr2k run the stacked call once under each variant with the tile the
+   model chose (a caller that pins the variant through ``run_op(...,
+   knob=...)``), which must give tri_packed == tri bit for bit;
+6. times (CUDA events) of every served call: the kernel under the tuned and
+   the default knob and under the best knob of a sweep of its whole space,
+   the plain version, a library call the port never makes (``torch.matmul``,
+   ``torch.addmm``, ``torch.linalg.solve_triangular``) and the float32
    bound of the card.
 
 Run from the root of a checkout on a machine with the card:
@@ -47,20 +64,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-#: the kernel sources of the main path, built side by side
-KERNEL_SOURCES = ("gemm",)
+#: the kernel sources of the main paths, built side by side
+KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed")
 
 #: the reference conformance harness's ragged GEMM dims
 #: (src/repro/backends/conformance.py RAGGED_DIMS["gemm"]) and one aligned
 KERNEL_DIMS = ((129, 65, 257), (1, 300, 384), (300, 300, 300),
                (256, 512, 384))
+#: one aligned shape beside RAGGED_DIMS for the 2-dim ops
+ALIGNED_2D = (256, 384)
 STACK = 3
 #: max relative error (to the largest output) of the kernel vs a float64
 #: oracle and of a served result vs the plain version.  The reference
 #: conformance harness allows 5e-4 for float32; this limit sits above the
-#: IEEE-f32 readings on the H100 (1.1e-6 and 4.3e-6) and below what TF32
-#: inputs (a 10-bit mantissa, unit roundoff 2**-11) give, so a TF32 path
-#: fails it.  Phase 3 checks that TF32-rounded inputs do exceed it.
+#: IEEE-f32 readings on the H100 (1.1e-6 and 4.3e-6 for the GEMM) and below
+#: what TF32 inputs (a 10-bit mantissa, unit roundoff 2**-11) give, so a
+#: TF32 path fails it.  Phase 3 checks that TF32-rounded inputs exceed it.
 F32_TOL = 2e-5
 
 #: llama3-8b (src/repro/configs/llama3_8b.py): the (k, n) of its linears
@@ -69,25 +88,67 @@ LINEARS = ((D_MODEL, D_MODEL), (D_MODEL, KV_WIDTH), (D_MODEL, D_FF),
            (D_FF, D_MODEL))
 TOKENS = (8, 2048)
 BUCKET = (8, 128, D_MODEL)          # a serving bucket against one weight
+#: the stacked call of each 2-dim op
+STACKED_2D = (8, 512, 512)
 
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
-#: calibration settings of phase 4: 256 Halton dims x 27 tiles gather in
-#: under a minute on the card; the four families fit in well under one
-CALIBRATE_ARGS = ("--backend", "hopper", "--ops", "gemm", "--precisions", "s",
-                  "--samples", "256", "--dim-lo", "8", "--dim-hi", "16384",
+#: calibration settings of phase 4, and the Halton dims each op installs
+#: with (log-scaled, so most are small: the five gather in about a minute
+#: and a half on the card)
+CALIBRATE_ARGS = ("--backend", "hopper", "--precisions", "s",
+                  "--dim-lo", "8", "--dim-hi", "16384",
                   "--footprint-mb", "400", "--tune-trials", "1",
                   "--candidates", "LinearRegression,DecisionTree,KNN,XGBoost")
+CALIBRATE_SAMPLES = {"gemm": 256, "symm": 256, "syrk": 256, "syr2k": 192,
+                     "trsm": 192}
+
+#: the kernels the main paths launch: name -> (route, source, TPU kernel)
+KERNELS = {
+    "gemm": ("cuda", "src/repro_torch/kernels/csrc/gemm.cu",
+             "src/repro/kernels/gemm.py:55"),
+    "symm": ("cuda", "src/repro_torch/kernels/csrc/symm.cu",
+             "src/repro/kernels/symm.py:38"),
+    "rank_k": ("cuda", "src/repro_torch/kernels/csrc/rank_k.cu",
+               "src/repro/kernels/syrk.py:73"),
+    "rank_k_packed": ("cuda", "src/repro_torch/kernels/csrc/rank_k_packed.cu",
+                      "src/repro/kernels/syrk.py:132"),
+    "trsm": ("cuda", "src/repro_torch/kernels/trsm.py",
+             "src/repro/kernels/trsm.py:41"),
+}
 
 
-def serve_cases() -> list[tuple[str, tuple[int, ...], tuple[int, ...]]]:
-    """(label, A shape, B shape) of the main path's GEMMs."""
-    cases = [(f"T={t} ({t},{k})@({k},{n})", (t, k), (k, n))
+def serve_cases() -> list[dict]:
+    """The main paths' calls: label, op, operand shapes and keywords."""
+    cases = [{"label": f"T={t} ({t},{k})@({k},{n})", "op": "gemm",
+              "shapes": [[t, k], [k, n]], "kw": {}}
              for t in TOKENS for k, n in LINEARS]
     b, s, d = BUCKET
-    cases.append((f"bucket ({b},{s},{d})@({d},{d})", BUCKET, (d, d)))
+    cases.append({"label": f"bucket ({b},{s},{d})@({d},{d})", "op": "gemm",
+                  "shapes": [list(BUCKET), [d, d]], "kw": {}})
+    ema = {"alpha": 0.05, "beta": 0.95}
+    for n, k in ((D_MODEL, D_FF), (D_FF, D_MODEL)):
+        cases.append({"label": f"syrk L=GG^T A ({n},{k}) C ({n},{n})",
+                      "op": "syrk", "shapes": [[n, k], [n, n]], "kw": ema})
+    cases += [
+        {"label": f"symm sym(A) ({D_MODEL},{D_MODEL}) B ({D_MODEL},{D_FF})",
+         "op": "symm", "shapes": [[D_MODEL, D_MODEL], [D_MODEL, D_FF]],
+         "kw": {}},
+        {"label": f"syr2k A,B ({D_MODEL},{D_MODEL})", "op": "syr2k",
+         "shapes": [[D_MODEL, D_MODEL], [D_MODEL, D_MODEL]], "kw": {}},
+        {"label": f"trsm tril(A) ({D_MODEL},{D_MODEL}) B ({D_MODEL},{D_FF})",
+         "op": "trsm", "shapes": [[D_MODEL, D_MODEL], [D_MODEL, D_FF]],
+         "kw": {}},
+    ]
+    bt, m, n = STACKED_2D
+    for op, shapes in (("symm", [[bt, m, m], [bt, m, n]]),
+                       ("syrk", [[bt, m, n]]),
+                       ("syr2k", [[bt, m, n], [bt, m, n]]),
+                       ("trsm", [[bt, m, m], [bt, m, n]])):
+        cases.append({"label": f"{op} stacked {STACKED_2D}", "op": op,
+                      "shapes": shapes, "kw": {}})
     return cases
 
 
@@ -110,15 +171,30 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _bound(a_shape, b_shape) -> tuple[float, str]:
-    """Least ms the card needs for one GEMM: each operand read once, the
-    output written once, against the f32 operations at the CUDA-core peak."""
-    *lead, m, k = a_shape
-    n = b_shape[-1]
-    batch = lead[0] if lead else 1
-    flops = 2.0 * batch * m * n * k
-    nbytes = 4.0 * (batch * m * k + math.prod(b_shape) + batch * m * n)
-    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+def _bound(op: str, shapes, kw) -> tuple[float, str]:
+    """Least ms the card needs for one call: its BLAS operation count at
+    the f32 CUDA-core peak (gemm 2mnk, symm 2m^2n, syrk n^2k, syr2k 2n^2k,
+    trsm m^2n) against each input read once and the output written once
+    (a triangular or symmetric A counted as its lower triangle)."""
+    first = shapes[0]
+    batch = first[0] if len(first) == 3 else 1
+    with_c = kw.get("beta", 0.0) != 0.0
+    if op == "gemm":
+        m, k = first[-2:]
+        n = shapes[1][-1]
+        flops = 2.0 * batch * m * n * k
+        words = batch * m * k + math.prod(shapes[1]) + batch * m * n
+    elif op in ("symm", "trsm"):
+        m, n = first[-1], shapes[1][-1]
+        flops = batch * m * m * n * (2.0 if op == "symm" else 1.0)
+        words = batch * (m * (m + 1) / 2 + 2 * m * n)
+    else:
+        n, k = first[-2:]
+        two = op == "syr2k"
+        flops = batch * n * n * k * (2.0 if two else 1.0)
+        words = batch * ((2 if two else 1) * n * k + n * n
+                         + (n * (n + 1) / 2 if with_c else 0))
+    t_ops, t_bytes = flops / F32_PEAK_FLOPS, 4.0 * words / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -139,106 +215,158 @@ def _time_ms(torch, fn, sets, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import symm as S
+    from repro_torch.kernels import syrk as K
+    from repro_torch.kernels import trsm as T
+    return {"gemm": G.LAUNCHES, "symm": S.LAUNCHES,
+            "rank_k": K.LAUNCHES["rank_k"],
+            "rank_k_packed": K.LAUNCHES["rank_k_packed"],
+            "trsm": T.LAUNCHES}
+
+
+def _reset_launch_counts() -> None:
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import symm as S
+    from repro_torch.kernels import syrk as K
+    from repro_torch.kernels import trsm as T
+    G.LAUNCHES = S.LAUNCHES = T.LAUNCHES = 0
+    K.LAUNCHES.update(rank_k=0, rank_k_packed=0)
+
+
+def kernel_of(op: str, knob: dict) -> str:
+    """The kernel (a key of :data:`KERNELS`) a call of ``op`` under
+    ``knob`` runs."""
+    if op in ("syrk", "syr2k"):
+        return "rank_k_packed" if knob["variant"] == "tri_packed" \
+            else "rank_k"
+    return op
+
+
+def _expected_launches(op: str, knob: dict, shapes) -> dict:
+    if op == "trsm":
+        n_gemm = 2 * -(-shapes[0][-1] // knob["bm"]) - 1
+        return {"gemm": n_gemm, "trsm": n_gemm}
+    return {kernel_of(op, knob): 1}
+
+
+def make_operands(torch, gen, op: str, shapes):
+    """Seeded operands of a case on the card: standard normal, trsm's A
+    made diagonally dominant (``+ m * I``) and syrk's C symmetric."""
+    xs = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    if op == "trsm":
+        xs[0].diagonal(dim1=-2, dim2=-1).add_(shapes[0][-1])
+    if op == "syrk" and len(xs) == 2:
+        xs[1] = 0.5 * (xs[1] + xs[1].mT)
+    return xs
+
+
+def plain_of(op: str, knob: dict):
+    """The plain PyTorch version of ``op`` under ``knob`` (its variant)."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import symm as S
+    from repro_torch.kernels import syrk as K
+    from repro_torch.kernels import trsm as T
+    if op == "gemm":
+        return G.gemm_plain
+    if op == "symm":
+        return S.symm_plain
+    if op == "trsm":
+        return T.trsm_plain
+    if op == "syrk":
+        return lambda a, c=None, **kw: K.rank_k_plain(
+            a, None, c, variant=knob["variant"], **kw)
+    return lambda a, b, c=None, **kw: K.rank_k_plain(
+        a, b, c, variant=knob["variant"], **kw)
+
+
 # -- phase 5, in a fresh process --------------------------------------------
 
 def serve_main(registry_dir: str) -> None:
-    """Load the installed artifact into a new runtime and serve the main
-    path's GEMMs; prints one ``SERVE_RESULT {json}`` line."""
+    """Load the installed artifacts into a new runtime and serve the main
+    paths' calls; prints one ``SERVE_RESULT {json}`` line."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.core import AdsalaRuntime, ModelRegistry
-    from repro_torch.kernels import gemm as G
+    from repro_torch.core.knobs import Knob
     from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rt = AdsalaRuntime()
     loaded = ModelRegistry(registry_dir).load_into(rt, backend="hopper")
-    if loaded != 1 or not rt.has("gemm", 4, "hopper"):
-        raise SystemExit(f"expected hopper__gemm_b4.adsala in {registry_dir}, "
-                         f"loaded {loaded}")
+    missing = [op for op in ops.HOPPER_OPS if not rt.has(op, 4, "hopper")]
+    if loaded != len(ops.HOPPER_OPS) or missing:
+        raise SystemExit(f"expected hopper__{{op}}_b4.adsala for every op "
+                         f"in {registry_dir}, loaded {loaded}, missing "
+                         f"{missing}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [(label, torch.randn(a, generator=gen, device="cuda"),
-              torch.randn(b, generator=gen, device="cuda"))
-             for label, a, b in serve_cases()]
-    torch.cuda.synchronize()
+    rows, stacked = [], {}
 
-    G.LAUNCHES = 0
-    outs, per_call = [], []
-    for _label, a, b in cases:
-        before = G.LAUNCHES
-        outs.append(ops.run_op("gemm", (a, b), backend="hopper", runtime=rt))
-        per_call.append(G.LAUNCHES - before)
-    torch.cuda.synchronize()
-    launches = G.LAUNCHES
-
-    stats = rt.stats
-    rows, max_abs, max_rel = [], 0.0, 0.0
-    for (label, a, b), out, n in zip(cases, outs, per_call):
-        dims = ops.dims_of("gemm", (tuple(a.shape), tuple(b.shape)))
-        knob = rt.peek("gemm", dims, 4, "hopper")
-        plain = G.gemm_plain(a, b)
+    def call(case, operands, knob=None):
+        before = _launch_counts()
+        out = ops.run_op(case["op"], tuple(operands), backend="hopper",
+                         runtime=rt, knob=knob, **case["kw"])
+        after = _launch_counts()
+        torch.cuda.synchronize()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if knob is None:
+            dims = ops.dims_of(case["op"],
+                               tuple(tuple(x.shape) for x in operands))
+            knob = rt.peek(case["op"], dims, 4, "hopper")
+        kd = knob.dict
+        plain = plain_of(case["op"], kd)(*operands, **case["kw"])
         if tuple(out.shape) != tuple(plain.shape) or \
                 not bool(torch.isfinite(out).all()):
-            raise SystemExit(f"{label}: bad output {tuple(out.shape)}")
-        max_abs = max(max_abs, (out - plain).abs().max().item())
-        rel = _rel_err(out, plain)
-        max_rel = max(max_rel, rel)
-        rows.append({"label": label, "a": list(a.shape), "b": list(b.shape),
-                     "knob": knob.dict if knob is not None else None,
-                     "launches": n, "rel_err": rel})
+            raise SystemExit(f"{case['label']}: bad output "
+                             f"{tuple(out.shape)}")
+        want = _expected_launches(case["op"], kd, case["shapes"])
+        rows.append({**case, "knob": kd, "launches": launches,
+                     "expected_launches": want,
+                     "kernel": kernel_of(case["op"], kd),
+                     "rel_err": _rel_err(out, plain),
+                     "abs_err": (out - plain).abs().max().item()})
+        return out
+
+    _reset_launch_counts()
+    for case in serve_cases():
+        operands = make_operands(torch, gen, case["op"], case["shapes"])
+        call(case, operands)
+        if case["op"] in ("syrk", "syr2k") and "stacked" in case["label"]:
+            stacked[case["op"]] = (case, operands)
+        del operands
+    stats = rt.stats
+    served = len(rows)
+    # a caller that pins the variant: the stacked rank-k calls under each
+    # variant, with the tile the model chose
+    for op, (case, operands) in stacked.items():
+        model = dict(rows[[r["label"] for r in rows].index(case["label"])]
+                     ["knob"])
+        outs = {}
+        for variant in ("full", "tri", "tri_packed"):
+            knob = Knob(tuple(sorted({**model, "variant": variant}.items())))
+            outs[variant] = call({**case, "label": f"{case['label']} pinned "
+                                  f"{variant}", "pinned": True},
+                                 operands, knob)
+        if not torch.equal(outs["tri"].view(torch.int32),
+                           outs["tri_packed"].view(torch.int32)):
+            raise SystemExit(f"[serve] {op}: tri_packed != tri bit for bit")
+    launches = _launch_counts()
     print("SERVE_RESULT " + json.dumps({
-        "rows": rows, "launches": launches, "max_abs_err": max_abs,
-        "max_rel_err": max_rel, "model_evals": stats.model_evals,
+        "rows": rows, "served": served, "launches": launches,
+        "model_evals": stats.model_evals,
         "default_calls": stats.default_calls,
         "eval_failures": stats.eval_failures, "calls": stats.calls}),
         flush=True)
 
 
-# -- the main run -------------------------------------------------------------
+# -- phase 3 ----------------------------------------------------------------
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
+def check_gemm(torch, rand) -> None:
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import ops
-    from repro_torch.launch import calibrate
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t_start = time.perf_counter()
-
-    # 1. environment
-    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader").splitlines()[0]
-    print(f"[env] {card}", flush=True)
-    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}", flush=True)
-    print("[env] " + _sh(_build.nvcc_path(), "--version").splitlines()[-1],
-          flush=True)
-
-    # 2. build every kernel source, all nvcc runs started together
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        for name, _ in zip(KERNEL_SOURCES,
-                           pool.map(_build.build, KERNEL_SOURCES)):
-            for line in _build.ptxas_report(name).splitlines():
-                if "registers" in line or "spill" in line \
-                        or "Compiling entry" in line:
-                    print(f"[build:{name}] {line.strip()}")
-    build_s = time.perf_counter() - t0
-    print(f"[build] {build_s:.1f} s", flush=True)
-
-    # 3. the kernel against its plain version and a float64 oracle
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
     space = ops.knob_space_for("gemm")
     worst, worst_abs, checks, tf32_least = 0.0, 0.0, 0, math.inf
     for m, k, n in KERNEL_DIMS:
@@ -277,10 +405,10 @@ def main() -> int:
                             raise SystemExit(f"[kernel] {kd}: stacked item "
                                              f"{i} differs from per-item")
     torch.cuda.synchronize()
-    print(f"[kernel] {checks} checks over {len(space)} tiles: max rel err "
-          f"{worst:.3e} (< {F32_TOL}), max abs err vs plain {worst_abs:.3e}, "
-          f"stacked == per-item bit for bit; TF32-rounded inputs: least rel "
-          f"err {tf32_least:.3e} (> {F32_TOL})", flush=True)
+    print(f"[kernel:gemm] {checks} checks over {len(space)} tiles: max rel "
+          f"err {worst:.3e} (< {F32_TOL}), max abs err vs plain "
+          f"{worst_abs:.3e}, stacked == per-item bit for bit; TF32-rounded "
+          f"inputs: least rel err {tf32_least:.3e} (> {F32_TOL})", flush=True)
     # a yardstick only: the library's product with TF32 allowed
     a, b = rand(256, 512), rand(512, 384)
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -288,24 +416,261 @@ def main() -> int:
         lib_tf32 = _rel_err(torch.matmul(a, b), a.double() @ b.double())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"[kernel] torch.matmul with TF32 allowed at (256,512,384): rel "
-          f"err {lib_tf32:.3e}", flush=True)
+    print(f"[kernel:gemm] torch.matmul with TF32 allowed at (256,512,384): "
+          f"rel err {lib_tf32:.3e}", flush=True)
+
+
+def check_2d_ops(torch, rand) -> None:
+    """symm, syrk/syr2k and trsm under every candidate of their spaces."""
+    from repro_torch.backends import conformance as C
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import syrk as K
+    for op in ("symm", "syrk", "syr2k", "trsm"):
+        space = ops.knob_space_for(op)
+        dims_list = (*C.RAGGED_DIMS[op], ALIGNED_2D)
+        worst, checks = 0.0, 0
+        for knob in space:
+            for dims in dims_list:
+                for stacked, with_c in ((0, False), (0, True),
+                                        (STACK, True)):
+                    res = C.check_backend_op(
+                        "hopper", op, dims=dims, tol=F32_TOL, knob=knob,
+                        stacked=stacked, with_c=with_c, alpha=0.5, beta=2.0,
+                        seed=checks)
+                    checks += 1
+                    if not res.ok:
+                        raise SystemExit(f"[kernel:{op}] {res.line()}")
+                    worst = max(worst, res.rel_err)
+            # the stack equals its items bit for bit
+            x = [rand(STACK, *s) for s in _shapes_2d(op, (129, 257))]
+            if op == "trsm":
+                x[0].diagonal(dim1=-2, dim2=-1).add_(129)
+            kw = {} if op == "trsm" else {"alpha": 0.5, "beta": 2.0}
+            if op != "trsm":
+                x.append(rand(STACK, 129, 257 if op == "symm" else 129))
+            got = ops.HOPPER_OPS[op](*x, knob=knob, **kw)
+            for i in range(STACK):
+                one = ops.HOPPER_OPS[op](*(t[i] for t in x), knob=knob, **kw)
+                if not torch.equal(one, got[i]):
+                    raise SystemExit(f"[kernel:{op}] {knob}: stacked item "
+                                     f"{i} differs from per-item")
+        torch.cuda.synchronize()
+        print(f"[kernel:{op}] {checks} conformance checks over {len(space)} "
+              f"candidates x {dims_list} (single, C, stack of {STACK}): max "
+              f"rel err vs float64 {worst:.3e} (< {F32_TOL}); stacked == "
+              f"per-item bit for bit", flush=True)
+    # tri_packed == tri, bit for bit
+    pairs = 0
+    for op, fn in (("syrk", K.syrk), ("syr2k", K.syr2k)):
+        for n, k in (*C.RAGGED_DIMS[op], ALIGNED_2D):
+            x = [rand(n, k) for _ in range(1 if op == "syrk" else 2)]
+            c = rand(n, n)
+            for bm, bk in sorted(K.TILES):
+                for cc, beta in ((None, 0.0), (c, 2.0)):
+                    tri = fn(*x, cc, bm=bm, bk=bk, alpha=0.5, beta=beta,
+                             variant="tri")
+                    packed = fn(*x, cc, bm=bm, bk=bk, alpha=0.5, beta=beta,
+                                variant="tri_packed")
+                    pairs += 1
+                    if not torch.equal(tri.view(torch.int32),
+                                       packed.view(torch.int32)):
+                        raise SystemExit(f"[kernel:{op}] tri_packed != tri "
+                                         f"at {(n, k)} tile {bm}x{bk}")
+    torch.cuda.synchronize()
+    print(f"[kernel:rank_k] tri_packed == tri bit for bit in {pairs} pairs "
+          f"(syrk, syr2k; with and without C)", flush=True)
+
+
+def _shapes_2d(op: str, dims) -> list:
+    a, b = dims
+    if op in ("symm", "trsm"):
+        return [(a, a), (a, b)]
+    return [(a, b)] * (1 if op == "syrk" else 2)
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+def _kernel_fn(op: str, kd: dict, kw: dict):
+    """The kernel of ``op`` under the knob ``kd``, called on operands."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import symm as S
+    from repro_torch.kernels import syrk as K
+    from repro_torch.kernels import trsm as T
+    if op == "gemm":
+        return lambda x, y: G.gemm(x, y, bm=kd["bm"], bk=kd["bk"],
+                                   bn=kd["bn"])
+    if op == "symm":
+        return lambda x, y: S.symm(x, y, bm=kd["bm"], bn=kd["bn"])
+    if op == "trsm":
+        return lambda x, y: T.trsm(x, y, bm=kd["bm"], bn=kd["bn"])
+    fn = K.syrk if op == "syrk" else K.syr2k
+    return lambda *xs: fn(*xs, bm=kd["bm"], bk=kd["bn"],
+                          variant=kd["variant"], **kw)
+
+
+def _library_fn(torch, op: str, kw: dict, shapes):
+    """One PyTorch call (or two matmuls for syr2k) computing the same
+    function, and the operand transform it needs outside the timing."""
+    if op == "gemm":
+        return torch.matmul, None
+    if op == "symm":
+        from repro_torch.kernels.ref import sym_lower
+        return torch.matmul, lambda xs: [sym_lower(xs[0]), xs[1]]
+    if op == "trsm":
+        return (lambda a, b: torch.linalg.solve_triangular(a, b,
+                                                           upper=False),
+                None)
+    if op == "syrk":
+        if len(shapes) == 2:
+            return (lambda a, c: torch.addmm(c, a, a.mT, beta=kw["beta"],
+                                             alpha=kw["alpha"]), None)
+        return (lambda a: torch.matmul(a, a.mT)), None
+    return (lambda a, b: torch.matmul(a, b.mT) + torch.matmul(b, a.mT)), None
+
+
+def time_rows(torch, card: str, rows: list[dict]) -> dict:
+    """Phase 6: time every served call; returns per-kernel totals."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0, "ops_bound_ms": 0.0}
+              for name in KERNELS}
+    per_op = {}
+    for row in rows:
+        op, kw, shapes = row["op"], row["kw"], row["shapes"]
+        per_set = 4 * sum(math.prod(s) for s in shapes)
+        sets = [make_operands(torch, gen, op, shapes)
+                for _ in range(max(1, math.ceil(120e6 / per_set)))]
+        big = per_set > 200e6
+        ms = _time_ms(torch, _kernel_fn(op, row["knob"], kw), sets,
+                      iters=3 if big else 10)
+        plain = plain_of(op, row["knob"])
+        plain_ms = _time_ms(torch, lambda *xs: plain(*xs, **kw), sets,
+                            iters=3 if big else 10)
+        lib, prep = _library_fn(torch, op, kw, shapes)
+        lib_sets = [prep(s) for s in sets] if prep else sets
+        library_ms = _time_ms(torch, lib, lib_sets, iters=3 if big else 10)
+        del lib_sets
+        bound_ms, bound_by = _bound(op, shapes, kw)
+        t = totals[row["kernel"]]
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["library_ms"] += library_ms
+        t["bound_ms"] += bound_ms
+        if bound_by == "operations":
+            t["ops_bound_ms"] += bound_ms
+        line = (f"[times] [{card}] {row['label']}: {op} knob "
+                f"{_knob_str(op, row['knob'])} {ms:.4f} ms")
+        if row.get("pinned"):
+            print(f"{line} (pinned) | plain {plain_ms:.4f} ms | library "
+                  f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms "
+                  f"({bound_by}) | launches {row['launches']}", flush=True)
+            del sets
+            continue
+        default = ops.default_knob(op).dict
+        default_ms = _time_ms(torch, _kernel_fn(op, default, kw), sets,
+                              iters=3 if big else 10)
+        # every candidate of the space: the best the knob could have done
+        best_ms, best = min(
+            ((_time_ms(torch, _kernel_fn(op, k.dict, kw), sets,
+                       iters=1 if big else 3), k.dict)
+             for k in ops.knob_space_for(op)), key=lambda v: v[0])
+        del sets
+        acc = per_op.setdefault(op, {"ms": 0.0, "default_ms": 0.0,
+                                     "best_ms": 0.0})
+        acc["ms"] += ms
+        acc["default_ms"] += default_ms
+        acc["best_ms"] += best_ms
+        print(f"{line} | default {_knob_str(op, default)} "
+              f"{default_ms:.4f} ms | tuned/default {default_ms / ms:.3f}x "
+              f"| best {_knob_str(op, best)} {best_ms:.4f} ms (best/default "
+              f"{default_ms / best_ms:.3f}x) | plain {plain_ms:.4f} ms | "
+              f"library {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
+              f"({bound_by}) | launches {row['launches']}", flush=True)
+    for op, acc in per_op.items():
+        print(f"[times] [{card}] {op} served calls: tuned {acc['ms']:.4f} "
+              f"ms, default {acc['default_ms']:.4f} ms "
+              f"({acc['default_ms'] / acc['ms']:.3f}x), best knobs "
+              f"{acc['best_ms']:.4f} ms", flush=True)
+    return totals
+
+
+def _knob_str(op: str, kd: dict) -> str:
+    """A GEMM tile as bm x bk x bn; a 2-dim knob as bm x bn (its bk only
+    repeats bm), with the variant of syrk/syr2k."""
+    if op == "gemm":
+        return f"{kd['bm']}x{kd['bk']}x{kd['bn']}"
+    if op in ("syrk", "syr2k"):
+        return f"{kd['bm']}x{kd['bn']}/{kd['variant']}"
+    return f"{kd['bm']}x{kd['bn']}"
+
+
+# -- the main run -------------------------------------------------------------
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import calibrate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1. environment
+    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()[0]
+    print(f"[env] {card}", flush=True)
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}", flush=True)
+    print("[env] " + _sh(_build.nvcc_path(), "--version").splitlines()[-1],
+          flush=True)
+
+    # 2. build every kernel source, all nvcc runs started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        for name, _ in zip(KERNEL_SOURCES,
+                           pool.map(_build.build, KERNEL_SOURCES)):
+            for line in _build.ptxas_report(name).splitlines():
+                if "registers" in line or "spill" in line \
+                        or "Compiling entry" in line:
+                    print(f"[build:{name}] {line.strip()}")
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 3. every kernel against a float64 oracle and its plain version
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    check_gemm(torch, rand)
+    check_2d_ops(torch, rand)
+    print(f"[kernel] {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. install on the card, 5. serve from a fresh process
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        calibrate.main(["--out", str(tmp), *CALIBRATE_ARGS])
-        report = json.loads((tmp / "calibration_report.json").read_text())[0]
-        print(f"[install] {report['artifact']}: best {report['best_model']}, "
-              f"{report['n_samples']} dims x {report['n_knobs']} tiles, "
-              f"gather {report['gather_seconds']:.1f} s, total "
-              f"{report['wall_seconds']:.1f} s", flush=True)
-        for row in report["models"]:
-            print(f"[install] {row['name']}: estimated mean speedup "
-                  f"{row['estimated_mean_speedup']:.3f}, ideal "
-                  f"{row['ideal_mean_speedup']:.3f}, normalized rmse "
-                  f"{row['normalized_rmse']:.3f}, eval "
-                  f"{row['eval_time_us']:.1f} us")
+        for op in ops.HOPPER_OPS:
+            calibrate.main(["--out", str(tmp), "--ops", op, "--samples",
+                            str(CALIBRATE_SAMPLES[op]), *CALIBRATE_ARGS])
+        reports = json.loads((tmp / "calibration_report.json").read_text())
+        for report in reports:
+            print(f"[install] {report['artifact']}: best "
+                  f"{report['best_model']}, {report['n_samples']} dims x "
+                  f"{report['n_knobs']} knobs, gather "
+                  f"{report['gather_seconds']:.1f} s, total "
+                  f"{report['wall_seconds']:.1f} s", flush=True)
+            for row in report["models"]:
+                print(f"[install:{report['op']}] {row['name']}: estimated "
+                      f"mean speedup {row['estimated_mean_speedup']:.3f}, "
+                      f"ideal {row['ideal_mean_speedup']:.3f}, normalized "
+                      f"rmse {row['normalized_rmse']:.3f}, eval "
+                      f"{row['eval_time_us']:.1f} us")
         proc = subprocess.run(
             [sys.executable, "-c",
              f"import chip_smoke; chip_smoke.serve_main("
@@ -321,78 +686,50 @@ def main() -> int:
                              if line.startswith("SERVE_RESULT "))
                         .split(" ", 1)[1])
     for row in served["rows"]:
-        print(f"[serve] {row['label']}: knob {row['knob']} launches "
-              f"{row['launches']} rel err {row['rel_err']:.2e}")
+        print(f"[serve] {row['label']}: knob "
+              f"{_knob_str(row['op'], row['knob'])} "
+              f"launches {row['launches']} rel err vs plain "
+              f"{row['rel_err']:.2e}")
     print(f"[serve] model_evals {served['model_evals']} default_calls "
           f"{served['default_calls']} eval_failures "
-          f"{served['eval_failures']} launches {served['launches']}",
+          f"{served['eval_failures']} calls {served['calls']} for "
+          f"{served['served']} served calls; launches {served['launches']}",
           flush=True)
     if served["model_evals"] <= 0 or served["default_calls"] != 0 \
             or served["eval_failures"] != 0:
         raise SystemExit("[serve] decisions did not come from the model")
-    if any(row["launches"] < 1 for row in served["rows"]):
-        raise SystemExit("[serve] a call did not launch the kernel")
-    if not served["max_rel_err"] < F32_TOL:
-        raise SystemExit(f"[serve] rel err {served['max_rel_err']:.3e}")
-
-    # 6. times on the main path's shapes
-    default = ops.default_knob("gemm").dict
-    totals = {"ms": 0.0, "default_ms": 0.0, "best_ms": 0.0, "plain_ms": 0.0,
-              "library_ms": 0.0, "bound_ms": 0.0, "ops_bound_ms": 0.0}
     for row in served["rows"]:
-        a_shape, b_shape = tuple(row["a"]), tuple(row["b"])
-        per_set = 4 * (math.prod(a_shape) + math.prod(b_shape))
-        sets = [(rand(*a_shape), rand(*b_shape))
-                for _ in range(max(1, math.ceil(120e6 / per_set)))]
+        if row["launches"] != row["expected_launches"]:
+            raise SystemExit(f"[serve] {row['label']}: launches "
+                             f"{row['launches']}, expected "
+                             f"{row['expected_launches']}")
+        if not row["rel_err"] < F32_TOL:
+            raise SystemExit(f"[serve] {row['label']}: rel err "
+                             f"{row['rel_err']:.3e}")
+    unlaunched = [k for k in KERNELS if served["launches"][k] < 1]
+    if unlaunched:
+        raise SystemExit(f"[serve] the main paths never launched "
+                         f"{unlaunched}")
 
-        def tiled(kd):
-            return lambda x, y: G.gemm(x, y, bm=kd["bm"], bk=kd["bk"],
-                                       bn=kd["bn"])
-
-        ms = _time_ms(torch, tiled(row["knob"]), sets)
-        default_ms = _time_ms(torch, tiled(default), sets)
-        library_ms = _time_ms(torch, torch.matmul, sets)
-        plain_ms = _time_ms(torch, G.gemm_plain, sets)
-        bound_ms, bound_by = _bound(a_shape, b_shape)
-        # every tile of the space: the best the knob could have done here
-        best_ms, best = min(((_time_ms(torch, tiled(k.dict), sets, iters=3),
-                              k.dict) for k in space), key=lambda t: t[0])
-        del sets
-        for key, v in (("ms", ms), ("default_ms", default_ms),
-                       ("best_ms", best_ms), ("plain_ms", plain_ms),
-                       ("library_ms", library_ms), ("bound_ms", bound_ms)):
-            totals[key] += v
-        if bound_by == "operations":
-            totals["ops_bound_ms"] += bound_ms
-        print(f"[times] [{card}] {row['label']}: tuned {row['knob']['bm']}x"
-              f"{row['knob']['bk']}x{row['knob']['bn']} {ms:.4f} ms | default "
-              f"{default['bm']}x{default['bk']}x{default['bn']} "
-              f"{default_ms:.4f} ms | tuned/default speedup "
-              f"{default_ms / ms:.3f}x | library (torch.matmul) "
-              f"{library_ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
-              f"{bound_ms:.4f} ms ({bound_by}) | best tile "
-              f"{best['bm']}x{best['bk']}x{best['bn']} {best_ms:.4f} ms "
-              f"(best/default {default_ms / best_ms:.3f}x) | launches/call "
-              f"{row['launches']}", flush=True)
-    print(f"[times] [{card}] main path total: tuned {totals['ms']:.4f} ms, "
-          f"default {totals['default_ms']:.4f} ms "
-          f"({totals['default_ms'] / totals['ms']:.3f}x), best tiles "
-          f"{totals['best_ms']:.4f} ms, library "
-          f"{totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms",
-          flush=True)
+    # 6. times on the main paths' shapes
+    totals = time_rows(torch, card, served["rows"])
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "gemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gemm.cu",
-        "replaces": "src/repro/kernels/gemm.py:55",
-        "launches": served["launches"],
-        "max_abs_err": served["max_abs_err"],
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": ("operations" if 2 * totals["ops_bound_ms"]
-                     >= totals["bound_ms"] else "bytes"),
-        "library_ms": totals["library_ms"]}]}))
+    kernels = []
+    for name, (route, source, replaces) in KERNELS.items():
+        t = totals[name]
+        errs = [r["abs_err"] for r in served["rows"]
+                if (r["op"] == "trsm" if name == "trsm"
+                    else r["kernel"] == name and r["op"] != "trsm")]
+        kernels.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": served["launches"][name],
+            "max_abs_err": max(errs), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": ("operations" if 2 * t["ops_bound_ms"]
+                         >= t["bound_ms"] else "bytes"),
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

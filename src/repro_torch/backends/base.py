@@ -113,15 +113,32 @@ class Backend(abc.ABC):
         operands with numpy on the host; drawing them on the card keeps
         hundreds of MB of operands from crossing the bus for every
         sampled dims, at the price of other values than the reference's
-        for the same seed (the timings do not depend on the values)."""
-        if op != "gemm":
+        for the same seed (the timings do not depend on the values).
+
+        The shapes follow the reference's
+        ``kernels/cpu_blocked.py::make_operands``; trsm's A gets ``m * I``
+        added, which makes it diagonally dominant, so the timing sweep
+        solves well-conditioned systems."""
+        if op == "gemm":
+            m, k, n = dims
+            shapes = ((m, k), (k, n))
+        elif op in ("symm", "trmm", "trsm"):
+            m, n = dims
+            shapes = ((m, m), (m, n))
+        elif op == "syrk":
+            shapes = (tuple(dims),)
+        elif op == "syr2k":
+            shapes = (tuple(dims), tuple(dims))
+        else:
             raise ValueError(f"no calibration operands for {op!r} yet; "
-                             f"ported: gemm")
+                             f"known: gemm, symm, syrk, syr2k, trmm, trsm")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        m, k, n = dims
-        return tuple(torch.randn(shape, generator=gen, device=self.device,
-                                 dtype=dtype) for shape in ((m, k), (k, n)))
+        out = tuple(torch.randn(shape, generator=gen, device=self.device,
+                                dtype=dtype) for shape in shapes)
+        if op == "trsm":
+            out[0].diagonal().add_(dims[0])
+        return out
 
     # -- calibration ---------------------------------------------------------
     def timer_fn(self, op: str, dtype: torch.dtype = torch.float32, *,

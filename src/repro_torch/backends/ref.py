@@ -33,6 +33,8 @@ class RefBackend(Backend):
     def execute(self, op: str, operands: tuple, knob: Knob | None = None,
                 **kw) -> torch.Tensor:
         # the oracles broadcast over a leading batch axis, so a stack is one
-        # call
+        # call; syrk/syr2k read C as the knob's variant says
         from repro_torch.kernels.ref import REFS
+        if op in ("syrk", "syr2k") and knob is not None:
+            kw = {"variant": knob.dict.get("variant", "full"), **kw}
         return REFS[op](*self.prepare(operands), **kw)

@@ -10,9 +10,11 @@ of every candidate, run the argmin) only needs:
   * a scalar ``parallelism(candidate, dims)`` measure that plays the role of
     ``nt`` in the paper's Table-III features.
 
-On the H100 the knob is the CUDA GEMM kernel's tile ``(bm, bk, bn)``
-(:func:`hopper_knob_space`); its launch parameters (threads, shared memory)
-are derived from the tile, never tuned beside it.
+On the H100 the knob is the CUDA kernel's tile: ``(bm, bk, bn)`` for GEMM
+(:func:`hopper_knob_space`), ``(bm, bn)`` and the kernel variant for the
+2-dim subroutines (:func:`hopper_2d_knob_space`); launch parameters
+(threads, shared memory, a contraction step) are derived from the tile,
+never tuned beside it.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Any, Sequence
 import numpy as np
 
 __all__ = ["Knob", "KnobSpace", "block_knob_space", "hopper_knob_space",
-           "thread_knob_space", "HOPPER_TILES_MN", "HOPPER_TILES_K"]
+           "hopper_2d_knob_space", "thread_knob_space", "HOPPER_TILES_MN",
+           "HOPPER_TILES_K", "HOPPER_CONTRACTION_STEP", "HOPPER_2D_VARIANTS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,4 +188,75 @@ def hopper_knob_space(
         threads = bm * bn // HOPPER_ACC_PER_THREAD
         if smem <= HOPPER_SMEM_BYTES and threads <= HOPPER_MAX_THREADS:
             cands.append({"bm": bm, "bk": bk, "bn": bn, "variant": "full"})
+    return KnobSpace("blocks", cands, parallelism_fn=_grid_parallelism)
+
+
+#: contraction step of the kernels that take a bm x bn output tile and no
+#: bk of their own (symm, and the GEMMs of trsm): a launch parameter, never
+#: a candidate.  Every best tile of a 27-tile sweep of the GEMM kernel over
+#: the llama3-8b linears on an H100 had bk=64 (``chip_smoke.py``).
+HOPPER_CONTRACTION_STEP = 64
+
+#: the 2-dim subroutines with a Hopper kernel, and their kernel variants
+#: (the reference's ``kernels/ops.py::knob_space_for``)
+HOPPER_2D_VARIANTS = {"symm": ("full",), "syrk": ("full", "tri", "tri_packed"),
+                      "syr2k": ("full", "tri", "tri_packed"),
+                      "trsm": ("full",)}
+
+
+def _rank_k_smem_bytes(bm: int, bk: int, *, two: bool,
+                       dtype_bytes: int) -> int:
+    """Shared memory of a rank-k block: the transposed row tiles of A (and
+    B for syr2k) for rows i and j, and the packed kernel's output tile."""
+    operands = (4 if two else 2) * bk * (bm + 1)
+    return dtype_bytes * max(operands, bm * (bm + 1))
+
+
+def hopper_2d_knob_space(
+    op: str,
+    *,
+    bms: Sequence[int] = HOPPER_TILES_MN,
+    bns: Sequence[int] | None = None,
+    dtype_bytes: int = 4,
+) -> KnobSpace:
+    """H100 knob space of a 2-dim subroutine, with the reference's meaning
+    of each field (``src/repro/kernels/ops.py::knob_space_for``):
+
+    * symm and trsm: ``bm x bn`` is the output tile, edges from
+      :data:`HOPPER_TILES_MN`; the contraction step is
+      :data:`HOPPER_CONTRACTION_STEP`;
+    * syrk and syr2k: ``bm`` is the square output tile and ``bn`` the
+      contraction block, from :data:`HOPPER_TILES_K`; the variants are
+      ``full``, ``tri`` and ``tri_packed``.
+
+    ``bk`` repeats ``bm`` and is unused, as in the reference.  Tiles of
+    1024 threads (``bm * bn / 64`` or ``bm * bm / 64``) are left out: the
+    GEMM kernel's 256x256 tiles spill 1488-2696 bytes a thread (its
+    ``-Xptxas -v`` report for ``sm_90a``).  ``full`` and ``tri`` launch
+    the same grid and so share a feature row (:func:`_grid_parallelism`),
+    as in the reference.
+    """
+    if op not in HOPPER_2D_VARIANTS:
+        raise ValueError(f"no Hopper kernel for {op!r}; ported 2-dim ops: "
+                         f"{sorted(HOPPER_2D_VARIANTS)}")
+    rank_k = op in ("syrk", "syr2k")
+    if bns is None:
+        bns = HOPPER_TILES_K if rank_k else HOPPER_TILES_MN
+    for edge in bms:
+        if edge not in HOPPER_TILES_MN:
+            raise ValueError(f"no Hopper {op} instantiation for bm={edge}")
+    for edge in bns:
+        if edge not in (HOPPER_TILES_K if rank_k else HOPPER_TILES_MN):
+            raise ValueError(f"no Hopper {op} instantiation for bn={edge}")
+    cands = []
+    for bm, bn, var in itertools.product(bms, bns, HOPPER_2D_VARIANTS[op]):
+        if rank_k:
+            threads = bm * bm // HOPPER_ACC_PER_THREAD
+            smem = _rank_k_smem_bytes(bm, bn, two=op == "syr2k",
+                                      dtype_bytes=dtype_bytes)
+        else:
+            threads = bm * bn // HOPPER_ACC_PER_THREAD
+            smem = dtype_bytes * HOPPER_CONTRACTION_STEP * (bm + 1 + bn)
+        if smem <= HOPPER_SMEM_BYTES and threads < HOPPER_MAX_THREADS:
+            cands.append({"bm": bm, "bk": bm, "bn": bn, "variant": var})
     return KnobSpace("blocks", cands, parallelism_fn=_grid_parallelism)

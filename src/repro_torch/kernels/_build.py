@@ -2,10 +2,11 @@
 
 Each source under ``kernels/csrc/`` compiles, at its first use in a process,
 into one shared library with a plain C interface under ``build/repro_torch/``
-at the root of the checkout, named by a hash of the source and the flags, so
-an edited source builds anew and an unchanged one loads at once.  ``nvcc``'s
-``-Xptxas -v`` report (registers, shared memory and spill bytes of every
-instantiation) is kept beside the library.  Nothing is built when a module
+at the root of the checkout, named by a hash of the source, the headers of
+``csrc/`` and the flags, so an edited source or header builds anew and an
+unchanged one loads at once.  ``nvcc``'s ``-Xptxas -v`` report
+(registers, shared memory and spill bytes of every instantiation) is kept
+beside the library.  Nothing is built when a module
 is imported: the CPU tests import every module on hosts with no ``nvcc``.
 """
 
@@ -39,9 +40,11 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the headers of csrc/ count towards every source's hash
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

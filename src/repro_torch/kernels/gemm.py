@@ -107,21 +107,33 @@ def _check(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None,
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
-         bm: int, bk: int, bn: int, alpha: float = 1.0,
-         beta: float = 0.0) -> torch.Tensor:
-    """``alpha * A @ B + beta * C`` under the tile ``(bm, bk, bn)``.
+         bm: int, bk: int, bn: int, alpha: float = 1.0, beta: float = 0.0,
+         out: torch.Tensor | None = None) -> torch.Tensor:
+    """``alpha * A @ B + beta * C`` under the tile ``(bm, bk, bn)``, into
+    ``out`` when given (a view with the output's shape and unit inner
+    stride, such as a block row of a larger matrix; it may not overlap the
+    operands), else into a new tensor.
 
     On CUDA tensors this launches ``csrc/gemm.cu`` on the current stream
     (no synchronisation) and raises if the launch is refused; on CPU
     tensors it returns :func:`gemm_plain`."""
     global LAUNCHES
     m, k, n, batch = _check(a, b, c, bm, bk, bn)
+    shape = a.shape[:-1] + (n,)
+    if out is not None and (tuple(out.shape) != tuple(shape)
+                            or out.dtype != a.dtype or out.device != a.device
+                            or (out.numel() and out.stride(-1) != 1)):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} with strides {out.stride()} cannot "
+                         f"take the {tuple(shape)} result")
     if a.device.type == "cpu":
-        return gemm_plain(a, b, c, alpha=alpha, beta=beta)
+        res = gemm_plain(a, b, c, alpha=alpha, beta=beta)
+        return res if out is None else out.copy_(res)
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM kernel for device {a.device}")
     has_c = c is not None and beta != 0.0
-    out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
+    if out is None:
+        out = torch.empty(shape, dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
     stacked = batch is not None

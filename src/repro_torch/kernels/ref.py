@@ -9,18 +9,26 @@ package's ``kernels/ref.py``, same semantics, paper Table I):
   trsm : solve tril(A)@X = alpha*B     (left, lower, non-unit)
 
 Symmetric operands are stored in the lower triangle; syrk/syr2k return the
-full symmetric matrix.  All broadcast over a leading batch axis.
+full symmetric matrix.  syrk/syr2k read C as lower-stored (BLAS, and the
+reference's Pallas ``tri``/``tri_packed``) unless ``variant="full"`` asks
+for C as given, both triangles, as the reference's Pallas ``full`` adds
+it.  All broadcast over a leading batch axis.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gemm", "symm", "syrk", "syr2k", "trmm", "trsm", "REFS"]
+__all__ = ["gemm", "symm", "syrk", "syr2k", "trmm", "trsm", "sym_lower",
+           "REFS"]
 
 
-def _sym_lower(a):
-    return torch.tril(a) + torch.tril(a, -1).transpose(-1, -2)
+def sym_lower(a: torch.Tensor) -> torch.Tensor:
+    """The symmetric matrix whose lower triangle ``a`` stores: each element
+    taken from where it is stored, by selection (no arithmetic)."""
+    lower = torch.ones(a.shape[-2:], dtype=torch.bool,
+                       device=a.device).tril_()
+    return torch.where(lower, a, a.mT)
 
 
 def gemm(a, b, c=None, *, alpha=1.0, beta=0.0):
@@ -31,23 +39,27 @@ def gemm(a, b, c=None, *, alpha=1.0, beta=0.0):
 
 
 def symm(a, b, c=None, *, alpha=1.0, beta=0.0):
-    out = alpha * (_sym_lower(a) @ b)
+    out = alpha * (sym_lower(a) @ b)
     if c is not None and beta != 0.0:
         out = out + beta * c
     return out.to(a.dtype)
 
 
-def syrk(a, c=None, *, alpha=1.0, beta=0.0):
+def _rank_k_c(c, variant):
+    return c if variant == "full" else sym_lower(c)
+
+
+def syrk(a, c=None, *, alpha=1.0, beta=0.0, variant="tri"):
     out = alpha * (a @ a.transpose(-1, -2))
     if c is not None and beta != 0.0:
-        out = out + beta * _sym_lower(c)
+        out = out + beta * _rank_k_c(c, variant)
     return out.to(a.dtype)
 
 
-def syr2k(a, b, c=None, *, alpha=1.0, beta=0.0):
+def syr2k(a, b, c=None, *, alpha=1.0, beta=0.0, variant="tri"):
     out = alpha * (a @ b.transpose(-1, -2) + b @ a.transpose(-1, -2))
     if c is not None and beta != 0.0:
-        out = out + beta * _sym_lower(c)
+        out = out + beta * _rank_k_c(c, variant)
     return out.to(a.dtype)
 
 

@@ -1,0 +1,191 @@
+"""SYRK / SYR2K on the H100, lower-triangle rank-k updates, with CUDA C++
+kernels written for Hopper:
+
+  syrk : O = alpha * A @ A^T + beta * C            A (n, k), C (n, n)
+  syr2k: O = alpha * (A @ B^T + B @ A^T) + beta * C
+
+They take the place of the reference package's Pallas kernels
+(``src/repro/kernels/syrk.py``) with the same three variants, which the
+ADSALA knob selects:
+
+* ``full`` (``csrc/rank_k.cu``): every output tile is computed, both
+  triangles, and C is added as given, both triangles (the reference's
+  ``full`` reads C as it is; the other variants read it as lower-stored).
+* ``tri`` (``csrc/rank_k.cu``): the whole tile grid is launched, the tiles
+  above the diagonal do no arithmetic, C's strict upper triangle counts as
+  zero, and :func:`~repro_torch.kernels.ref.sym_lower` then copies the
+  lower triangle into the upper one (the reference's ``tril + tril^T``
+  post-pass, here by selection).
+* ``tri_packed`` (``csrc/rank_k_packed.cu``): only the ``nb (nb + 1) / 2``
+  lower tiles are launched; each block writes its tile and the tile's
+  mirror.  It equals ``tri`` bit for bit.
+
+The knob's ``bm`` is the square output tile and its ``bn`` the contraction
+block (the reference's ``bk = kb["bn"]``).  A leading batch axis is the
+kernels' grid z; ragged n and k need no padding.  C is read only when
+``beta != 0`` and a C was given.
+
+:func:`syrk` and :func:`syr2k` launch a kernel for CUDA tensors and count it
+in :data:`LAUNCHES` under the kernel's name; for CPU tensors they compute
+:func:`rank_k_plain`, the plain PyTorch version the tests and the chip smoke
+compare the kernels with.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
+
+from . import _build
+from .ref import sym_lower
+
+__all__ = ["syrk", "syr2k", "rank_k_plain", "LAUNCHES", "TILES", "VARIANTS"]
+
+#: kernel launches by kernel name (one per call on a CUDA tensor)
+LAUNCHES = {"rank_k": 0, "rank_k_packed": 0}
+
+#: the ``(bm, bk)`` tiles both kernels are instantiated for (bk = knob bn)
+TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("syrk"))
+VARIANTS = HOPPER_2D_VARIANTS["syrk"]
+
+#: grid x / y / z limits of a launch
+_MAX_GRID_X = 2 ** 31 - 1
+_MAX_GRID_YZ = 65535
+
+_C_LL = ctypes.c_longlong
+_COMMON = [ctypes.c_int, ctypes.c_int,                          # bm, bk
+           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # A, B, C
+           ctypes.c_void_p,                                     # O
+           ctypes.c_int, ctypes.c_int, ctypes.c_int,            # n, k, batch
+           _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
+           ctypes.c_float, ctypes.c_float,                      # alpha, beta
+           ctypes.c_int]                                        # two
+_ARGTYPES = {"rank_k": _COMMON + [ctypes.c_int, ctypes.c_int,   # tri, has_c
+                                  ctypes.c_void_p],             # stream
+             "rank_k_packed": _COMMON + [ctypes.c_int,          # has_c
+                                         ctypes.c_void_p]}      # stream
+
+
+def _launcher(kernel: str):
+    fn = getattr(_build.load(kernel), f"repro_{kernel}_f32")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[kernel]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rank_k_plain(a: torch.Tensor, b: torch.Tensor | None = None,
+                 c: torch.Tensor | None = None, *, alpha: float = 1.0,
+                 beta: float = 0.0, variant: str = "full") -> torch.Tensor:
+    """The plain PyTorch version of the kernels, per variant: syrk when
+    ``b`` is None, else syr2k, in float32.  ``full`` adds C as given;
+    ``tri`` and ``tri_packed`` add its lower triangle and mirror the
+    result's lower triangle into the upper one."""
+    if variant not in VARIANTS:
+        raise ValueError(f"no rank-k variant {variant!r}")
+    a = a.float()
+    if b is None:
+        prod = torch.matmul(a, a.mT)
+    else:
+        b = b.float()
+        prod = torch.matmul(a, b.mT) + torch.matmul(b, a.mT)
+    out = alpha * prod
+    if c is not None and beta != 0.0:
+        c = c.float()
+        out = out + beta * (c if variant == "full" else torch.tril(c))
+    if variant != "full":
+        out = sym_lower(out)
+    return out
+
+
+def _check(a, b, c, bm, bk, variant) -> tuple[int, int, int | None]:
+    if (bm, bk) not in TILES:
+        raise ValueError(f"no rank-k kernel for tile bm={bm} bk={bk}")
+    if variant not in VARIANTS:
+        raise ValueError(f"no rank-k variant {variant!r}")
+    if a.dim() not in (2, 3):
+        raise ValueError(f"A must be 2-D or 3-D, got {tuple(a.shape)}")
+    if b is not None and tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"B {tuple(b.shape)} must have A's shape "
+                         f"{tuple(a.shape)}")
+    batch = a.shape[0] if a.dim() == 3 else None
+    n, k = a.shape[-2:]
+    for t in (a, b, c):
+        if t is None:
+            continue
+        if t.device != a.device:
+            raise ValueError(f"operands on {t.device} and {a.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the rank-k kernels take float32, got {t.dtype}")
+        if t.numel() and t.stride(-1) != 1:
+            raise ValueError("the rank-k kernels need rows with unit inner "
+                             f"stride, got strides {t.stride()}")
+    want = a.shape[:-1] + (n,)
+    if c is not None and tuple(c.shape) != tuple(want):
+        raise ValueError(f"C {tuple(c.shape)} must have the output's shape "
+                         f"{tuple(want)}")
+    nb = -(-n // bm)
+    if (batch or 1) > _MAX_GRID_YZ or nb > _MAX_GRID_YZ \
+            or nb * (nb + 1) // 2 > _MAX_GRID_X:
+        raise ValueError(f"n={n} or batch={batch} beyond one launch's grid")
+    return n, k, batch
+
+
+def _rank_k(a, b, c, *, bm, bk, alpha, beta, variant) -> torch.Tensor:
+    n, k, batch = _check(a, b, c, bm, bk, variant)
+    if a.device.type == "cpu":
+        return rank_k_plain(a, b, c, alpha=alpha, beta=beta,
+                            variant=variant)
+    if a.device.type != "cuda":
+        raise ValueError(f"no rank-k kernel for device {a.device}")
+    has_c = c is not None and beta != 0.0
+    two = b is not None
+    out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    stacked = batch is not None
+    kernel = "rank_k_packed" if variant == "tri_packed" else "rank_k"
+    flags = (int(two), int(variant == "tri"), int(has_c)) \
+        if kernel == "rank_k" else (int(two), int(has_c))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _launcher(kernel)(
+            bm, bk, a.data_ptr(), b.data_ptr() if two else None,
+            c.data_ptr() if has_c else None, out.data_ptr(), n, k,
+            batch or 1,
+            a.stride(0) if stacked else 0, a.stride(-2),
+            b.stride(0) if two and stacked else 0, b.stride(-2) if two else 0,
+            c.stride(0) if has_c and stacked else 0,
+            c.stride(-2) if has_c else 0,
+            out.stride(0) if stacked else 0, out.stride(-2),
+            float(alpha), float(beta), *flags, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
+                           f"{rc} (tile {bm}x{bk}, variant {variant}, "
+                           f"A {tuple(a.shape)})")
+    LAUNCHES[kernel] += 1
+    if variant == "tri":
+        out = sym_lower(out)
+    return out
+
+
+def syrk(a: torch.Tensor, c: torch.Tensor | None = None, *, bm: int, bk: int,
+         alpha: float = 1.0, beta: float = 0.0,
+         variant: str = "full") -> torch.Tensor:
+    """``alpha * A @ A^T + beta * C`` under the output tile ``bm``, the
+    contraction block ``bk`` and ``variant``.  Launches a kernel on the
+    current stream for CUDA tensors (no synchronisation; raises if the
+    launch is refused); computes :func:`rank_k_plain` for CPU tensors."""
+    return _rank_k(a, None, c, bm=bm, bk=bk, alpha=alpha, beta=beta,
+                   variant=variant)
+
+
+def syr2k(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
+          bm: int, bk: int, alpha: float = 1.0, beta: float = 0.0,
+          variant: str = "full") -> torch.Tensor:
+    """``alpha * (A @ B^T + B @ A^T) + beta * C``; as :func:`syrk`."""
+    return _rank_k(a, b, c, bm=bm, bk=bk, alpha=alpha, beta=beta,
+                   variant=variant)

@@ -10,7 +10,10 @@ Runs the full pipeline per BLAS L3 subroutine × precision:
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.calibrate \
-        --out runs/adsala_torch --samples 60 --ops gemm --precisions s
+        --out runs/adsala_torch --samples 60 --ops gemm,symm --precisions s
+
+``--ops`` defaults to every subroutine the backend lists (for ``hopper``:
+gemm, symm, syrk, syr2k and trsm), so the default grows as the port does.
 
 ``--backend`` selects the execution backend being calibrated (default
 ``hopper``); each artifact is backend-tagged (``hopper__gemm_b4.adsala``).
@@ -31,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.backends import resolve_backend
+from repro_torch.backends import get_backend, resolve_backend
 from repro_torch.core import ModelRegistry, install_subroutine
 
 PRECISIONS = {"s": torch.float32, "d": torch.float64}
@@ -94,7 +97,9 @@ def main(argv=None) -> None:
     p.add_argument("--backend", default=DEFAULT_BACKEND)
     p.add_argument("--device", default=None,
                    help="device to calibrate on (default: the backend's)")
-    p.add_argument("--ops", default="gemm")
+    p.add_argument("--ops", default="",
+                   help="comma-separated subroutines (default: every op "
+                        "the backend lists)")
     p.add_argument("--precisions", default="s")
     p.add_argument("--samples", type=int, default=100)
     p.add_argument("--dim-lo", type=int, default=8)
@@ -116,7 +121,9 @@ def main(argv=None) -> None:
     reports = []
     if report_path.exists():
         reports = json.loads(report_path.read_text())
-    for op in args.ops.split(","):
+    ops = [op for op in args.ops.split(",") if op] \
+        or list(get_backend(args.backend).ops())
+    for op in ops:
         for prec in args.precisions.split(","):
             print(f"[calibrate] {args.backend}:{op}/{prec} ...", flush=True)
             entry = calibrate_one(

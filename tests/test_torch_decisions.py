@@ -54,31 +54,33 @@ def datasets():
     return port_ds, ref_ds
 
 
-def _grid():
+def _grid(ndims: int = 3):
     rng = np.random.default_rng(9)
     fixed = [(8, 4096, 4096), (2048, 4096, 14336), (1, 300, 384),
-             (129, 65, 257), (16384, 16, 16384)]
-    return fixed + [tuple(int(v) for v in rng.integers(8, 16384, size=3))
+             (129, 65, 257), (16384, 16, 16384)] if ndims == 3 else \
+        [(4096, 14336), (14336, 4096), (4096, 4096), (512, 512), (1, 384),
+         (129, 257), (16384, 16)]
+    return fixed + [tuple(int(v) for v in rng.integers(8, 16384, size=ndims))
                     for _ in range(20)]
 
 
-def _install(pkg, ds, candidates):
-    return pkg.install_subroutine("gemm", ds.knob_space, None, dataset=ds,
+def _install(pkg, ds, candidates, op="gemm"):
+    return pkg.install_subroutine(op, ds.knob_space, None, dataset=ds,
                                   candidates=candidates, tune_trials=1,
                                   seed=0, backend="hopper")
 
 
-def _assert_same_decisions(port_sub, ref_sub):
+def _assert_same_decisions(port_sub, ref_sub, op="gemm"):
     assert port_sub.model_name == ref_sub.model_name
     port_rt, ref_rt = core.AdsalaRuntime(), ref_core.AdsalaRuntime()
     port_rt.register(port_sub)
     ref_rt.register(ref_sub)
-    for dims in _grid():
+    for dims in _grid(3 if op == "gemm" else 2):
         assert np.array_equal(port_sub.predict_times(dims),
                               ref_sub.predict_times(dims))
         assert port_sub.select(dims).dict == ref_sub.select(dims).dict
-        assert port_rt.select("gemm", dims, 4, backend="hopper").dict == \
-            ref_rt.select("gemm", dims, 4, backend="hopper").dict
+        assert port_rt.select(op, dims, 4, backend="hopper").dict == \
+            ref_rt.select(op, dims, 4, backend="hopper").dict
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -120,3 +122,60 @@ def test_reference_artifact_carried_across(datasets, family):
     # and through the port's own JSON artifact encoding
     again = subroutine_from_state(core.unpack_state(pack_state(state)))
     _assert_same_decisions(again, ref_sub)
+
+
+# -- the 2-dim subroutines ----------------------------------------------------
+
+def _cost_2d(op: str, dims: np.ndarray, cands: list[dict]) -> np.ndarray:
+    """A seeded synthetic cost surface over (dims, knob) for a 2-dim op: the
+    op's operations at a tile-dependent rate (the rank-k variants doing the
+    full product, the lower triangle plus idle blocks, or the packed
+    triangle), wave quantisation over 132 SMs, a per-CTA cost and
+    lognormal noise."""
+    rng = np.random.default_rng(7)
+    out = np.empty((dims.shape[0], len(cands)))
+    for i, (d0, d1) in enumerate(dims.astype(np.float64)):
+        for j, c in enumerate(cands):
+            bm, bn = c["bm"], c["bn"]
+            if op in ("syrk", "syr2k"):
+                tiles = np.ceil(d0 / bm)
+                ctas = tiles * tiles if c["variant"] != "tri_packed" \
+                    else tiles * (tiles + 1) / 2
+                live = tiles * tiles if c["variant"] == "full" \
+                    else tiles * (tiles + 1) / 2
+                work = live * bm * bm * d1 * (2 if op == "syr2k" else 1)
+                rate = 1e10 * bm / (1 + 16.0 / bn)
+            else:
+                ctas = np.ceil(d0 / bm) * np.ceil(d1 / bn)
+                work = ctas * bm * bn * d0
+                rate = 1e10 * (bm * bn) ** 0.5
+            waves = np.ceil(ctas / 132.0)
+            out[i, j] = work / rate * waves / max(ctas / 132.0, 1.0) \
+                + 3e-6 + 1e-8 * ctas
+    return 1e4 * out * rng.lognormal(0.0, 0.03, size=out.shape)
+
+
+@pytest.fixture(scope="module", params=("symm", "syrk", "syr2k", "trsm"))
+def datasets_2d(request):
+    op = request.param
+    cands = [k.dict for k in ops.knob_space_for(op)]
+    dims = core.sample_dims(48, 2, lo=8, hi=16384, seed=4)
+    times = _cost_2d(op, dims, cands)
+    port_space = knobs.KnobSpace("blocks", cands,
+                                 parallelism_fn=knobs._grid_parallelism)
+    ref_space = ref_knobs.KnobSpace("blocks", cands,
+                                    parallelism_fn=ref_knobs._grid_parallelism)
+    port_ds = core.TimingDataset(op=op, dims=dims, times=times,
+                                 knob_space=port_space, dtype_bytes=4)
+    ref_ds = ref_core.TimingDataset(op=op, dims=dims.copy(),
+                                    times=times.copy(), knob_space=ref_space,
+                                    dtype_bytes=4)
+    return op, port_ds, ref_ds
+
+
+@pytest.mark.parametrize("family", ("LinearRegression", "DecisionTree",
+                                    "KNN"))
+def test_2d_install_decides_as_reference(datasets_2d, family):
+    op, port_ds, ref_ds = datasets_2d
+    _assert_same_decisions(_install(core, port_ds, (family,), op),
+                           _install(ref_core, ref_ds, (family,), op), op)

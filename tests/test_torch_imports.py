@@ -21,6 +21,8 @@ def test_import_loads_no_jax_repro_or_msgpack():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.kernels.ops, "
+        "repro_torch.kernels.symm, repro_torch.kernels.syrk, "
+        "repro_torch.kernels.trsm, repro_torch.backends.conformance, "
         "repro_torch.launch.calibrate\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"

@@ -59,12 +59,104 @@ def test_default_knob_is_max_parallelism():
                              (4096, 4096, 4096)) == par.max()
 
 
-@pytest.mark.parametrize("op", ("symm", "syrk", "syr2k", "trmm", "trsm"))
+@pytest.mark.parametrize("op", ("trmm",))
 def test_unported_ops_have_no_hopper_space(op):
     with pytest.raises(ValueError):
         ops.knob_space_for(op)
     with pytest.raises(ValueError):
         ops.dims_of(op, ((48, 48), (48, 40)))
+
+
+#: the 2-dim spaces: (bm, bn) pairs and variants
+SPACES_2D = {
+    "symm": ({(bm, bn) for bm in (64, 128, 256) for bn in (64, 128, 256)}
+             - {(256, 256)}, ("full",)),
+    "trsm": ({(bm, bn) for bm in (64, 128, 256) for bn in (64, 128, 256)}
+             - {(256, 256)}, ("full",)),
+    "syrk": ({(bm, bn) for bm in (64, 128) for bn in (16, 32, 64)},
+             ("full", "tri", "tri_packed")),
+    "syr2k": ({(bm, bn) for bm in (64, 128) for bn in (16, 32, 64)},
+              ("full", "tri", "tri_packed")),
+}
+
+
+@pytest.mark.parametrize("op", sorted(SPACES_2D))
+def test_2d_spaces_hold_the_instantiated_tiles_and_variants(op):
+    pairs, variants = SPACES_2D[op]
+    space = ops.knob_space_for(op)
+    assert len(space) == len(pairs) * len(variants)
+    assert {(k["bm"], k["bn"]) for k in space} == pairs
+    assert {k["variant"] for k in space} == set(variants)
+    # bk repeats bm and is unused, as in the reference's 2-dim spaces
+    assert all(k["bk"] == k["bm"] for k in space)
+    assert space.name == "blocks"
+    assert space._parallelism_fn is knobs._grid_parallelism
+
+
+@pytest.mark.parametrize("op", sorted(SPACES_2D))
+def test_2d_spaces_leave_out_tiles_of_1024_threads(op):
+    for k in ops.knob_space_for(op):
+        side = k["bm"] if op in ("syrk", "syr2k") else k["bn"]
+        assert k["bm"] * side // 64 < 1024
+
+
+def test_rank_k_space_fields_keep_the_reference_meaning():
+    # bm is the square output tile, bn the contraction block (the
+    # reference's bk = kb["bn"]); the contraction blocks are the GEMM's bk
+    for op in ("syrk", "syr2k"):
+        assert {k["bn"] for k in ops.knob_space_for(op)} == \
+            set(knobs.HOPPER_TILES_K)
+    ref = ref_ops.knob_space_for("syrk")
+    assert {k["variant"] for k in ref} == \
+        {k["variant"] for k in ops.knob_space_for("syrk")}
+
+
+def test_2d_space_sizes_restrict_the_output_tile():
+    space = ops.knob_space_for("symm", sizes=(64, 128))
+    assert {(k["bm"], k["bn"]) for k in space} == \
+        {(bm, bn) for bm in (64, 128) for bn in (64, 128)}
+    space = ops.knob_space_for("syrk", sizes=(64,))
+    assert {k["bm"] for k in space} == {64} and len(space) == 9
+
+
+@pytest.mark.parametrize("kw", [{"bms": (32,)}, {"bns": (512,)}])
+@pytest.mark.parametrize("op", ("symm", "syrk"))
+def test_2d_space_refuses_tiles_without_a_kernel(op, kw):
+    with pytest.raises(ValueError):
+        knobs.hopper_2d_knob_space(op, **kw)
+
+
+@pytest.mark.parametrize("op,want", [
+    ("symm", (64, 64, "full")), ("trsm", (64, 64, "full")),
+    ("syrk", (64, 16, "full")), ("syr2k", (64, 16, "full"))])
+def test_2d_default_knob_is_max_parallelism(op, want):
+    kd = ops.default_knob(op).dict
+    assert (kd["bm"], kd["bn"], kd["variant"]) == want
+    space = ops.knob_space_for(op)
+    par = space.parallelism_vec((4096, 4096))
+    assert space.parallelism(ops.default_knob(op), (4096, 4096)) == par.max()
+
+
+@pytest.mark.parametrize("op,shapes", [
+    ("symm", ((48, 48), (48, 40))), ("symm", ((3, 129, 129), (3, 129, 257))),
+    ("syrk", ((129, 257),)), ("syrk", ((5, 1, 384), (5, 1, 1))),
+    ("syr2k", ((300, 300), (300, 300))), ("syr2k", ((4096, 14336),) * 2),
+    ("trsm", ((4096, 4096), (4096, 14336))), ("trsm", ((8, 512, 512),) * 2),
+])
+def test_2d_dims_of_matches_reference_and_ignores_batch(op, shapes):
+    got = ops.dims_of(op, shapes)
+    assert got == ref_ops.dims_of(op, shapes)
+    assert got == ops.dims_of(op, tuple(s[-2:] for s in shapes))
+
+
+@pytest.mark.parametrize("op", sorted(SPACES_2D))
+def test_2d_grid_parallelism_matches_reference(op):
+    dims_list = [(1, 384), (129, 257), (4096, 14336), (14336, 4096)]
+    for cand in ops.knob_space_for(op):
+        ref_knob = ref_knobs.Knob(cand.values)
+        for dims in dims_list:
+            assert knobs._grid_parallelism(cand, dims) == \
+                ref_knobs._grid_parallelism(ref_knob, dims)
 
 
 @pytest.mark.parametrize("shapes", [

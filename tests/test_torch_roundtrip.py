@@ -31,19 +31,26 @@ def installed(tmp_path_factory):
 
 
 def test_calibrate_writes_hopper_artifact(installed):
+    # --ops defaults to every op the hopper backend lists
     models = installed / "models"
-    assert (models / "hopper__gemm_b4.adsala").exists()
     report = json.loads((installed / "calibration_report.json").read_text())
     assert [(r["backend"], r["op"], r["prec"], r["device"])
-            for r in report] == [("hopper", "gemm", "s", "cpu")]
-    assert report[0]["n_knobs"] == 12
-    assert (installed / "datasets" / "hopper__gemm_s.npz").exists()
+            for r in report] == [("hopper", op, "s", "cpu")
+                                 for op in ops.HOPPER_OPS]
+    # --sizes 64,128: 2x3x2 GEMM tiles, 2x2 symm/trsm output tiles, and
+    # 2 square tiles x 3 contraction blocks x 3 variants for syrk/syr2k
+    assert {r["op"]: r["n_knobs"] for r in report} == \
+        {"gemm": 12, "symm": 4, "syrk": 18, "syr2k": 18, "trsm": 4}
+    for op in ops.HOPPER_OPS:
+        assert (models / f"hopper__{op}_b4.adsala").exists()
+        assert (installed / "datasets" / f"hopper__{op}_s.npz").exists()
 
 
 def test_fresh_runtime_serves_model_chosen_knob(installed):
     rt = AdsalaRuntime()
-    assert ModelRegistry(installed / "models").load_into(rt) == 1
-    assert rt.has("gemm", 4, "hopper")
+    assert ModelRegistry(installed / "models").load_into(rt) == \
+        len(ops.HOPPER_OPS)
+    assert all(rt.has(op, 4, "hopper") for op in ops.HOPPER_OPS)
     rng = np.random.default_rng(0)
     a = rng.standard_normal((2, 40, 24)).astype(np.float32)
     b = rng.standard_normal((24, 56)).astype(np.float32)
@@ -99,7 +106,7 @@ def test_backend_binding_and_dtypes():
     assert be.supports_dtype(torch.float32)
     assert be.supports_dtype(np.float32)
     assert not be.supports_dtype(torch.float64)
-    assert be.ops() == ("gemm",)
+    assert be.ops() == ("gemm", "symm", "syrk", "syr2k", "trsm")
     with pytest.raises(ValueError, match="float64"):
         calibrate.calibrate_one("gemm", "d", None, backend="hopper",
                                 samples=2, dim_lo=8, dim_hi=16,
@@ -114,8 +121,8 @@ def test_calibration_operands_are_seeded_on_the_device():
     assert [t.shape for t in x] == [(5, 7), (7, 3)]
     assert all(torch.equal(p, q) for p, q in zip(x, y))
     assert x[0].device.type == "cpu" and x[0].dtype == torch.float32
-    with pytest.raises(ValueError, match="symm"):
-        be.make_operands("symm", (5, 3))
+    with pytest.raises(ValueError, match="herk"):
+        be.make_operands("herk", (5, 3))
 
 
 def test_timer_propagates_failures():
