@@ -42,11 +42,6 @@ class Backend(abc.ABC):
     #: registry key; also the tag on persisted artifacts and runtime caches
     name: str = "abstract"
 
-    #: True when execute_stacked compiles one executable per batch width
-    #: (the serving layer then pads buckets to canonical widths).  The
-    #: port's kernels take the batch as a grid axis, so nothing recompiles.
-    jit_stacked: bool = False
-
     def __init__(self, *, device: torch.device | str = "cuda") -> None:
         self.device = torch.device(device)
 

@@ -192,15 +192,16 @@ def hopper_knob_space(
 
 
 #: contraction step of the kernels that take a bm x bn output tile and no
-#: bk of their own (symm, and the GEMMs of trsm): a launch parameter, never
-#: a candidate.  Every best tile of a 27-tile sweep of the GEMM kernel over
-#: the llama3-8b linears on an H100 had bk=64 (``chip_smoke.py``).
+#: bk of their own (symm, trmm, and the GEMMs of trsm): a launch parameter,
+#: never a candidate.  Every best tile of a 27-tile sweep of the GEMM kernel
+#: over the llama3-8b linears on an H100 had bk=64 (``chip_smoke.py``).
 HOPPER_CONTRACTION_STEP = 64
 
 #: the 2-dim subroutines with a Hopper kernel, and their kernel variants
 #: (the reference's ``kernels/ops.py::knob_space_for``)
 HOPPER_2D_VARIANTS = {"symm": ("full",), "syrk": ("full", "tri", "tri_packed"),
                       "syr2k": ("full", "tri", "tri_packed"),
+                      "trmm": ("full", "tri", "tri_packed"),
                       "trsm": ("full",)}
 
 
@@ -222,9 +223,10 @@ def hopper_2d_knob_space(
     """H100 knob space of a 2-dim subroutine, with the reference's meaning
     of each field (``src/repro/kernels/ops.py::knob_space_for``):
 
-    * symm and trsm: ``bm x bn`` is the output tile, edges from
+    * symm, trmm and trsm: ``bm x bn`` is the output tile, edges from
       :data:`HOPPER_TILES_MN`; the contraction step is
-      :data:`HOPPER_CONTRACTION_STEP`;
+      :data:`HOPPER_CONTRACTION_STEP`; trmm has the variants ``full``,
+      ``tri`` and ``tri_packed``;
     * syrk and syr2k: ``bm`` is the square output tile and ``bn`` the
       contraction block, from :data:`HOPPER_TILES_K`; the variants are
       ``full``, ``tri`` and ``tri_packed``.
@@ -234,7 +236,7 @@ def hopper_2d_knob_space(
     GEMM kernel's 256x256 tiles spill 1488-2696 bytes a thread (its
     ``-Xptxas -v`` report for ``sm_90a``).  ``full`` and ``tri`` launch
     the same grid and so share a feature row (:func:`_grid_parallelism`),
-    as in the reference.
+    as in the reference, and ``tri_packed`` has a row of its own.
     """
     if op not in HOPPER_2D_VARIANTS:
         raise ValueError(f"no Hopper kernel for {op!r}; ported 2-dim ops: "

@@ -19,7 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "load", "nvcc_path", "ptxas_report"]
+__all__ = ["BUILD_DIR", "build", "load", "launcher", "launch_grid",
+           "nvcc_path", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict = {}
 
 
 def nvcc_path() -> str:
@@ -75,6 +77,31 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def launcher(name: str, argtypes: list):
+    """The launcher ``repro_{name}_f32`` of ``csrc/{name}.cu``, its
+    argument types set once under the build lock, so threads that launch
+    together at first use never call it half configured.  Every launcher
+    returns a ``cudaError_t`` and takes, last, an ``int[3]`` it writes the
+    launched grid to (:func:`launch_grid`)."""
+    fn = _FUNCS.get(name)
+    if fn is not None:
+        return fn
+    lib = load(name)
+    with _LOCK:
+        fn = _FUNCS.get(name)
+        if fn is None:
+            fn = getattr(lib, f"repro_{name}_f32")
+            fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            _FUNCS[name] = fn
+    return fn
+
+
+def launch_grid():
+    """A fresh ``int[3]`` for a launcher to write its grid to."""
+    return (ctypes.c_int * 3)()
 
 
 def ptxas_report(name: str) -> str:

@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 template <int BM, int BK, int BN>
@@ -123,7 +125,7 @@ struct Args {
 };
 
 template <int BM, int BK, int BN>
-cudaError_t launch(const Args& p, cudaStream_t stream) {
+cudaError_t launch(const Args& p, cudaStream_t stream, int* launched) {
   constexpr int THREADS = BM * BN / 64;
   constexpr int SMEM = int(sizeof(float)) * BK * (BM + 1 + BN);
   static_assert(THREADS <= 1024, "one thread per 8 x 8 accumulator tile");
@@ -138,6 +140,7 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM, p.batch);
+  set_grid(launched, grid);
   gemm_kernel<BM, BK, BN><<<grid, THREADS, SMEM, stream>>>(
       p.A, p.B, p.C, p.O, p.m, p.n, p.k, p.sAb, p.lda, p.sBb, p.ldb, p.sCb,
       p.ldc, p.sOb, p.ldo, p.alpha, p.beta, p.has_c);
@@ -148,21 +151,23 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
 
 // One launcher for every instantiated tile.  Returns the cudaError_t of the
 // launch (0 on success); cudaErrorInvalidValue for a tile with no
-// instantiation.  Does not synchronise.
+// instantiation.  Writes the grid it launched (x, y, z) to launched[0..2].
+// Does not synchronise.
 extern "C" int repro_gemm_f32(int bm, int bk, int bn, const void* a,
                               const void* b, const void* c, void* o, int m,
                               int n, int k, int batch, long long sAb,
                               long long lda, long long sBb, long long ldb,
                               long long sCb, long long ldc, long long sOb,
                               long long ldo, float alpha, float beta,
-                              int has_c, void* stream) {
+                              int has_c, void* stream, int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                m, n, k, batch, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
                alpha, beta, has_c};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_GEMM_TILE(BM, BK, BN) \
-  if (bm == BM && bk == BK && bn == BN) return int(launch<BM, BK, BN>(p, s));
+  if (bm == BM && bk == BK && bn == BN)                 \
+    return int(launch<BM, BK, BN>(p, s, launched));
 #define REPRO_GEMM_BK(BM, BN) \
   REPRO_GEMM_TILE(BM, 16, BN) REPRO_GEMM_TILE(BM, 32, BN) \
   REPRO_GEMM_TILE(BM, 64, BN)

@@ -28,6 +28,7 @@
 // tiles' upper halves.  This first design does nothing yet about the bound
 // beyond the register tile: one shared-memory stage, no asynchronous copies.
 
+#include "launch_grid.cuh"
 #include "rank_k_tile.cuh"
 
 namespace {
@@ -66,7 +67,8 @@ rank_k_kernel(Args p, int tri) {
 }
 
 template <int BM, int BK>
-cudaError_t launch(const Args& p, int batch, int tri, cudaStream_t stream) {
+cudaError_t launch(const Args& p, int batch, int tri, cudaStream_t stream,
+                   int* launched) {
   constexpr int THREADS = BM * BM / 64;
   static_assert(THREADS < 1024, "tiles of 1024 threads spill");
   const int smem = int(sizeof(float)) * rank_k::operand_floats<BM, BK>(p.two);
@@ -78,6 +80,7 @@ cudaError_t launch(const Args& p, int batch, int tri, cudaStream_t stream) {
   }
   const int nb = (p.n + BM - 1) / BM;
   const dim3 grid(nb, nb, batch);
+  set_grid(launched, grid);
   rank_k_kernel<BM, BK><<<grid, THREADS, smem, stream>>>(p, tri);
   return cudaGetLastError();
 }
@@ -87,21 +90,23 @@ cudaError_t launch(const Args& p, int batch, int tri, cudaStream_t stream) {
 // One launcher for every instantiated (bm, bk) of the Hopper syrk/syr2k
 // knob space (bk is the knob's bn).  Returns the cudaError_t of the launch
 // (0 on success); cudaErrorInvalidValue for a tile with no instantiation.
-// Does not synchronise.
+// Writes the grid it launched (x, y, z) to launched[0..2].  Does not
+// synchronise.
 extern "C" int repro_rank_k_f32(int bm, int bk, const void* a, const void* b,
                                 const void* c, void* o, int n, int k,
                                 int batch, long long sAb, long long lda,
                                 long long sBb, long long ldb, long long sCb,
                                 long long ldc, long long sOb, long long ldo,
                                 float alpha, float beta, int two, int tri,
-                                int has_c, void* stream) {
+                                int has_c, void* stream, int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                n, k, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
                alpha, beta, two, has_c};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_RANK_K_TILE(BM, BK) \
-  if (bm == BM && bk == BK) return int(launch<BM, BK>(p, batch, tri, s));
+  if (bm == BM && bk == BK)                    \
+    return int(launch<BM, BK>(p, batch, tri, s, launched));
   REPRO_RANK_K_TILE(64, 16) REPRO_RANK_K_TILE(64, 32) REPRO_RANK_K_TILE(64, 64)
   REPRO_RANK_K_TILE(128, 16) REPRO_RANK_K_TILE(128, 32)
   REPRO_RANK_K_TILE(128, 64)

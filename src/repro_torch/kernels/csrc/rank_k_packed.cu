@@ -22,6 +22,7 @@
 // upper halves and launches no idle block.  The epilogue writes each tile
 // twice from shared memory, both times coalesced.
 
+#include "launch_grid.cuh"
 #include "rank_k_tile.cuh"
 
 namespace {
@@ -91,7 +92,8 @@ rank_k_packed_kernel(Args p) {
 }
 
 template <int BM, int BK>
-cudaError_t launch(const Args& p, int batch, cudaStream_t stream) {
+cudaError_t launch(const Args& p, int batch, cudaStream_t stream,
+                   int* launched) {
   constexpr int THREADS = BM * BM / 64;
   static_assert(THREADS < 1024, "tiles of 1024 threads spill");
   const int operands = rank_k::operand_floats<BM, BK>(p.two);
@@ -106,6 +108,7 @@ cudaError_t launch(const Args& p, int batch, cudaStream_t stream) {
   }
   const long long nb = (p.n + BM - 1) / BM;
   const dim3 grid(static_cast<unsigned>(nb * (nb + 1) / 2), 1, batch);
+  set_grid(launched, grid);
   rank_k_packed_kernel<BM, BK><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -115,7 +118,8 @@ cudaError_t launch(const Args& p, int batch, cudaStream_t stream) {
 // One launcher for every instantiated (bm, bk) of the Hopper syrk/syr2k
 // knob space (bk is the knob's bn).  Returns the cudaError_t of the launch
 // (0 on success); cudaErrorInvalidValue for a tile with no instantiation.
-// Does not synchronise.
+// Writes the grid it launched (x, y, z) to launched[0..2].  Does not
+// synchronise.
 extern "C" int repro_rank_k_packed_f32(int bm, int bk, const void* a,
                                        const void* b, const void* c, void* o,
                                        int n, int k, int batch, long long sAb,
@@ -123,14 +127,16 @@ extern "C" int repro_rank_k_packed_f32(int bm, int bk, const void* a,
                                        long long ldb, long long sCb,
                                        long long ldc, long long sOb,
                                        long long ldo, float alpha, float beta,
-                                       int two, int has_c, void* stream) {
+                                       int two, int has_c, void* stream,
+                                       int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                n, k, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
                alpha, beta, two, has_c};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_RANK_K_TILE(BM, BK) \
-  if (bm == BM && bk == BK) return int(launch<BM, BK>(p, batch, s));
+  if (bm == BM && bk == BK)                    \
+    return int(launch<BM, BK>(p, batch, s, launched));
   REPRO_RANK_K_TILE(64, 16) REPRO_RANK_K_TILE(64, 32) REPRO_RANK_K_TILE(64, 64)
   REPRO_RANK_K_TILE(128, 16) REPRO_RANK_K_TILE(128, 32)
   REPRO_RANK_K_TILE(128, 64)

@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 constexpr int BK = 64;
@@ -147,7 +149,7 @@ struct Args {
 };
 
 template <int BM, int BN>
-cudaError_t launch(const Args& p, cudaStream_t stream) {
+cudaError_t launch(const Args& p, cudaStream_t stream, int* launched) {
   constexpr int THREADS = BM * BN / 64;
   constexpr int SMEM = int(sizeof(float)) * BK * (BM + 1 + BN);
   static_assert(THREADS < 1024, "tiles of 1024 threads spill");
@@ -159,6 +161,7 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM, p.batch);
+  set_grid(launched, grid);
   symm_kernel<BM, BN><<<grid, THREADS, SMEM, stream>>>(
       p.A, p.B, p.C, p.O, p.m, p.n, p.sAb, p.lda, p.sBb, p.ldb, p.sCb, p.ldc,
       p.sOb, p.ldo, p.alpha, p.beta, p.has_c);
@@ -169,21 +172,22 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
 
 // One launcher for every instantiated output tile (the Hopper symm knob
 // space).  Returns the cudaError_t of the launch (0 on success);
-// cudaErrorInvalidValue for a tile with no instantiation.  Does not
-// synchronise.
+// cudaErrorInvalidValue for a tile with no instantiation.  Writes the grid
+// it launched (x, y, z) to launched[0..2].  Does not synchronise.
 extern "C" int repro_symm_f32(int bm, int bn, const void* a, const void* b,
                               const void* c, void* o, int m, int n, int batch,
                               long long sAb, long long lda, long long sBb,
                               long long ldb, long long sCb, long long ldc,
                               long long sOb, long long ldo, float alpha,
-                              float beta, int has_c, void* stream) {
+                              float beta, int has_c, void* stream,
+                              int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                m, n, batch, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
                alpha, beta, has_c};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_SYMM_TILE(BM, BN) \
-  if (bm == BM && bn == BN) return int(launch<BM, BN>(p, s));
+  if (bm == BM && bn == BN) return int(launch<BM, BN>(p, s, launched));
   REPRO_SYMM_TILE(64, 64) REPRO_SYMM_TILE(64, 128) REPRO_SYMM_TILE(64, 256)
   REPRO_SYMM_TILE(128, 64) REPRO_SYMM_TILE(128, 128) REPRO_SYMM_TILE(128, 256)
   REPRO_SYMM_TILE(256, 64) REPRO_SYMM_TILE(256, 128)

@@ -12,9 +12,10 @@ It takes the place of the reference package's Pallas kernel
   shape.  The output has A's dtype (float32, the only dtype the kernel
   takes) and is accumulated in float32.
 
-:func:`gemm` launches the kernel for CUDA tensors and counts the launch in
-:data:`LAUNCHES`; for CPU tensors it computes :func:`gemm_plain`, the plain
-PyTorch version the tests and the chip smoke compare the kernel with.
+:func:`gemm` launches the kernel for CUDA tensors and records the launch
+and its grid with :func:`~repro_torch.kernels.introspect.record_launch`; for
+CPU tensors it computes :func:`gemm_plain`, the plain PyTorch version the
+tests and the chip smoke compare the kernel with.
 """
 
 from __future__ import annotations
@@ -27,11 +28,9 @@ import torch
 from repro_torch.core.knobs import HOPPER_TILES_K, HOPPER_TILES_MN
 
 from . import _build
+from .introspect import record_launch
 
-__all__ = ["gemm", "gemm_plain", "LAUNCHES", "TILES"]
-
-#: kernel launches made by :func:`gemm` (one per call on a CUDA tensor)
-LAUNCHES = 0
+__all__ = ["gemm", "gemm_plain", "TILES"]
 
 #: the ``(bm, bk, bn)`` tiles ``csrc/gemm.cu`` is instantiated for
 TILES = frozenset(itertools.product(HOPPER_TILES_MN, HOPPER_TILES_K,
@@ -49,15 +48,6 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,         # bm, bk, bn
              _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
              ctypes.c_float, ctypes.c_float, ctypes.c_int,       # alpha..
              ctypes.c_void_p]                                    # stream
-
-
-def _launcher():
-    lib = _build.load("gemm")
-    fn = lib.repro_gemm_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
@@ -117,7 +107,6 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     On CUDA tensors this launches ``csrc/gemm.cu`` on the current stream
     (no synchronisation) and raises if the launch is refused; on CPU
     tensors it returns :func:`gemm_plain`."""
-    global LAUNCHES
     m, k, n, batch = _check(a, b, c, bm, bk, bn)
     shape = a.shape[:-1] + (n,)
     if out is not None and (tuple(out.shape) != tuple(shape)
@@ -137,9 +126,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     if out.numel() == 0:
         return out
     stacked = batch is not None
+    grid = _build.launch_grid()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _launcher()(
+        rc = _build.launcher("gemm", _ARGTYPES)(
             bm, bk, bn, a.data_ptr(), b.data_ptr(),
             c.data_ptr() if has_c else None, out.data_ptr(),
             m, n, k, batch or 1,
@@ -148,10 +138,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             c.stride(0) if has_c and stacked else 0,
             c.stride(-2) if has_c else 0,
             out.stride(0) if stacked else 0, out.stride(-2),
-            float(alpha), float(beta), int(has_c), stream)
+            float(alpha), float(beta), int(has_c), stream, grid)
     if rc != 0:
         raise RuntimeError(f"GEMM kernel launch failed with CUDA error {rc} "
                            f"(tile {bm}x{bk}x{bn}, A {tuple(a.shape)}, "
                            f"B {tuple(b.shape)})")
-    LAUNCHES += 1
+    record_launch("gemm", grid)
     return out

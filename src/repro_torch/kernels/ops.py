@@ -1,6 +1,6 @@
 """Public BLAS L3 API with ADSALA runtime block selection (the reference
-package's ``kernels/ops.py`` for the subroutines with a Hopper kernel: gemm,
-symm, syrk, syr2k and trsm).
+package's ``kernels/ops.py``, for all six subroutines of paper Table I:
+gemm, symm, syrk, syr2k, trmm and trsm).
 
 Each op asks the :class:`~repro_torch.core.runtime.AdsalaRuntime` for the
 argmin-predicted knob at the call's dims — per call, since PyTorch has no
@@ -29,9 +29,10 @@ from repro_torch.core.runtime import AdsalaRuntime, global_runtime
 from . import gemm as _gemm
 from . import symm as _symm
 from . import syrk as _syrk
+from . import trmm as _trmm
 from . import trsm as _trsm
 
-__all__ = ["gemm", "symm", "syrk", "syr2k", "trsm", "knob_space_for",
+__all__ = ["gemm", "symm", "syrk", "syr2k", "trmm", "trsm", "knob_space_for",
            "default_knob", "dims_of", "run_op", "DTYPE_BYTES", "HOPPER_OPS",
            "HOPPER_BACKEND"]
 
@@ -64,11 +65,11 @@ def knob_space_for(op: str, *,
     (:func:`~repro_torch.core.knobs.hopper_knob_space`).  The 2-dim
     subroutines tune ``(bm, bn)`` and the kernel variant with the
     reference's meaning of each field
-    (:func:`~repro_torch.core.knobs.hopper_2d_knob_space`): symm and trsm
-    an output tile, syrk and syr2k a square output tile ``bm``, the
-    contraction block ``bn`` and the variants ``full``/``tri``/
-    ``tri_packed``.  ``sizes`` restricts the output-tile edges to a
-    subset of (64, 128, 256).  trmm has no Hopper kernel yet.
+    (:func:`~repro_torch.core.knobs.hopper_2d_knob_space`): symm, trmm and
+    trsm an output tile, syrk and syr2k a square output tile ``bm`` and the
+    contraction block ``bn``; syrk, syr2k and trmm the variants
+    ``full``/``tri``/``tri_packed``.  ``sizes`` restricts the output-tile
+    edges to a subset of (64, 128, 256).
     """
     edges = tuple(sizes) if sizes else HOPPER_TILES_MN
     if op == "gemm":
@@ -77,7 +78,7 @@ def knob_space_for(op: str, *,
         return hopper_2d_knob_space(op, bms=edges)
     if op in HOPPER_2D_VARIANTS:
         return hopper_2d_knob_space(op, bms=edges, bns=edges)
-    raise ValueError(f"no Hopper kernel for {op!r} yet; ported: "
+    raise ValueError(f"no Hopper kernel for {op!r}; ported: "
                      f"{', '.join(HOPPER_OPS)}")
 
 
@@ -85,7 +86,8 @@ def knob_space_for(op: str, *,
 def default_knob(op: str) -> Knob:
     """Baseline config (paper: max threads) = maximum grid parallelism =
     smallest tiles; the first such candidate wins ties (GEMM: the smallest
-    ``bk``; syrk/syr2k: the smallest contraction block, variant ``full``)."""
+    ``bk``; syrk/syr2k: the smallest contraction block, variant ``full``;
+    trmm: variant ``full``)."""
     space = knob_space_for(op)
     dims = _BASELINE_DIMS if op == "gemm" else _BASELINE_DIMS[:2]
     return space.candidates[int(np.argmax(space.parallelism_vec(dims)))]
@@ -104,10 +106,10 @@ def dims_of(op: str, shapes: tuple[tuple[int, ...], ...]) -> tuple[int, ...]:
     if op in ("syrk", "syr2k"):
         (n, k) = shapes[0][-2:]
         return (n, k)
-    if op in ("symm", "trsm"):
+    if op in ("symm", "trmm", "trsm"):
         (m, _), (_, n) = shapes[0][-2:], shapes[1][-2:]
         return (m, n)
-    raise ValueError(f"no Hopper kernel for {op!r} yet; ported: "
+    raise ValueError(f"no Hopper kernel for {op!r}; ported: "
                      f"{', '.join(HOPPER_OPS)}")
 
 
@@ -166,6 +168,15 @@ def syr2k(a, b, c=None, *, alpha=1.0, beta=0.0, knob=None, runtime=None):
                        beta=beta, variant=kb["variant"])
 
 
+def trmm(a, b, *, alpha=1.0, knob=None, runtime=None):
+    """``alpha * tril(A) @ B``; the knob's variant picks the kernel."""
+    m, n = a.shape[-2], b.shape[-1]
+    kb = _select("trmm", (m, n), a.dtype, knob, runtime,
+                 default=default_knob("trmm"), backend=HOPPER_BACKEND).dict
+    return _trmm.trmm(a, b, bm=kb["bm"], bn=kb["bn"], alpha=alpha,
+                      variant=kb["variant"])
+
+
 def trsm(a, b, *, alpha=1.0, knob=None, runtime=None):
     """X with ``tril(A) @ X = alpha * B``."""
     m, n = a.shape[-2], b.shape[-1]
@@ -176,7 +187,7 @@ def trsm(a, b, *, alpha=1.0, knob=None, runtime=None):
 
 #: the Hopper-path executors (what the ``hopper`` backend dispatches to)
 HOPPER_OPS = {"gemm": gemm, "symm": symm, "syrk": syrk, "syr2k": syr2k,
-              "trsm": trsm}
+              "trmm": trmm, "trsm": trsm}
 
 
 def run_op(op: str, operands: tuple, *, backend: str = HOPPER_BACKEND,

@@ -12,9 +12,10 @@ It takes the place of the reference package's Pallas kernel
 * C is read only when ``beta != 0`` and a C was given; it has the output's
   shape.  The output is float32, accumulated in float32.
 
-:func:`symm` launches the kernel for CUDA tensors and counts the launch in
-:data:`LAUNCHES`; for CPU tensors it computes :func:`symm_plain`, the plain
-PyTorch version the tests and the chip smoke compare the kernel with.
+:func:`symm` launches the kernel for CUDA tensors and records the launch
+and its grid with :func:`~repro_torch.kernels.introspect.record_launch`; for
+CPU tensors it computes :func:`symm_plain`, the plain PyTorch version the
+tests and the chip smoke compare the kernel with.
 """
 
 from __future__ import annotations
@@ -26,12 +27,10 @@ import torch
 from repro_torch.core.knobs import hopper_2d_knob_space
 
 from . import _build
+from .introspect import record_launch
 from .ref import sym_lower
 
-__all__ = ["symm", "symm_plain", "LAUNCHES", "TILES"]
-
-#: kernel launches made by :func:`symm` (one per call on a CUDA tensor)
-LAUNCHES = 0
+__all__ = ["symm", "symm_plain", "TILES"]
 
 #: the ``(bm, bn)`` output tiles ``csrc/symm.cu`` is instantiated for
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("symm"))
@@ -47,14 +46,6 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int,                         # bm, bn
              _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
              ctypes.c_float, ctypes.c_float, ctypes.c_int,       # alpha..
              ctypes.c_void_p]                                    # stream
-
-
-def _launcher():
-    fn = _build.load("symm").repro_symm_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def symm_plain(a: torch.Tensor, b: torch.Tensor,
@@ -104,7 +95,6 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     On CUDA tensors this launches ``csrc/symm.cu`` on the current stream
     (no synchronisation) and raises if the launch is refused; on CPU
     tensors it returns :func:`symm_plain`."""
-    global LAUNCHES
     m, n, batch = _check(a, b, c, bm, bn)
     if a.device.type == "cpu":
         return symm_plain(a, b, c, alpha=alpha, beta=beta)
@@ -115,9 +105,10 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     if out.numel() == 0:
         return out
     stacked = batch is not None
+    grid = _build.launch_grid()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _launcher()(
+        rc = _build.launcher("symm", _ARGTYPES)(
             bm, bn, a.data_ptr(), b.data_ptr(),
             c.data_ptr() if has_c else None, out.data_ptr(), m, n, batch or 1,
             a.stride(0) if stacked else 0, a.stride(-2),
@@ -125,10 +116,10 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             c.stride(0) if has_c and stacked else 0,
             c.stride(-2) if has_c else 0,
             out.stride(0) if stacked else 0, out.stride(-2),
-            float(alpha), float(beta), int(has_c), stream)
+            float(alpha), float(beta), int(has_c), stream, grid)
     if rc != 0:
         raise RuntimeError(f"SYMM kernel launch failed with CUDA error {rc} "
                            f"(tile {bm}x{bn}, A {tuple(a.shape)}, "
                            f"B {tuple(b.shape)})")
-    LAUNCHES += 1
+    record_launch("symm", grid)
     return out

@@ -25,10 +25,11 @@ block (the reference's ``bk = kb["bn"]``).  A leading batch axis is the
 kernels' grid z; ragged n and k need no padding.  C is read only when
 ``beta != 0`` and a C was given.
 
-:func:`syrk` and :func:`syr2k` launch a kernel for CUDA tensors and count it
-in :data:`LAUNCHES` under the kernel's name; for CPU tensors they compute
-:func:`rank_k_plain`, the plain PyTorch version the tests and the chip smoke
-compare the kernels with.
+:func:`syrk` and :func:`syr2k` launch a kernel for CUDA tensors and record
+the launch and its grid under the kernel's name with
+:func:`~repro_torch.kernels.introspect.record_launch`; for CPU tensors they
+compute :func:`rank_k_plain`, the plain PyTorch version the tests and the
+chip smoke compare the kernels with.
 """
 
 from __future__ import annotations
@@ -40,12 +41,10 @@ import torch
 from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
 
 from . import _build
+from .introspect import record_launch
 from .ref import sym_lower
 
-__all__ = ["syrk", "syr2k", "rank_k_plain", "LAUNCHES", "TILES", "VARIANTS"]
-
-#: kernel launches by kernel name (one per call on a CUDA tensor)
-LAUNCHES = {"rank_k": 0, "rank_k_packed": 0}
+__all__ = ["syrk", "syr2k", "rank_k_plain", "TILES", "VARIANTS"]
 
 #: the ``(bm, bk)`` tiles both kernels are instantiated for (bk = knob bn)
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("syrk"))
@@ -67,14 +66,6 @@ _ARGTYPES = {"rank_k": _COMMON + [ctypes.c_int, ctypes.c_int,   # tri, has_c
                                   ctypes.c_void_p],             # stream
              "rank_k_packed": _COMMON + [ctypes.c_int,          # has_c
                                          ctypes.c_void_p]}      # stream
-
-
-def _launcher(kernel: str):
-    fn = getattr(_build.load(kernel), f"repro_{kernel}_f32")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[kernel]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def rank_k_plain(a: torch.Tensor, b: torch.Tensor | None = None,
@@ -150,9 +141,10 @@ def _rank_k(a, b, c, *, bm, bk, alpha, beta, variant) -> torch.Tensor:
     kernel = "rank_k_packed" if variant == "tri_packed" else "rank_k"
     flags = (int(two), int(variant == "tri"), int(has_c)) \
         if kernel == "rank_k" else (int(two), int(has_c))
+    grid = _build.launch_grid()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _launcher(kernel)(
+        rc = _build.launcher(kernel, _ARGTYPES[kernel])(
             bm, bk, a.data_ptr(), b.data_ptr() if two else None,
             c.data_ptr() if has_c else None, out.data_ptr(), n, k,
             batch or 1,
@@ -161,12 +153,12 @@ def _rank_k(a, b, c, *, bm, bk, alpha, beta, variant) -> torch.Tensor:
             c.stride(0) if has_c and stacked else 0,
             c.stride(-2) if has_c else 0,
             out.stride(0) if stacked else 0, out.stride(-2),
-            float(alpha), float(beta), *flags, stream)
+            float(alpha), float(beta), *flags, stream, grid)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{rc} (tile {bm}x{bk}, variant {variant}, "
                            f"A {tuple(a.shape)})")
-    LAUNCHES[kernel] += 1
+    record_launch(kernel, grid)
     if variant == "tri":
         out = sym_lower(out)
     return out

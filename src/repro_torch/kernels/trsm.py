@@ -30,9 +30,12 @@ diagonal block is solved at its true size, and the views ``A[i, :i]``,
 ``B_i`` and ``X[:i]`` have unit inner stride and go to the kernel as they
 are.  A leading batch axis runs through every GEMM as one launch.
 
-On CUDA tensors every GEMM launches the kernel; on CPU tensors the same
-scheme runs on the GEMM's plain version.  :func:`trsm_plain` is the plain
-PyTorch version of the whole solve.
+On CUDA tensors every GEMM launches the kernel, and the solve records each
+GEMM it issued under ``trsm`` too (with the GEMM's grid), counted on its
+own thread, so GEMMs that other threads launch meanwhile never count as
+the solve's; on CPU tensors the same scheme runs on the GEMM's plain
+version.  :func:`trsm_plain` is the plain PyTorch version of the whole
+solve.
 """
 
 from __future__ import annotations
@@ -42,12 +45,9 @@ import torch
 from repro_torch.core.knobs import HOPPER_CONTRACTION_STEP
 
 from . import gemm as _gemm
+from .introspect import capture_launches, record_launch
 
-__all__ = ["trsm", "trsm_plain", "LAUNCHES"]
-
-#: GEMM kernel launches made by :func:`trsm` (``2 ceil(m / bm) - 1`` per
-#: call on CUDA tensors)
-LAUNCHES = 0
+__all__ = ["trsm", "trsm_plain"]
 
 
 def trsm_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -106,7 +106,6 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
 
     On CUDA tensors the GEMMs launch ``csrc/gemm.cu`` on the current
     stream (no synchronisation) and raise if a launch is refused."""
-    global LAUNCHES
     m, n = _check(a, b)
     bk = HOPPER_CONTRACTION_STEP
     if (bm, bk, bn) not in _gemm.TILES:
@@ -115,7 +114,16 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     if x.numel() == 0:
         return x
     full, last = _diag_inverses(a, bm)
-    before = _gemm.LAUNCHES
+    with capture_launches() as issued:
+        _substitute(a, b, x, full, last, bm=bm, bk=bk, bn=bn, alpha=alpha)
+    for _kernel, grid in issued:
+        record_launch("trsm", grid)
+    return x
+
+
+def _substitute(a, b, x, full, last, *, bm, bk, bn, alpha) -> None:
+    """The block rows of the forward substitution, into ``x``."""
+    m = a.shape[-1]
     for i in range(-(-m // bm)):
         lo, hi = i * bm, min((i + 1) * bm, m)
         dinv = full[..., i, :, :] if hi - lo == bm else last
@@ -128,5 +136,3 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
             scale = 1.0
         _gemm.gemm(dinv, r, bm=bm, bk=bk, bn=bn, alpha=scale,
                    out=x[..., lo:hi, :])
-    LAUNCHES += _gemm.LAUNCHES - before
-    return x

@@ -13,7 +13,7 @@ Usage:
         --out runs/adsala_torch --samples 60 --ops gemm,symm --precisions s
 
 ``--ops`` defaults to every subroutine the backend lists (for ``hopper``:
-gemm, symm, syrk, syr2k and trsm), so the default grows as the port does.
+all six, gemm, symm, syrk, syr2k, trmm and trsm).
 
 ``--backend`` selects the execution backend being calibrated (default
 ``hopper``); each artifact is backend-tagged (``hopper__gemm_b4.adsala``).

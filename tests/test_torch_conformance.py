@@ -48,12 +48,12 @@ def test_run_conformance_over_the_hopper_and_ref_backends_on_cpu():
     results = conf.run_conformance(["hopper", "ref"], dtypes=(torch.float32,),
                                    stacked_width=3, ragged=True,
                                    device="cpu")
-    assert len(results) == (5 + 6) * 4 * 2
+    assert len(results) == (6 + 6) * 4 * 2
     bad = [r.line() for r in results if not r.ok]
     assert not bad, bad
 
 
-@pytest.mark.parametrize("op", ("symm", "syrk", "syr2k", "trsm"))
+@pytest.mark.parametrize("op", ("symm", "syrk", "syr2k", "trmm", "trsm"))
 def test_every_knob_with_c_within_the_card_limit_on_cpu(op):
     for knob in ops.knob_space_for(op):
         for stacked in (0, 3):

@@ -1,7 +1,9 @@
 """The hand-written kernels on a CUDA card (GEMM, SYMM, the rank-k kernels
-of SYRK/SYR2K, and TRSM on the GEMM): against a float64 oracle and their
-plain versions under every candidate of their Hopper knob spaces, stacked
-== per-item bit for bit, and tri_packed == tri bit for bit.  The card's
+of SYRK/SYR2K, the TRMM kernels, and TRSM on the GEMM): against a float64
+oracle and their plain versions under every candidate of their Hopper knob
+spaces, stacked == per-item bit for bit, tri_packed == tri bit for bit;
+masked == padded bit for bit, no copy op on the dispatch path, and the
+recorded grids equal to the grid formulas.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -196,3 +198,111 @@ def test_trsm_residual_is_small_and_stacked_equals_per_item():
                 one = T.trsm(a[i], b[i], bm=knob["bm"], bn=knob["bn"],
                              alpha=1.5)
                 assert torch.equal(one, x[i]), (knob, i)
+
+
+# -- trmm and the zero-copy contracts -----------------------------------------
+
+@pytest.mark.gpu
+def test_trmm_kernels_match_plain_over_the_knob_space():
+    _need_card()
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels import trmm as TM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for m, n in DIMS_2D:
+        a, b = _rand(gen, STACK, m, m), _rand(gen, STACK, m, n)
+        want = 0.5 * (torch.tril(a.double()) @ b.double())
+        plain = TM.trmm_plain(a, b, alpha=0.5)
+        for knob in ops.knob_space_for("trmm"):
+            var = knob["variant"]
+            tile = dict(bm=knob["bm"], bn=knob["bn"], variant=var)
+            with I.capture_launches() as launched:
+                got = TM.trmm(a, b, alpha=0.5, **tile)
+            grid = (I.packed_grid_for if var == "tri_packed"
+                    else I.full_grid_for)("trmm", (m, n), knob["bm"],
+                                          knob["bn"], batch=STACK)
+            kernel = "trmm_packed" if var == "tri_packed" else "trmm"
+            assert launched == [(kernel, grid)], (knob, launched)
+            assert _rel(got, want) < TOL, (knob, (m, n))
+            assert _rel(got, plain) < TOL, (knob, (m, n))
+            for i in range(STACK):
+                one = TM.trmm(a[i], b[i], alpha=0.5, **tile)
+                assert torch.equal(one, got[i]), (knob, i)
+            if var == "tri_packed":
+                tri = TM.trmm(a, b, alpha=0.5, **{**tile, "variant": "tri"})
+                assert torch.equal(tri.view(torch.int32),
+                                   got.view(torch.int32)), (knob, (m, n))
+
+
+#: the ragged and one-row dims of the reference's zero-copy tests
+_ZC_DIMS = {"gemm": ((129, 65, 257), (1, 300, 384)),
+            "symm": ((129, 257), (1, 384)), "syrk": ((129, 65), (1, 384)),
+            "syr2k": ((129, 65), (1, 384)), "trmm": ((129, 257), (1, 384))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", sorted(_ZC_DIMS))
+def test_masked_equals_padded_bitwise_with_no_copy_in_dispatch(op):
+    _need_card()
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels.padded_ref import block_knob, padded_run
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    variants = ("full", "tri", "tri_packed") \
+        if op in ("syrk", "syr2k", "trmm") else ("full",)
+    for dims in _ZC_DIMS[op]:
+        if op == "gemm":
+            xs = (_rand(gen, dims[0], dims[1]), _rand(gen, dims[1], dims[2]))
+        elif op in ("symm", "trmm"):
+            xs = (_rand(gen, dims[0], dims[0]), _rand(gen, *dims))
+        else:
+            xs = tuple(_rand(gen, *dims) for _ in range(1 + (op == "syr2k")))
+        for var in variants:
+            knob = block_knob(op, 128, var)
+            counts = I.copy_op_counts(ops.run_op, op, xs, knob=knob)
+            assert counts == {}, (op, var, counts)
+            got = ops.run_op(op, xs, knob=knob)
+            want = padded_run(op, xs, variant=var)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (op, dims, var)
+
+
+@pytest.mark.gpu
+def test_trsm_masked_matches_padded_with_no_pad():
+    _need_card()
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels.padded_ref import block_knob, padded_run
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a = _rand(gen, 129, 129) + 129 * torch.eye(129, device="cuda")
+    b = _rand(gen, 129, 257)
+    knob = block_knob("trsm", 128)
+    counts = I.copy_op_counts(ops.run_op, "trsm", (a, b), knob=knob)
+    assert "constant_pad_nd" not in counts
+    got = ops.run_op("trsm", (a, b), knob=knob)
+    want = padded_run("trsm", (a, b))
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_service_on_the_card_resolves_computed_rows():
+    """A ``BlasService`` on the card, two workers launching on streams of
+    their own: every future holds its own request's result once it
+    resolves (read here on the default stream), and the bucket spans come
+    from CUDA events."""
+    _need_card()
+    from repro_torch.core import AdsalaRuntime
+    from repro_torch.kernels.trmm import trmm_plain
+    from repro_torch.serving import BlasService, ServeConfig
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    reqs = [(_rand(gen, 256, 256), _rand(gen, 256, 192)) for _ in range(16)]
+    with BlasService(runtime=AdsalaRuntime(),
+                     config=ServeConfig(max_batch=4, workers=2)) as svc:
+        outs = [f.result(timeout=120) for f in
+                [svc.submit("trmm", r, alpha=0.5) for r in reqs]]
+        for (a, b), out in zip(reqs, outs):
+            assert out.is_cuda
+            want = trmm_plain(a, b, alpha=0.5)
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            assert err < TOL
+        assert svc.drain(timeout=60)
+    assert svc.stats.completed == 16 and svc.stats.failed == 0
+    assert svc.stats.exec_sum > 0

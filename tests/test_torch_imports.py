@@ -22,8 +22,10 @@ def test_import_loads_no_jax_repro_or_msgpack():
         "import sys\n"
         "import repro_torch, repro_torch.kernels.ops, "
         "repro_torch.kernels.symm, repro_torch.kernels.syrk, "
-        "repro_torch.kernels.trsm, repro_torch.backends.conformance, "
-        "repro_torch.launch.calibrate\n"
+        "repro_torch.kernels.trsm, repro_torch.kernels.trmm, "
+        "repro_torch.kernels.introspect, repro_torch.kernels.padded_ref, "
+        "repro_torch.backends.conformance, repro_torch.launch.calibrate, "
+        "repro_torch.serving, repro_torch.serving.service\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"
         "print(bad)\n"
@@ -49,3 +51,10 @@ def test_static_check_catches_reference_imports():
     for line in ("from repro_torch.core import knobs", "import repro_torch",
                  "import numpy as np"):
         assert not _FORBIDDEN.search(line), line
+
+
+def test_the_scan_covers_the_serving_package():
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"serving/__init__.py", "serving/service.py", "serving/budget.py",
+            "serving/faults.py", "kernels/trmm.py", "kernels/introspect.py",
+            "kernels/padded_ref.py"} <= scanned

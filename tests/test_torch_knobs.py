@@ -59,20 +59,14 @@ def test_default_knob_is_max_parallelism():
                              (4096, 4096, 4096)) == par.max()
 
 
-@pytest.mark.parametrize("op", ("trmm",))
-def test_unported_ops_have_no_hopper_space(op):
-    with pytest.raises(ValueError):
-        ops.knob_space_for(op)
-    with pytest.raises(ValueError):
-        ops.dims_of(op, ((48, 48), (48, 40)))
-
-
 #: the 2-dim spaces: (bm, bn) pairs and variants
 SPACES_2D = {
     "symm": ({(bm, bn) for bm in (64, 128, 256) for bn in (64, 128, 256)}
              - {(256, 256)}, ("full",)),
     "trsm": ({(bm, bn) for bm in (64, 128, 256) for bn in (64, 128, 256)}
              - {(256, 256)}, ("full",)),
+    "trmm": ({(bm, bn) for bm in (64, 128, 256) for bn in (64, 128, 256)}
+             - {(256, 256)}, ("full", "tri", "tri_packed")),
     "syrk": ({(bm, bn) for bm in (64, 128) for bn in (16, 32, 64)},
              ("full", "tri", "tri_packed")),
     "syr2k": ({(bm, bn) for bm in (64, 128) for bn in (16, 32, 64)},

@@ -37,10 +37,12 @@ def test_calibrate_writes_hopper_artifact(installed):
     assert [(r["backend"], r["op"], r["prec"], r["device"])
             for r in report] == [("hopper", op, "s", "cpu")
                                  for op in ops.HOPPER_OPS]
-    # --sizes 64,128: 2x3x2 GEMM tiles, 2x2 symm/trsm output tiles, and
-    # 2 square tiles x 3 contraction blocks x 3 variants for syrk/syr2k
+    # --sizes 64,128: 2x3x2 GEMM tiles, 2x2 symm/trsm output tiles, 2x2
+    # trmm output tiles x 3 variants, and 2 square tiles x 3 contraction
+    # blocks x 3 variants for syrk/syr2k
     assert {r["op"]: r["n_knobs"] for r in report} == \
-        {"gemm": 12, "symm": 4, "syrk": 18, "syr2k": 18, "trsm": 4}
+        {"gemm": 12, "symm": 4, "syrk": 18, "syr2k": 18, "trmm": 12,
+         "trsm": 4}
     for op in ops.HOPPER_OPS:
         assert (models / f"hopper__{op}_b4.adsala").exists()
         assert (installed / "datasets" / f"hopper__{op}_s.npz").exists()
@@ -106,7 +108,7 @@ def test_backend_binding_and_dtypes():
     assert be.supports_dtype(torch.float32)
     assert be.supports_dtype(np.float32)
     assert not be.supports_dtype(torch.float64)
-    assert be.ops() == ("gemm", "symm", "syrk", "syr2k", "trsm")
+    assert be.ops() == ("gemm", "symm", "syrk", "syr2k", "trmm", "trsm")
     with pytest.raises(ValueError, match="float64"):
         calibrate.calibrate_one("gemm", "d", None, backend="hopper",
                                 samples=2, dim_lo=8, dim_hi=16,

@@ -12,6 +12,7 @@ from repro_torch.backends.conformance import oracle
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels import symm as S
+from repro_torch.kernels.introspect import launch_counts
 
 #: float32 tolerance of the reference conformance harness: max relative
 #: error against float64 (the port and the reference sum in other orders)
@@ -78,10 +79,10 @@ def test_run_op_under_every_knob_on_cpu():
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     operands, kw = _case("stack", (33, 9))
     a, b, c = map(torch.from_numpy, operands)
-    before = S.LAUNCHES
+    before = launch_counts()
     got = S.symm(a, b, c, bm=64, bn=64, **kw)
     assert torch.equal(got, S.symm_plain(a, b, c, **kw))
-    assert S.LAUNCHES == before
+    assert launch_counts() == before
 
 
 def test_plain_version_matches_torch_reference_oracle():
