@@ -8,12 +8,17 @@ calls, and fails (non-zero exit) if any phase fails:
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
    ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``), all nvcc runs
    started together, with nvcc's ``-Xptxas -v`` report (registers, shared
-   memory, spills);
+   memory, spills).  Fails if any ``gemm`` or ``symm`` instantiation spills,
+   or if the launch parameters the kernels were built with (threads,
+   stages, shared bytes, passes) or the GEMM's split-k plan differ from
+   their Python mirrors (``kernels/gemm.py::mainloop_params``,
+   ``split_plan``);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
    reference conformance harness's 5e-4, so that a TF32 product fails it):
-   the GEMM on ragged and aligned shapes, ``alpha``/``beta`` with C, stacks
-   with per-item and shared B; symm, syrk/syr2k, trmm (every variant) and
+   the GEMM on ragged, aligned and decode (split-k) shapes, ``alpha``/``beta``
+   with C, stacks with per-item and shared B, and operands with unaligned
+   leading strides equal bit for bit to aligned copies of the same values; symm, syrk/syr2k, trmm (every variant) and
    trsm through the port's conformance harness on its ragged dims and one
    aligned shape, with and without C, single and stacked (the error taken
    relative to ``conformance.error_scale``: the largest output, floored
@@ -22,7 +27,8 @@ calls, and fails (non-zero exit) if any phase fails:
    ``tri_packed`` must equal ``tri`` bit for bit.  Then the structural
    contracts: ``run_op`` equals the padded run (``kernels/padded_ref.py``)
    bit for bit for gemm, symm, syrk, syr2k and trmm under every variant at
-   ragged and one-row dims (trsm within 1e-5), with no copy op on its
+   ragged and one-row dims and, for the GEMM, a split-k shape (trsm within
+   1e-5), with no copy op on its
    dispatch path (trsm: no pad), and every launch's recorded grid equals
    ``introspect.full_grid_for``/``packed_grid_for``, ``tri_packed``
    launching fewer blocks than ``tri``;
@@ -57,7 +63,10 @@ calls, and fails (non-zero exit) if any phase fails:
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
    ``torch.addmm``, ``torch.linalg.solve_triangular``) and the float32
-   bound of the card.
+   bound of the card; for each gemm and symm call also its rate (TFLOP/s,
+   or GB/s when bytes bound it), its share of the bound and the split-k
+   plan it launched; and the host's time per call of the GEMM wrapper
+   against ``torch.matmul`` at a product too small to time the card.
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
 (the ``run_op`` calls, then the service) is driven with the counts set to 0
@@ -80,6 +89,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import faulthandler
+import itertools
 import json
 import math
 import shutil
@@ -99,7 +109,11 @@ KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm",
 #: the reference conformance harness's ragged GEMM dims
 #: (src/repro/backends/conformance.py RAGGED_DIMS["gemm"]) and one aligned
 KERNEL_DIMS = ((129, 65, 257), (1, 300, 384), (300, 300, 300),
-               (256, 512, 384))
+               (256, 512, 384), (8, 4096, 1024))
+#: GEMM dims run on operands with unaligned leading strides (the kernel's
+#: 4-byte copies), held bit for bit against aligned copies of the values:
+#: ragged, and a decode shape that splits k
+UNALIGNED_DIMS = ((129, 256, 384), (8, 4096, 1024))
 #: one aligned shape beside RAGGED_DIMS for the 2-dim ops
 ALIGNED_2D = (256, 384)
 STACK = 3
@@ -218,12 +232,11 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _bound(op: str, shapes, kw) -> tuple[float, str]:
-    """Least ms the card needs for one call: its BLAS operation count at
-    the f32 CUDA-core peak (gemm 2mnk, symm 2m^2n, syrk n^2k, syr2k 2n^2k,
-    trmm and trsm m^2n) against each input read once and the output
-    written once (a triangular or symmetric A counted as its lower
-    triangle)."""
+def _work(op: str, shapes, kw) -> tuple[float, float]:
+    """Operations and bytes of one call: its BLAS operation count (gemm
+    2mnk, symm 2m^2n, syrk n^2k, syr2k 2n^2k, trmm and trsm m^2n) and each
+    input read once and the output written once (a triangular or symmetric
+    A counted as its lower triangle)."""
     first = shapes[0]
     batch = first[0] if len(first) == 3 else 1
     with_c = kw.get("beta", 0.0) != 0.0
@@ -242,7 +255,14 @@ def _bound(op: str, shapes, kw) -> tuple[float, str]:
         flops = batch * n * n * k * (2.0 if two else 1.0)
         words = batch * ((2 if two else 1) * n * k + n * n
                          + (n * (n + 1) / 2 if with_c else 0))
-    t_ops, t_bytes = flops / F32_PEAK_FLOPS, 4.0 * words / HBM_BYTES_PER_S
+    return flops, 4.0 * words
+
+
+def _bound(op: str, shapes, kw) -> tuple[float, str]:
+    """Least ms the card needs for one call: :func:`_work`'s operations at
+    the f32 CUDA-core peak against its bytes at the HBM rate."""
+    flops, nbytes = _work(op, shapes, kw)
+    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -516,6 +536,71 @@ def serve_service(torch, rt) -> dict:
             "eval_failures": after.eval_failures - before.eval_failures}
 
 
+# -- phase 2 ----------------------------------------------------------------
+
+def _ptxas_entries(name: str) -> list[tuple[str, int, int]]:
+    """(template arguments, registers, spill bytes stored + loaded) of
+    every kernel instantiation in the ``-Xptxas -v`` report of ``name``."""
+    import re
+    from repro_torch.kernels import _build
+    entries = []
+    for seg in _build.ptxas_report(name).split("Compiling entry function")[1:]:
+        tile = "x".join(re.findall(r"ILi(\d+)E", seg.split("'")[1]))
+        regs = re.search(r"Used (\d+) registers", seg)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", seg)
+        entries.append((tile, int(regs.group(1)) if regs else -1,
+                        int(spill.group(1)) + int(spill.group(2))
+                        if spill else -1))
+    return entries
+
+
+def check_build() -> None:
+    """No spill in any gemm or symm instantiation, and the launch
+    parameters and split-k plan compiled into the kernels equal their
+    Python mirrors."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import symm as S
+    for name, count in (("gemm", len(G.TILES)), ("symm", len(S.TILES))):
+        entries = _ptxas_entries(name)
+        spilled = [e for e in entries if e[2] != 0]
+        if len(entries) != count or spilled:
+            raise SystemExit(f"[build:{name}] {len(entries)} instantiations "
+                             f"(expected {count}), spilling or unreported: "
+                             f"{spilled}")
+        print(f"[build:{name}] {count} instantiations, 0 spill bytes; "
+              f"registers " + ", ".join(f"{t} {r}" for t, r, _ in entries),
+              flush=True)
+    out = (ctypes.c_int * 4)()
+    configs = [("gemm", (bm, bk, bn), lambda o, t=(bm, bk, bn):
+                _build.load("gemm").repro_gemm_f32_config(*t, o))
+               for bm, bk, bn in sorted(G.TILES)]
+    configs += [("symm", (bm, 64, bn), lambda o, t=(bm, bn):
+                 _build.load("symm").repro_symm_f32_config(*t, o))
+                for bm, bn in sorted(S.TILES)]
+    for name, (bm, bk, bn), query in configs:
+        p = G.mainloop_params(bm, bk, bn)
+        want = [p["threads"], p["stages"], p["smem"], p["passes"]]
+        if query(out) != 0 or list(out) != want:
+            raise SystemExit(f"[build:{name}] tile {(bm, bk, bn)}: built "
+                             f"with {list(out)}, mainloop_params {want}")
+    split = _build.load("gemm").repro_gemm_f32_split
+    dims = [*KERNEL_DIMS, *UNALIGNED_DIMS, *CONTRACT_DIMS["gemm"],
+            *((t, k, n) for t in TOKENS for k, n in LINEARS),
+            *((128, 128 * i, D_FF) for i in range(1, 32))]
+    for (m, k, n), (bm, _bk, bn) in itertools.product(dims, sorted(G.TILES)):
+        split(m, n, k, bm, bn, out)
+        if (out[0], out[1]) != G.split_plan(m, n, k, bm, bn):
+            raise SystemExit(f"[build:gemm] split at {(m, k, n)} tile "
+                             f"{bm}x{bn}: C {(out[0], out[1])}, Python "
+                             f"{G.split_plan(m, n, k, bm, bn)}")
+    print(f"[build] launch parameters of {len(configs)} tiles and the split "
+          f"plan at {len(dims)} dims x {len(G.TILES)} tiles equal their "
+          f"Python mirrors", flush=True)
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 def check_gemm(torch, rand) -> None:
@@ -558,10 +643,26 @@ def check_gemm(torch, rand) -> None:
                         if not torch.equal(one, got[i]):
                             raise SystemExit(f"[kernel] {kd}: stacked item "
                                              f"{i} differs from per-item")
+    # the unaligned path (4-byte copies) equals the aligned one (16-byte)
+    for m, k, n in UNALIGNED_DIMS:
+        a, b, c = rand(m, k), rand(k, n), rand(m, n)
+        wa, wb = rand(m, k + 1), rand(k, n + 1)
+        wa[:, :k], wb[:, :n] = a, b
+        for knob in space:
+            tile = {key: knob[key] for key in ("bm", "bk", "bn")}
+            aligned = G.gemm(a, b, c, alpha=0.5, beta=2.0, **tile)
+            unaligned = G.gemm(wa[:, :k], wb[:, :n], c, alpha=0.5, beta=2.0,
+                               **tile)
+            checks += 1
+            if not torch.equal(aligned.view(torch.int32),
+                               unaligned.view(torch.int32)):
+                raise SystemExit(f"[kernel] {tile} at {(m, k, n)}: unaligned "
+                                 f"strides differ from aligned bit for bit")
     torch.cuda.synchronize()
     print(f"[kernel:gemm] {checks} checks over {len(space)} tiles: max rel "
           f"err {worst:.3e} (< {F32_TOL}), max abs err vs plain "
-          f"{worst_abs:.3e}, stacked == per-item bit for bit; TF32-rounded "
+          f"{worst_abs:.3e}, stacked == per-item bit for bit, unaligned == "
+          f"aligned strides bit for bit at {UNALIGNED_DIMS}; TF32-rounded "
           f"inputs: least rel err {tf32_least:.3e} (> {F32_TOL})", flush=True)
     # a yardstick only: the library's product with TF32 allowed
     a, b = rand(256, 512), rand(512, 384)
@@ -650,8 +751,9 @@ def check_2d_ops(torch, rand) -> None:
 
 
 #: the ragged and one-row dims of the reference's zero-copy tests
-#: (tests/test_zero_copy_kernels.py RAGGED and its one-row dims)
-CONTRACT_DIMS = {"gemm": ((129, 65, 257), (1, 300, 384)),
+#: (tests/test_zero_copy_kernels.py RAGGED and its one-row dims), and a GEMM
+#: whose contraction splits under the padded run's 128 x 128 tile
+CONTRACT_DIMS = {"gemm": ((129, 65, 257), (1, 300, 384), (7, 1300, 1000)),
                  "symm": ((129, 257), (1, 384)),
                  "syrk": ((129, 65), (1, 384)),
                  "syr2k": ((129, 65), (1, 384)),
@@ -859,12 +961,57 @@ def time_rows(torch, card: str, rows: list[dict]) -> dict:
               f"{default_ms / best_ms:.3f}x) | plain {plain_ms:.4f} ms | "
               f"library {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
               f"({bound_by}) | launches {row['launches']}", flush=True)
+        if op in ("gemm", "symm"):
+            rates = [(name, kd, t) for name, kd, t in
+                     (("served", row["knob"], ms), ("default", default,
+                                                     default_ms),
+                      ("best", best, best_ms), ("library", None, library_ms))]
+            print(f"[rate] [{card}] {row['label']}: " + " | ".join(
+                _rate(op, shapes, kw, kd, t, bound_ms, bound_by, name)
+                for name, kd, t in rates), flush=True)
     for op, acc in per_op.items():
         print(f"[times] [{card}] {op} served calls: tuned {acc['ms']:.4f} "
               f"ms, default {acc['default_ms']:.4f} ms "
               f"({acc['default_ms'] / acc['ms']:.3f}x), best knobs "
               f"{acc['best_ms']:.4f} ms", flush=True)
+    host_cost(torch, card)
     return totals
+
+
+def host_cost(torch, card: str) -> None:
+    """The time per call of the GEMM wrapper and of ``torch.matmul`` on a
+    product too small for the card to matter, (8,64)@(64,64): CUDA events
+    around 500 calls, so the host's work per call."""
+    from repro_torch.kernels import gemm as G
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn(8, 64, generator=gen, device="cuda")
+    y = torch.randn(64, 64, generator=gen, device="cuda")
+    wrapper = _time_ms(torch, lambda a, b: G.gemm(a, b, bm=64, bk=16, bn=64),
+                       [(x, y)], iters=500)
+    library = _time_ms(torch, torch.matmul, [(x, y)], iters=500)
+    print(f"[host] [{card}] per call at (8,64)@(64,64): gemm wrapper "
+          f"{1e3 * wrapper:.2f} us, torch.matmul {1e3 * library:.2f} us",
+          flush=True)
+
+
+def _rate(op: str, shapes, kw, kd, ms: float, bound_ms: float,
+          bound_by: str, name: str) -> str:
+    """A call's rate under the knob ``kd`` (None: the library call) at
+    ``ms``: TFLOP/s when operations bound it, else GB/s; its share of the
+    bound; and for the GEMM the split-k plan it launched."""
+    from repro_torch.kernels import gemm as G
+    flops, nbytes = _work(op, shapes, kw)
+    rate = (f"{flops / ms / 1e9:.2f} TFLOP/s" if bound_by == "operations"
+            else f"{nbytes / ms / 1e6:.1f} GB/s")
+    text = f"{name} {rate}, {100 * bound_ms / ms:.1f} % of bound"
+    if kd is None:
+        return text
+    text = f"{text} ({_knob_str(op, kd)}"
+    if op == "gemm":
+        m, k = shapes[0][-2:]
+        slices, length = G.split_plan(m, shapes[1][-1], k, kd["bm"], kd["bn"])
+        text += f", split {slices} x {length}"
+    return text + ")"
 
 
 def _knob_str(op: str, kd: dict) -> str:
@@ -923,6 +1070,7 @@ def main(argv: list[str]) -> int:
                         or "Compiling entry" in line:
                     print(f"[build:{name}] {line.strip()}")
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    check_build()
 
     # 3. every kernel against a float64 oracle and its plain version
     t0 = time.perf_counter()

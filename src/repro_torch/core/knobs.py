@@ -155,7 +155,9 @@ HOPPER_TILES_K = (16, 32, 64)
 HOPPER_SMEM_BYTES = 232448
 #: threads one block may hold
 HOPPER_MAX_THREADS = 1024
-#: accumulators each thread of the kernel keeps (an 8 x 8 register tile)
+#: accumulators per thread in the space's thread filter (the first kernel's
+#: 8 x 8 register tile; the kernels' launch parameters now derive from the
+#: tile, ``kernels/gemm.py::mainloop_params``, and every f32 tile fits)
 HOPPER_ACC_PER_THREAD = 64
 
 
@@ -171,7 +173,8 @@ def hopper_knob_space(
     This replaces :func:`block_knob_space`'s 96 MiB VMEM filter with the
     card's limits: one A and one B tile in shared memory
     (``dtype_bytes * bk * (bm + bn)`` within 227 KB) and ``bm * bn / 64``
-    threads (each holding an 8 x 8 accumulator tile) within 1024.  Only
+    threads (each holding an 8 x 8 accumulator tile) within 1024, the
+    filter of the first kernel, kept so the space stays as installed.  Only
     tiles the kernel is instantiated for are accepted.  The space keeps the
     name ``"blocks"`` and :func:`_grid_parallelism` (the CTA count), which
     the registry and the compiled fast path key on.

@@ -16,6 +16,12 @@ It takes the place of the reference package's Pallas kernel
 and its grid with :func:`~repro_torch.kernels.introspect.record_launch`; for
 CPU tensors it computes :func:`gemm_plain`, the plain PyTorch version the
 tests and the chip smoke compare the kernel with.
+
+A grid of fewer output tiles than the card has SMs splits the contraction
+(:func:`split_plan`, mirrored by the kernel): each slice sums its part into
+a per-call workspace and the last slice of a tile adds them in slice order,
+inside the same launch.  :func:`mainloop_params` gives the launch
+parameters ``csrc/sgemm_mainloop.cuh`` derives from a tile.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from repro_torch.core.knobs import HOPPER_TILES_K, HOPPER_TILES_MN
 from . import _build
 from .introspect import record_launch
 
-__all__ = ["gemm", "gemm_plain", "TILES"]
+__all__ = ["gemm", "gemm_plain", "TILES", "split_plan", "mainloop_params",
+           "vec_aligned", "HOPPER_SMS"]
 
 #: the ``(bm, bk, bn)`` tiles ``csrc/gemm.cu`` is instantiated for
 TILES = frozenset(itertools.product(HOPPER_TILES_MN, HOPPER_TILES_K,
@@ -39,14 +46,70 @@ TILES = frozenset(itertools.product(HOPPER_TILES_MN, HOPPER_TILES_K,
 #: grid y and z limits of a launch (m-tiles and batch)
 _MAX_GRID_YZ = 65535
 
+#: streaming multiprocessors of an H100 SXM: a grid of fewer output tiles
+#: leaves SMs idle, and split-k fills them
+HOPPER_SMS = 132
+#: slices of the contraction start at multiples of this, the block of
+#: ``padded_ref.padded_run``, so padding k never moves a slice boundary
+SPLIT_ALIGN = 128
+#: shared memory of an H100 block, and what one ring of stages may take so
+#: that two blocks share an SM where the tile allows
+SMEM_MAX = 232448
+RING_BUDGET = SMEM_MAX // 2
+#: accumulators of one pass of the mainloop (256 threads x 8 x 8)
+MAX_PASS = 128 * 128
+
+
+def split_plan(m: int, n: int, k: int, bm: int, bn: int) -> tuple[int, int]:
+    """``(slices, length)`` of the contraction for one item of an
+    ``(m, k) @ (k, n)`` GEMM under the output tile ``bm x bn``
+    (``csrc/gemm.cu`` mirrors it and refuses any other split).
+
+    With ``tiles = ceil(m / bm) * ceil(n / bn)`` below :data:`HOPPER_SMS`,
+    k is cut at multiples of ``length = 128 * max(2, ceil(8 * tiles /
+    132))`` when it spans more than one length; else one slice of length k.
+    The length depends on the tile count alone (fewer tiles, shorter
+    slices), never on k or the batch, so a stack splits as its items do and
+    padding k to a multiple of 128 keeps every boundary."""
+    tiles = -(-m // bm) * -(-n // bn)
+    length = SPLIT_ALIGN * max(2, -(-8 * tiles // HOPPER_SMS))
+    if tiles >= HOPPER_SMS or k <= length:
+        return 1, k
+    return -(-k // length), length
+
+
+def mainloop_params(bm: int, bk: int, bn: int) -> dict:
+    """The launch parameters ``csrc/sgemm_mainloop.cuh`` derives from the
+    tile ``(bm, bk, bn)`` (symm: ``bk`` = 64): the pass (at most 128 x 128
+    accumulators; a larger tile runs its passes one after the other),
+    threads (128-256), the register tile, the stages of the cp.async ring
+    (as many of 2-4 as fit in :data:`RING_BUDGET`, else 2) and the dynamic
+    shared bytes."""
+    pm, pn = (bm, bn) if bm * bn <= MAX_PASS else (min(bm, 128), min(bn, 128))
+    threads = min(256, max(128, pm * pn // 64))
+    stage = 4 * bk * (pm + pn)
+    stages = next((s for s in (4, 3) if s * stage <= RING_BUDGET), 2)
+    return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
+            "threads": threads, "thread_tile": (pm * pn // threads // 8, 8),
+            "stages": stages, "smem": stages * stage}
+
+
+def vec_aligned(*operands: tuple[torch.Tensor, int, int]) -> bool:
+    """Whether every ``(tensor, leading stride, batch stride)`` allows the
+    kernels' 16-byte copies: the data pointer 16-byte aligned and both
+    strides multiples of 4 floats."""
+    return all(t.data_ptr() % 16 == 0 and ld % 4 == 0 and sb % 4 == 0
+               for t, ld, sb in operands)
+
 _C_LL = ctypes.c_longlong
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,         # bm, bk, bn
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # A, B, C
-             ctypes.c_void_p,                                    # O
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # O, ws, tickets
              ctypes.c_int, ctypes.c_int, ctypes.c_int,           # m, n, k
              ctypes.c_int,                                       # batch
              _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
              ctypes.c_float, ctypes.c_float, ctypes.c_int,       # alpha..
+             ctypes.c_int, ctypes.c_int, ctypes.c_int,           # vec, split
              ctypes.c_void_p]                                    # stream
 
 
@@ -126,19 +189,34 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     if out.numel() == 0:
         return out
     stacked = batch is not None
+    sab, sbb = a.stride(0) if stacked else 0, b.stride(0) if b.dim() == 3 else 0
+    vec = vec_aligned((a, a.stride(-2), sab), (b, b.stride(-2), sbb))
+    slices, length = split_plan(m, n, k, bm, bn)
     grid = _build.launch_grid()
     with torch.cuda.device(a.device):
+        # a workspace of this call's own, allocated on its stream (calls on
+        # other streams, the service's workers, never share one): the
+        # partial sums, then one int32 ticket per output tile, which the
+        # launcher zeroes on the stream before the kernel
+        ws = ws_ptr = tickets_ptr = None
+        if slices > 1:
+            n_ws = (batch or 1) * slices * m * n
+            n_tickets = (batch or 1) * -(-m // bm) * -(-n // bn)
+            ws = torch.empty(n_ws + n_tickets, dtype=torch.float32,
+                             device=a.device)
+            ws_ptr = ws.data_ptr()
+            tickets_ptr = ws_ptr + 4 * n_ws
         stream = torch.cuda.current_stream().cuda_stream
         rc = _build.launcher("gemm", _ARGTYPES)(
             bm, bk, bn, a.data_ptr(), b.data_ptr(),
-            c.data_ptr() if has_c else None, out.data_ptr(),
-            m, n, k, batch or 1,
-            a.stride(0) if stacked else 0, a.stride(-2),
-            b.stride(0) if b.dim() == 3 else 0, b.stride(-2),
+            c.data_ptr() if has_c else None, out.data_ptr(), ws_ptr,
+            tickets_ptr,
+            m, n, k, batch or 1, sab, a.stride(-2), sbb, b.stride(-2),
             c.stride(0) if has_c and stacked else 0,
             c.stride(-2) if has_c else 0,
             out.stride(0) if stacked else 0, out.stride(-2),
-            float(alpha), float(beta), int(has_c), stream, grid)
+            float(alpha), float(beta), int(has_c), int(vec), slices, length,
+            stream, grid)
     if rc != 0:
         raise RuntimeError(f"GEMM kernel launch failed with CUDA error {rc} "
                            f"(tile {bm}x{bk}x{bn}, A {tuple(a.shape)}, "

@@ -139,10 +139,14 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     """The CUDA grid of the ``full``/``tri`` kernel (gemm and symm have only
     that one) of ``op`` at ``dims`` under the output tile ``bm x bn``
     (syrk/syr2k: the square tile ``bm``; ``bn`` is their contraction block
-    and not part of the grid)."""
+    and not part of the grid).  The GEMM's grid x counts the n-tiles of
+    every slice of :func:`~repro_torch.kernels.gemm.split_plan`."""
     if op == "gemm":
-        m, _, n = dims
-        return (_cdiv(n, bn), _cdiv(m, bm), batch)
+        # the n-tiles times the slices of a split contraction (grid x)
+        from .gemm import split_plan
+        m, k, n = dims
+        return (_cdiv(n, bn) * split_plan(m, n, k, bm, bn)[0], _cdiv(m, bm),
+                batch)
     if op in ("symm", "trmm"):
         m, n = dims
         return (_cdiv(n, bn), _cdiv(m, bm), batch)

@@ -1,6 +1,7 @@
 """SYMM on the H100: ``O = alpha * sym(A) @ B + beta * C`` with A stored in
 its lower triangle, a CUDA C++ kernel written for Hopper
-(``csrc/symm.cu``), tiled by the knob's ``bm x bn`` output tile.
+(``csrc/symm.cu``, on the GEMM's mainloop ``csrc/sgemm_mainloop.cuh``),
+tiled by the knob's ``bm x bn`` output tile.
 
 It takes the place of the reference package's Pallas kernel
 (``src/repro/kernels/symm.py::symm_pallas``) with the same semantics:
@@ -27,6 +28,7 @@ import torch
 from repro_torch.core.knobs import hopper_2d_knob_space
 
 from . import _build
+from .gemm import vec_aligned
 from .introspect import record_launch
 from .ref import sym_lower
 
@@ -45,6 +47,7 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int,                         # bm, bn
              ctypes.c_int, ctypes.c_int, ctypes.c_int,           # m, n, batch
              _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
              ctypes.c_float, ctypes.c_float, ctypes.c_int,       # alpha..
+             ctypes.c_int,                                       # vec
              ctypes.c_void_p]                                    # stream
 
 
@@ -105,18 +108,19 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     if out.numel() == 0:
         return out
     stacked = batch is not None
+    sab, sbb = (a.stride(0), b.stride(0)) if stacked else (0, 0)
+    vec = vec_aligned((a, a.stride(-2), sab), (b, b.stride(-2), sbb))
     grid = _build.launch_grid()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _build.launcher("symm", _ARGTYPES)(
             bm, bn, a.data_ptr(), b.data_ptr(),
             c.data_ptr() if has_c else None, out.data_ptr(), m, n, batch or 1,
-            a.stride(0) if stacked else 0, a.stride(-2),
-            b.stride(0) if stacked else 0, b.stride(-2),
+            sab, a.stride(-2), sbb, b.stride(-2),
             c.stride(0) if has_c and stacked else 0,
             c.stride(-2) if has_c else 0,
             out.stride(0) if stacked else 0, out.stride(-2),
-            float(alpha), float(beta), int(has_c), stream, grid)
+            float(alpha), float(beta), int(has_c), int(vec), stream, grid)
     if rc != 0:
         raise RuntimeError(f"SYMM kernel launch failed with CUDA error {rc} "
                            f"(tile {bm}x{bn}, A {tuple(a.shape)}, "

@@ -3,7 +3,10 @@ of SYRK/SYR2K, the TRMM kernels, and TRSM on the GEMM): against a float64
 oracle and their plain versions under every candidate of their Hopper knob
 spaces, stacked == per-item bit for bit, tri_packed == tri bit for bit;
 masked == padded bit for bit, no copy op on the dispatch path, and the
-recorded grids equal to the grid formulas.  The card's
+recorded grids equal to the grid formulas; the GEMM's split-k on a ragged
+shape, its unaligned-stride path equal to the aligned one bit for bit (symm
+too), and the launch parameters built into the kernels equal to their
+Python mirrors.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -84,6 +87,116 @@ def test_kernel_stacked_equals_per_item_bitwise():
             for i in range(4):
                 one = G.gemm(a[i], bb[i] if bb.dim() == 3 else bb, **tile)
                 assert torch.equal(one, stacked[i]), (tile, i)
+
+
+# -- the GEMM's split-k, the aligned and unaligned copies ---------------------
+
+#: a ragged GEMM of few output tiles: its contraction splits under every tile
+SPLIT_DIMS = (7, 1300, 1000)
+
+
+@pytest.mark.gpu
+def test_split_k_matches_float64_and_stacked_equals_per_item():
+    _need_card()
+    from repro_torch.kernels import introspect as I
+    m, k, n = SPLIT_DIMS
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    a = torch.randn(3, m, k, generator=gen, device="cuda")
+    b = torch.randn(k, n, generator=gen, device="cuda")
+    c = torch.randn(3, m, n, generator=gen, device="cuda")
+    want = 0.5 * (a.double() @ b.double()) + 2.0 * c.double()
+    for knob in ops.knob_space_for("gemm"):
+        bm, bk, bn = knob["bm"], knob["bk"], knob["bn"]
+        assert G.split_plan(m, n, k, bm, bn)[0] > 1, knob
+        with I.capture_launches() as launched:
+            got = G.gemm(a, b, c, bm=bm, bk=bk, bn=bn, alpha=0.5, beta=2.0)
+        assert launched == [("gemm", I.full_grid_for("gemm", SPLIT_DIMS, bm,
+                                                     bn, batch=3))]
+        err = ((got.double() - want).abs().max() / want.abs().max()).item()
+        assert err < TOL, (knob, err)
+        for i in range(3):
+            one = G.gemm(a[i], b, c[i], bm=bm, bk=bk, bn=bn, alpha=0.5,
+                         beta=2.0)
+            assert torch.equal(one.view(torch.int32),
+                               got[i].view(torch.int32)), (knob, i)
+
+
+@pytest.mark.gpu
+def test_split_k_masked_equals_padded_bitwise():
+    _need_card()
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels.padded_ref import block_knob, padded_run
+    m, k, n = SPLIT_DIMS
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    xs = (_rand(gen, m, k), _rand(gen, k, n))
+    knob = block_knob("gemm", 128)
+    assert G.split_plan(m, n, k, 128, 128)[0] > 1
+    with I.capture_launches() as launched:
+        got = ops.run_op("gemm", xs, knob=knob)
+    assert launched == [("gemm", I.full_grid_for("gemm", SPLIT_DIMS, 128,
+                                                 128))]
+    want = padded_run("gemm", xs)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _unaligned(x):
+    """``x``'s values in a view whose leading stride is one float longer:
+    not a multiple of 4 when x's is, so the kernels take 4-byte copies."""
+    wide = torch.zeros(*x.shape[:-1], x.shape[-1] + 1, device=x.device)
+    wide[..., :x.shape[-1]] = x
+    return wide[..., :x.shape[-1]]
+
+
+@pytest.mark.gpu
+def test_unaligned_strides_equal_aligned_bitwise():
+    _need_card()
+    from repro_torch.kernels import symm as S
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for m, k, n in ((129, 256, 384), (8, 4096, 1024)):
+        a, b, c = _rand(gen, m, k), _rand(gen, k, n), _rand(gen, m, n)
+        assert G.vec_aligned((a, k, 0), (b, n, 0))
+        assert not G.vec_aligned((_unaligned(a), k + 1, 0))
+        for knob in ops.knob_space_for("gemm"):
+            tile = {key: knob[key] for key in ("bm", "bk", "bn")}
+            aligned = G.gemm(a, b, c, alpha=0.5, beta=2.0, **tile)
+            for x, y in ((_unaligned(a), b), (a, _unaligned(b)),
+                         (_unaligned(a), _unaligned(b))):
+                got = G.gemm(x, y, c, alpha=0.5, beta=2.0, **tile)
+                assert torch.equal(got.view(torch.int32),
+                                   aligned.view(torch.int32)), (tile, m)
+    a, b = _rand(gen, STACK, 256, 256), _rand(gen, STACK, 256, 384)
+    for knob in ops.knob_space_for("symm"):
+        tile = dict(bm=knob["bm"], bn=knob["bn"])
+        aligned = S.symm(a, b, **tile)
+        got = S.symm(_unaligned(a), _unaligned(b), **tile)
+        assert torch.equal(got.view(torch.int32),
+                           aligned.view(torch.int32)), tile
+
+
+@pytest.mark.gpu
+def test_kernels_are_built_with_their_python_mirrors():
+    """The launch parameters compiled into gemm.cu and symm.cu and the C
+    split plan equal ``mainloop_params`` and ``split_plan``."""
+    _need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import symm as S
+    out = (ctypes.c_int * 4)()
+    gemm_lib, symm_lib = _build.load("gemm"), _build.load("symm")
+    for bm, bk, bn in sorted(G.TILES):
+        assert gemm_lib.repro_gemm_f32_config(bm, bk, bn, out) == 0
+        p = G.mainloop_params(bm, bk, bn)
+        assert list(out) == [p["threads"], p["stages"], p["smem"],
+                             p["passes"]]
+        for m, k, n in (*DIMS, SPLIT_DIMS, (8, 4096, 1024),
+                        (8, 14336, 4096), (128, 3968, 14336)):
+            gemm_lib.repro_gemm_f32_split(m, n, k, bm, bn, out)
+            assert (out[0], out[1]) == G.split_plan(m, n, k, bm, bn)
+    for bm, bn in sorted(S.TILES):
+        assert symm_lib.repro_symm_f32_config(bm, bn, out) == 0
+        p = G.mainloop_params(bm, 64, bn)
+        assert list(out) == [p["threads"], p["stages"], p["smem"],
+                             p["passes"]]
 
 
 # -- symm, syrk/syr2k and trsm ------------------------------------------------
