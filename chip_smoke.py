@@ -8,23 +8,27 @@ calls, and fails (non-zero exit) if any phase fails:
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
    ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``), all nvcc runs
    started together, with nvcc's ``-Xptxas -v`` report (registers, shared
-   memory, spills).  Fails if any ``gemm`` or ``symm`` instantiation spills,
-   or if the launch parameters the kernels were built with (threads,
-   stages, shared bytes, passes) or the GEMM's split-k plan differ from
-   their Python mirrors (``kernels/gemm.py::mainloop_params``,
-   ``split_plan``);
+   memory, spills).  Fails if any instantiation of a kernel on the f32
+   mainloop (``gemm``, ``symm``, ``trmm``, ``trmm_packed``) spills, or if
+   the launch parameters they were built with (threads, stages, shared
+   bytes, passes) or the GEMM's split-k plan differ from their Python
+   mirrors (``kernels/gemm.py::mainloop_params``, ``split_plan``);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
    reference conformance harness's 5e-4, so that a TF32 product fails it):
    the GEMM on ragged, aligned and decode (split-k) shapes, ``alpha``/``beta``
    with C, stacks with per-item and shared B, and operands with unaligned
-   leading strides equal bit for bit to aligned copies of the same values; symm, syrk/syr2k, trmm (every variant) and
-   trsm through the port's conformance harness on its ragged dims and one
-   aligned shape, with and without C, single and stacked (the error taken
+   leading strides equal bit for bit to aligned copies of the same values;
+   symm, syrk/syr2k, trmm (every variant) and trsm through the port's
+   conformance harness on its ragged dims and one aligned shape, with and
+   without C, single and stacked (the error taken
    relative to ``conformance.error_scale``: the largest output, floored
    for a 1 x 1 syr2k whose one dot product may cancel).  Stacked results
    must equal per-item results bit for bit, and syrk/syr2k/trmm
-   ``tri_packed`` must equal ``tri`` bit for bit.  Then the structural
+   ``tri_packed`` must equal ``tri`` bit for bit.  trmm under every knob on
+   operands with unaligned leading strides must equal aligned copies bit
+   for bit, and an A with NaN everywhere above its diagonal must give the
+   bits of an A with zeros there, on both copy paths.  Then the structural
    contracts: ``run_op`` equals the padded run (``kernels/padded_ref.py``)
    bit for bit for gemm, symm, syrk, syr2k and trmm under every variant at
    ragged and one-row dims and, for the GEMM, a split-k shape (trsm within
@@ -63,10 +67,11 @@ calls, and fails (non-zero exit) if any phase fails:
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
    ``torch.addmm``, ``torch.linalg.solve_triangular``) and the float32
-   bound of the card; for each gemm and symm call also its rate (TFLOP/s,
-   or GB/s when bytes bound it), its share of the bound and the split-k
-   plan it launched; and the host's time per call of the GEMM wrapper
-   against ``torch.matmul`` at a product too small to time the card.
+   bound of the card; for each gemm, symm and trmm call (trmm's pinned
+   variants too) also its rate (TFLOP/s, or GB/s when bytes bound it), its
+   share of the bound and, for the GEMM, the split-k plan it launched; and
+   the host's time per call of the GEMM wrapper against ``torch.matmul``
+   at a product too small to time the card.
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
 (the ``run_op`` calls, then the service) is driven with the counts set to 0
@@ -116,6 +121,10 @@ KERNEL_DIMS = ((129, 65, 257), (1, 300, 384), (300, 300, 300),
 UNALIGNED_DIMS = ((129, 256, 384), (8, 4096, 1024))
 #: one aligned shape beside RAGGED_DIMS for the 2-dim ops
 ALIGNED_2D = (256, 384)
+#: trmm dims run on operands with unaligned leading strides and on an A
+#: with NaN above its diagonal: ragged, and the aligned shape (16-byte
+#: copies when the strides allow them)
+TRMM_PATH_DIMS = ((129, 257), ALIGNED_2D)
 STACK = 3
 #: max relative error (to the largest output) of the kernel vs a float64
 #: oracle and of a served result vs the plain version.  The reference
@@ -147,6 +156,8 @@ SERVE_TIMEOUT_S = 600
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+#: the ops whose calls phase 6 prints a ``[rate]`` line for
+RATE_OPS = ("gemm", "symm", "trmm")
 
 #: calibration settings of phase 4, and the Halton dims each op installs
 #: with (log-scaled, so most are small: the six gather in about two
@@ -545,7 +556,9 @@ def _ptxas_entries(name: str) -> list[tuple[str, int, int]]:
     from repro_torch.kernels import _build
     entries = []
     for seg in _build.ptxas_report(name).split("Compiling entry function")[1:]:
-        tile = "x".join(re.findall(r"ILi(\d+)E", seg.split("'")[1]))
+        args = re.search(r"I((?:Li\d+E)+)E", seg.split("'")[1])
+        tile = "x".join(re.findall(r"Li(\d+)E", args.group(1))) \
+            if args else "?"
         regs = re.search(r"Used (\d+) registers", seg)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", seg)
@@ -556,14 +569,17 @@ def _ptxas_entries(name: str) -> list[tuple[str, int, int]]:
 
 
 def check_build() -> None:
-    """No spill in any gemm or symm instantiation, and the launch
-    parameters and split-k plan compiled into the kernels equal their
-    Python mirrors."""
+    """No spill in any instantiation of the kernels on the f32 mainloop,
+    and the launch parameters and split-k plan compiled into the kernels
+    equal their Python mirrors."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import symm as S
-    for name, count in (("gemm", len(G.TILES)), ("symm", len(S.TILES))):
+    from repro_torch.kernels import trmm as TM
+    for name, count in (("gemm", len(G.TILES)), ("symm", len(S.TILES)),
+                        ("trmm", len(TM.TILES)),
+                        ("trmm_packed", len(TM.TILES))):
         entries = _ptxas_entries(name)
         spilled = [e for e in entries if e[2] != 0]
         if len(entries) != count or spilled:
@@ -577,9 +593,12 @@ def check_build() -> None:
     configs = [("gemm", (bm, bk, bn), lambda o, t=(bm, bk, bn):
                 _build.load("gemm").repro_gemm_f32_config(*t, o))
                for bm, bk, bn in sorted(G.TILES)]
-    configs += [("symm", (bm, 64, bn), lambda o, t=(bm, bn):
-                 _build.load("symm").repro_symm_f32_config(*t, o))
-                for bm, bn in sorted(S.TILES)]
+    configs += [(name, (bm, 64, bn), lambda o, t=(bm, bn), name=name:
+                 getattr(_build.load(name), f"repro_{name}_f32_config")(*t,
+                                                                        o))
+                 for name, tiles in (("symm", S.TILES), ("trmm", TM.TILES),
+                                     ("trmm_packed", TM.TILES))
+                 for bm, bn in sorted(tiles)]
     for name, (bm, bk, bn), query in configs:
         p = G.mainloop_params(bm, bk, bn)
         want = [p["threads"], p["stages"], p["smem"], p["passes"]]
@@ -748,6 +767,64 @@ def check_2d_ops(torch, rand) -> None:
     torch.cuda.synchronize()
     print(f"[kernel:rank_k,trmm] tri_packed == tri bit for bit in {pairs} "
           f"pairs (syrk, syr2k with and without C; trmm)", flush=True)
+
+
+def _unaligned(torch, x):
+    """``x``'s values in a view whose leading stride is one float longer:
+    not a multiple of 4 where x's is, so the kernels take 4-byte copies."""
+    wide = torch.zeros(*x.shape[:-1], x.shape[-1] + 1, device=x.device)
+    wide[..., :x.shape[-1]] = x
+    return wide[..., :x.shape[-1]]
+
+
+def check_trmm_paths(torch, rand) -> None:
+    """trmm under every knob, single and stacked: operands with unaligned
+    leading strides (the 4-byte copies) equal aligned ones bit for bit, and
+    an A with NaN everywhere above its diagonal, or zeros there, gives the
+    bits of the A it came from, on both copy paths: the triangle limit
+    never reads past the diagonal."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trmm as TM
+    space = ops.knob_space_for("trmm")
+    checks, vec_dims = 0, []
+    for m, n in TRMM_PATH_DIMS:
+        for lead in ((), (STACK,)):
+            a, b = rand(*lead, m, m), rand(*lead, m, n)
+            upper = torch.ones(m, m, dtype=torch.bool,
+                               device=a.device).triu(1)
+            nans = torch.where(upper, math.nan, a)
+            zeros = torch.where(upper, 0.0, a)
+            sab, sbb = (m * m, m * n) if lead else (0, 0)
+            if G.vec_aligned((a, m, sab), (b, n, sbb)):
+                vec_dims.append((*lead, m, n))
+            ua, ub, unans = (_unaligned(torch, x) for x in (a, b, nans))
+            for knob in space:
+                kw = dict(bm=knob["bm"], bn=knob["bn"], alpha=0.5,
+                          variant=knob["variant"])
+                want = TM.trmm(a, b, **kw).view(torch.int32)
+                for x, y, what in ((ua, b, "unaligned A"),
+                                   (a, ub, "unaligned B"),
+                                   (ua, ub, "unaligned A and B"),
+                                   (nans, b, "NaN above the diagonal"),
+                                   (zeros, b, "zeros above the diagonal"),
+                                   (unans, ub, "unaligned, NaN above the "
+                                    "diagonal")):
+                    checks += 1
+                    if not torch.equal(TM.trmm(x, y, **kw).view(torch.int32),
+                                       want):
+                        raise SystemExit(f"[kernel:trmm] {knob} at "
+                                         f"{(*lead, m, n)}: {what} differs "
+                                         f"from A aligned bit for bit")
+    if not vec_dims:
+        raise SystemExit("[kernel:trmm] no aligned operands: the 16-byte "
+                         "copies were not held")
+    torch.cuda.synchronize()
+    print(f"[kernel:trmm] {checks} checks over {len(space)} candidates at "
+          f"{TRMM_PATH_DIMS} (single, stack of {STACK}): unaligned == "
+          f"aligned strides bit for bit (16-byte copies at {vec_dims}), and "
+          f"NaN or zeros above A's diagonal change no bit, on both copy "
+          f"paths", flush=True)
 
 
 #: the ragged and one-row dims of the reference's zero-copy tests
@@ -939,6 +1016,10 @@ def time_rows(torch, card: str, rows: list[dict]) -> dict:
             print(f"{line} (pinned) | plain {plain_ms:.4f} ms | library "
                   f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms "
                   f"({bound_by}) | launches {row['launches']}", flush=True)
+            if op in RATE_OPS:
+                print(f"[rate] [{card}] {row['label']}: " + _rate(
+                    op, shapes, kw, row["knob"], ms, bound_ms, bound_by,
+                    "pinned"), flush=True)
             del sets
             continue
         default = ops.default_knob(op).dict
@@ -961,7 +1042,7 @@ def time_rows(torch, card: str, rows: list[dict]) -> dict:
               f"{default_ms / best_ms:.3f}x) | plain {plain_ms:.4f} ms | "
               f"library {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
               f"({bound_by}) | launches {row['launches']}", flush=True)
-        if op in ("gemm", "symm"):
+        if op in RATE_OPS:
             rates = [(name, kd, t) for name, kd, t in
                      (("served", row["knob"], ms), ("default", default,
                                                      default_ms),
@@ -1085,6 +1166,7 @@ def main(argv: list[str]) -> int:
             t0 = time.perf_counter()
             check_gemm(torch, rand)
             check_2d_ops(torch, rand)
+            check_trmm_paths(torch, rand)
             check_contracts(torch, rand)
             print(f"[repeat {i + 1}/{repeats}] clean in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1092,6 +1174,7 @@ def main(argv: list[str]) -> int:
         return 0
     check_gemm(torch, rand)
     check_2d_ops(torch, rand)
+    check_trmm_paths(torch, rand)
     check_contracts(torch, rand)
     print(f"[kernel] {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -234,12 +234,21 @@ def hopper_2d_knob_space(
       contraction block, from :data:`HOPPER_TILES_K`; the variants are
       ``full``, ``tri`` and ``tri_packed``.
 
-    ``bk`` repeats ``bm`` and is unused, as in the reference.  Tiles of
-    1024 threads (``bm * bn / 64`` or ``bm * bm / 64``) are left out: the
-    GEMM kernel's 256x256 tiles spill 1488-2696 bytes a thread (its
-    ``-Xptxas -v`` report for ``sm_90a``).  ``full`` and ``tri`` launch
-    the same grid and so share a feature row (:func:`_grid_parallelism`),
-    as in the reference, and ``tri_packed`` has a row of its own.
+    ``bk`` repeats ``bm`` and is unused, as in the reference.  The filter
+    is the one the space was first fixed with, and is kept so that the
+    candidates (8 for symm and trsm, 24 for trmm, 18 for syrk and syr2k)
+    and so the installs stay comparable.  For syrk and syr2k it is still
+    their kernels' (``csrc/rank_k*.cu``): ``bm * bm / 64`` threads below
+    1024 and their staged tiles in shared memory.  For symm, trmm and trsm
+    it reckons the first design of their kernels (``bm * bn / 64``
+    threads of 8 x 8 accumulators below 1024, one shared stage of
+    ``64 * (bm + 1 + bn)`` floats) and so leaves out 256x256 alone; those
+    kernels now run on the f32 mainloop, whose launch parameters come from
+    the tile (``kernels/gemm.py::mainloop_params``: 128-256 threads, a
+    ring of 2-4 stages, passes of at most 128 x 128).  ``full`` and
+    ``tri`` launch the same grid and so share a feature row
+    (:func:`_grid_parallelism`), as in the reference, and ``tri_packed``
+    has a row of its own.
     """
     if op not in HOPPER_2D_VARIANTS:
         raise ValueError(f"no Hopper kernel for {op!r}; ported 2-dim ops: "
@@ -260,6 +269,7 @@ def hopper_2d_knob_space(
             smem = _rank_k_smem_bytes(bm, bn, two=op == "syr2k",
                                       dtype_bytes=dtype_bytes)
         else:
+            # the first design's reckoning, kept: the candidates as fixed
             threads = bm * bn // HOPPER_ACC_PER_THREAD
             smem = dtype_bytes * HOPPER_CONTRACTION_STEP * (bm + 1 + bn)
         if smem <= HOPPER_SMEM_BYTES and threads < HOPPER_MAX_THREADS:

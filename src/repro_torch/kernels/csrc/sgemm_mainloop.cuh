@@ -1,9 +1,10 @@
-// The float32 mainloop shared by gemm.cu and symm.cu (and written so that
-// the trmm kernels can adopt it): one block computes its BM x BN tile of
+// The float32 mainloop shared by gemm.cu, symm.cu and the trmm kernels
+// (trmm.cu, trmm_packed.cu): one block computes its BM x BN tile of
 // accumulators over a range of the contraction, in IEEE fmaf on the CUDA
 // cores.  What feeds the A tile is a template parameter (a "producer"), so
-// the GEMM stages a row-major A and symm stitches sym(A) from the stored
-// triangle; B is row-major in both.
+// the GEMM stages a row-major A, symm stitches sym(A) from the stored
+// triangle and trmm stages tril(A) with a per-row column limit; B is
+// row-major in all three.
 //
 // Pipeline.  Every contraction step of BK stages one A and one B tile in a
 // ring of STAGES buffers in shared memory, filled with cp.async: while the
@@ -104,9 +105,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stages the R x C window starting at (i0, j0) of the row-major matrix p
 // (leading stride ld, rows x cols stored) into s, row-major with stride C;
-// elements past rows or cols read zero.  p is a safe address for the
-// zero-byte copies.
-template <int R, int C, int THREADS>
+// elements past rows or cols read zero.  With LOWER, row gi is stored in
+// its columns 0 .. gi only (the lower triangle of a square matrix): its
+// columns past gi read zero too, and no copy reads them.  p is a safe
+// address for the zero-byte copies.
+template <int R, int C, int THREADS, bool LOWER = false>
 __device__ __forceinline__ void load_tile(float* s, const float* p,
                                           long long ld, int rows, int cols,
                                           int i0, int j0, bool vec) {
@@ -117,15 +120,17 @@ __device__ __forceinline__ void load_tile(float* s, const float* p,
     const int t = threadIdx.x + it * THREADS;
     const int i = t / CH, jc = (t % CH) * 4;
     const int gi = i0 + i, gj = j0 + jc;
+    // the end of row gi's stored columns
+    const int lim = LOWER ? cmin(cols, gi + 1) : cols;
     float* d = s + i * C + jc;
     const float* row = p + gi * ld;
     if (vec) {
-      const int nv = gi < rows ? cmin(cmax(cols - gj, 0), 4) : 0;
+      const int nv = gi < rows ? cmin(cmax(lim - gj, 0), 4) : 0;
       cp_async16(d, nv ? row + gj : p, 4 * nv);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool ok = gi < rows && gj + e < cols;
+        const bool ok = gi < rows && gj + e < lim;
         cp_async4(d + e, ok ? row + gj + e : p, ok ? 4 : 0);
       }
     }

@@ -1,6 +1,6 @@
 """TRMM on the H100: ``O = alpha * tril(A) @ B`` (left, lower, non-unit),
-with CUDA C++ kernels written for Hopper, tiled by the knob's ``bm x bn``
-output tile.
+with CUDA C++ kernels written for Hopper on the GEMM's f32 mainloop
+(``csrc/sgemm_mainloop.cuh``), tiled by the knob's ``bm x bn`` output tile.
 
 It takes the place of the reference package's Pallas kernels
 (``src/repro/kernels/trmm.py::trmm_pallas``) with the same semantics and
@@ -9,17 +9,22 @@ the same three variants, which the ADSALA knob selects:
 * ``full`` (``csrc/trmm.cu``): every block walks the whole contraction and
   multiplies zero-filled A tiles past the diagonal (without reading A
   there), the reference's uniform pipeline;
-* ``tri`` (``csrc/trmm.cu``): every block stops at the diagonal, so no
-  arithmetic is done past it;
+* ``tri`` (``csrc/trmm.cu``): each pass of rows stops at the end of its
+  rows' stored columns, so no arithmetic is done past the diagonal;
 * ``tri_packed`` (``csrc/trmm_packed.cu``): about half of ``tri``'s blocks,
   each computing the tile of row block ``p`` and then that of row block
   ``nb - 1 - p``, so that every block does about the same live work.  It
   equals ``tri`` bit for bit.
 
-A is ``(m, m)`` or ``(batch, m, m)`` and read only on and below its
-diagonal; B is ``(m, n)`` or ``(batch, m, n)``, stacked as A is.  Ragged m
-and n need no padding: the kernels mask A's columns and B's rows alike
-past m.  The result is a new float32 tensor, accumulated in float32.
+Both kernels stage tril(A) through one producer (``csrc/trmm_tile.cuh``):
+the GEMM's row-major copies with a per-row column limit, so A is read only
+on and below its diagonal and whatever it holds above changes no bit.  A
+is ``(m, m)`` or ``(batch, m, m)``; B is ``(m, n)`` or ``(batch, m, n)``,
+stacked as A is.  Ragged m and n need no padding: the kernels mask A's
+columns and B's rows alike past m.  When A, B and their strides are
+16-byte aligned (:func:`~repro_torch.kernels.gemm.vec_aligned`, no copy)
+the kernels move 4 floats a copy, else one, with the same bits.  The
+result is a new float32 tensor, accumulated in float32.
 
 :func:`trmm` launches a kernel for CUDA tensors and records the launch and
 its grid under the kernel's name with
@@ -37,6 +42,7 @@ import torch
 from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
 
 from . import _build
+from .gemm import vec_aligned
 from .introspect import record_launch
 
 __all__ = ["trmm", "trmm_plain", "TILES", "VARIANTS"]
@@ -54,9 +60,10 @@ _COMMON = [ctypes.c_int, ctypes.c_int,                          # bm, bn
            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # m, n, batch
            _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,            # strides
            ctypes.c_float]                                      # alpha
-_ARGTYPES = {"trmm": _COMMON + [ctypes.c_int,                   # tri
+_ARGTYPES = {"trmm": _COMMON + [ctypes.c_int, ctypes.c_int,     # tri, vec
                                 ctypes.c_void_p],               # stream
-             "trmm_packed": _COMMON + [ctypes.c_void_p]}        # stream
+             "trmm_packed": _COMMON + [ctypes.c_int,            # vec
+                                       ctypes.c_void_p]}        # stream
 
 
 def trmm_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -111,22 +118,31 @@ def trmm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     out = torch.empty(b.shape, dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    stacked = batch is not None
-    kernel = "trmm_packed" if variant == "tri_packed" else "trmm"
-    flags = () if kernel == "trmm_packed" else (int(variant == "tri"),)
-    grid = _build.launch_grid()
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _build.launcher(kernel, _ARGTYPES[kernel])(
-            bm, bn, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
-            batch or 1,
-            a.stride(0) if stacked else 0, a.stride(-2),
-            b.stride(0) if stacked else 0, b.stride(-2),
-            out.stride(0) if stacked else 0, out.stride(-2),
-            float(alpha), *flags, stream, grid)
+        _launch(a, b, out, m, n, batch, bm=bm, bn=bn, alpha=alpha,
+                variant=variant,
+                stream=torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _launch(a, b, out, m, n, batch, *, bm, bn, alpha, variant,
+            stream) -> None:
+    """Launch the kernel of ``variant`` on checked operands and ``out`` on
+    ``stream``, and record the launch."""
+    stacked = batch is not None
+    sab, sbb = (a.stride(0), b.stride(0)) if stacked else (0, 0)
+    vec = vec_aligned((a, a.stride(-2), sab), (b, b.stride(-2), sbb))
+    kernel = "trmm_packed" if variant == "tri_packed" else "trmm"
+    flags = (int(vec),) if kernel == "trmm_packed" \
+        else (int(variant == "tri"), int(vec))
+    grid = _build.launch_grid()
+    rc = _build.launcher(kernel, _ARGTYPES[kernel])(
+        bm, bn, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
+        batch or 1, sab, a.stride(-2), sbb, b.stride(-2),
+        out.stride(0) if stacked else 0, out.stride(-2),
+        float(alpha), *flags, stream, grid)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{rc} (tile {bm}x{bn}, variant {variant}, "
                            f"A {tuple(a.shape)}, B {tuple(b.shape)})")
     record_launch(kernel, grid)
-    return out

@@ -5,8 +5,8 @@ spaces, stacked == per-item bit for bit, tri_packed == tri bit for bit;
 masked == padded bit for bit, no copy op on the dispatch path, and the
 recorded grids equal to the grid formulas; the GEMM's split-k on a ragged
 shape, its unaligned-stride path equal to the aligned one bit for bit (symm
-too), and the launch parameters built into the kernels equal to their
-Python mirrors.  The card's
+and trmm too), trmm's A read nowhere above its diagonal, and the launch
+parameters built into the kernels equal to their Python mirrors.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -175,12 +175,14 @@ def test_unaligned_strides_equal_aligned_bitwise():
 
 @pytest.mark.gpu
 def test_kernels_are_built_with_their_python_mirrors():
-    """The launch parameters compiled into gemm.cu and symm.cu and the C
-    split plan equal ``mainloop_params`` and ``split_plan``."""
+    """The launch parameters compiled into gemm.cu, symm.cu, trmm.cu and
+    trmm_packed.cu and the C split plan equal ``mainloop_params`` and
+    ``split_plan``."""
     _need_card()
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import symm as S
+    from repro_torch.kernels import trmm as TM
     out = (ctypes.c_int * 4)()
     gemm_lib, symm_lib = _build.load("gemm"), _build.load("symm")
     for bm, bk, bn in sorted(G.TILES):
@@ -197,6 +199,13 @@ def test_kernels_are_built_with_their_python_mirrors():
         p = G.mainloop_params(bm, 64, bn)
         assert list(out) == [p["threads"], p["stages"], p["smem"],
                              p["passes"]]
+    for name in ("trmm", "trmm_packed"):
+        config = getattr(_build.load(name), f"repro_{name}_f32_config")
+        for bm, bn in sorted(TM.TILES):
+            assert config(bm, bn, out) == 0, (name, bm, bn)
+            p = G.mainloop_params(bm, 64, bn)
+            assert list(out) == [p["threads"], p["stages"], p["smem"],
+                                 p["passes"]], (name, bm, bn)
 
 
 # -- symm, syrk/syr2k and trsm ------------------------------------------------
@@ -345,6 +354,54 @@ def test_trmm_kernels_match_plain_over_the_knob_space():
                 tri = TM.trmm(a, b, alpha=0.5, **{**tile, "variant": "tri"})
                 assert torch.equal(tri.view(torch.int32),
                                    got.view(torch.int32)), (knob, (m, n))
+
+
+#: trmm dims of the copy-path checks: ragged, and aligned (16-byte copies)
+_TRMM_PATH_DIMS = ((129, 257), (256, 384))
+
+
+@pytest.mark.gpu
+def test_trmm_unaligned_strides_equal_aligned_bitwise():
+    _need_card()
+    from repro_torch.kernels import trmm as TM
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for m, n in _TRMM_PATH_DIMS:
+        for lead in ((), (STACK,)):
+            a, b = _rand(gen, *lead, m, m), _rand(gen, *lead, m, n)
+            # the aligned shape takes the 16-byte copies
+            assert G.vec_aligned((a, m, m * m), (b, n, m * n)) == \
+                (m % 4 == 0)
+            for knob in ops.knob_space_for("trmm"):
+                kw = dict(bm=knob["bm"], bn=knob["bn"], alpha=0.5,
+                          variant=knob["variant"])
+                want = TM.trmm(a, b, **kw).view(torch.int32)
+                for x, y in ((_unaligned(a), b), (a, _unaligned(b)),
+                             (_unaligned(a), _unaligned(b))):
+                    got = TM.trmm(x, y, **kw)
+                    assert torch.equal(got.view(torch.int32), want), \
+                        (knob, lead, m, n)
+
+
+@pytest.mark.gpu
+def test_trmm_reads_nothing_above_the_diagonal():
+    """NaN everywhere above A's diagonal gives the bits of the A it came
+    from, under every knob and on both copy paths."""
+    _need_card()
+    from repro_torch.kernels import trmm as TM
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for m, n in _TRMM_PATH_DIMS:
+        upper = torch.ones(m, m, dtype=torch.bool, device="cuda").triu(1)
+        for lead in ((), (STACK,)):
+            a, b = _rand(gen, *lead, m, m), _rand(gen, *lead, m, n)
+            nans = torch.where(upper, float("nan"), a)
+            for knob in ops.knob_space_for("trmm"):
+                kw = dict(bm=knob["bm"], bn=knob["bn"], alpha=0.5,
+                          variant=knob["variant"])
+                want = TM.trmm(a, b, **kw).view(torch.int32)
+                for x, y in ((nans, b), (_unaligned(nans), _unaligned(b))):
+                    got = TM.trmm(x, y, **kw)
+                    assert torch.equal(got.view(torch.int32), want), \
+                        (knob, lead, m, n)
 
 
 #: the ragged and one-row dims of the reference's zero-copy tests

@@ -1,10 +1,10 @@
 """The GEMM's split-k plan and the launch parameters of the shared f32
 mainloop (``csrc/sgemm_mainloop.cuh``), checked without a card: every tile
-of the GEMM and symm knob spaces stays within the H100's limits, the split
-never depends on the batch, padding to multiples of 128 (``padded_run``)
-keeps every slice boundary, and the grid formula counts the slices.  The
-card checks the C mirror of both rules (``tests/test_torch_gpu.py``,
-``chip_smoke.py`` phase 2)."""
+of the GEMM, symm and trmm knob spaces stays within the H100's limits, the
+split never depends on the batch, padding to multiples of 128
+(``padded_run``) keeps every slice boundary, and the grid formula counts
+the slices.  The card checks the C mirror of both rules
+(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2)."""
 
 import importlib.util
 import itertools
@@ -15,6 +15,7 @@ import pytest
 from repro_torch.kernels import gemm as G
 from repro_torch.kernels import introspect as I
 from repro_torch.kernels import symm as S
+from repro_torch.kernels import trmm as TM
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -73,9 +74,24 @@ def test_symm_launch_params_fit_the_card(bm, bn):
     assert p["passes"] * p["pass"][0] * p["pass"][1] == bm * bn
 
 
+@pytest.mark.parametrize("bm,bn", sorted(TM.TILES))
+def test_trmm_launch_params_fit_the_card(bm, bn):
+    """Both trmm kernels run the mainloop under ``Tile<bm, bn, 64>``: 4-8
+    warps, a ring within the card's shared memory, and passes whose rows
+    start on a contraction step, so ``tri`` ends every pass on one."""
+    p = G.mainloop_params(bm, 64, bn)
+    pm, _pn = p["pass"]
+    assert 128 <= p["threads"] <= 256 and p["threads"] % 32 == 0
+    assert p["smem"] <= G.SMEM_MAX and 2 <= p["stages"] <= 4
+    assert p["passes"] * p["pass"][0] * p["pass"][1] == bm * bn
+    assert pm % 64 == 0 and bm % pm == 0
+
+
 def test_default_tile_gets_four_warps_and_the_big_tiles_run_in_passes():
     assert G.mainloop_params(64, 16, 64)["threads"] == 128
     assert G.mainloop_params(64, 16, 64)["thread_tile"] == (4, 8)
+    # trmm's default 64x64 too (8 x 8 accumulators a thread: 2 warps)
+    assert G.mainloop_params(64, 64, 64)["threads"] == 128
     assert G.mainloop_params(256, 64, 256)["passes"] == 4
     assert G.mainloop_params(128, 64, 256)["passes"] == 2
     assert G.mainloop_params(128, 64, 128)["passes"] == 1

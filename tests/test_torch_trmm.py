@@ -116,6 +116,45 @@ def test_knob_variant_and_tile_reach_the_wrapper(monkeypatch):
     assert seen == {"bm": 256, "bn": 64, "alpha": 2.0, "variant": "tri"}
 
 
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_wrapper_passes_tile_variant_flag_and_vec_to_the_launcher(
+        monkeypatch, variant):
+    """The launch half of the wrapper, with a recording launcher in place
+    of the built library: the kernel of the variant, the tile, the ``tri``
+    flag (``trmm.cu`` only), ``vec`` true for aligned operands and false
+    for a view with an unaligned leading stride, and the recorded grid."""
+    from repro_torch.kernels import introspect as I
+    calls = []
+
+    def launcher(name, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes) + 1     # + the grid
+            calls.append((name, args[:-1]))
+            args[-1][:] = (7, 8, 3)
+            return 0
+        return fn
+
+    monkeypatch.setattr(TM._build, "launcher", launcher)
+    a, b = torch.randn(3, 40, 40), torch.randn(3, 40, 24)
+    wide = torch.zeros(3, 40, 41)
+    wide[..., :40] = a
+    kernel = "trmm_packed" if variant == "tri_packed" else "trmm"
+    for x, vec in ((a, 1), (wide[..., :40], 0)):
+        out = torch.empty(3, 40, 24)
+        with I.capture_launches() as launched:
+            TM._launch(x, b, out, 40, 24, 3, bm=128, bn=64, alpha=0.5,
+                       variant=variant, stream=0)
+        assert launched == [(kernel, (7, 8, 3))]
+        name, args = calls.pop()
+        assert name == kernel and args[:2] == (128, 64)
+        assert args[5:8] == (40, 24, 3)
+        assert args[8:14] == (x.stride(0), x.stride(1), 960, 24, 960, 24)
+        assert args[14] == 0.5 and args[-1] == 0          # alpha, stream
+        flags = args[15:-1]
+        assert flags == ((vec,) if kernel == "trmm_packed"
+                         else (int(variant == "tri"), vec)), flags
+
+
 def test_space_has_24_candidates_in_blocks():
     space = ops.knob_space_for("trmm")
     pairs = {(bm, bn) for bm in (64, 128, 256) for bn in (64, 128, 256)} \
