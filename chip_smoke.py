@@ -8,11 +8,11 @@ calls, and fails (non-zero exit) if any phase fails:
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
    ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``), all nvcc runs
    started together, with nvcc's ``-Xptxas -v`` report (registers, shared
-   memory, spills).  Fails if any instantiation of a kernel on the f32
-   mainloop (``gemm``, ``symm``, ``trmm``, ``trmm_packed``) spills, or if
-   the launch parameters they were built with (threads, stages, shared
-   bytes, passes) or the GEMM's split-k plan differ from their Python
-   mirrors (``kernels/gemm.py::mainloop_params``, ``split_plan``);
+   memory, spills).  Fails if any instantiation of the kernels (all on the
+   f32 mainloop) spills, or if the launch parameters they were built with
+   (threads, stages, shared bytes, passes) or the GEMM's split-k plan
+   differ from their Python mirrors (``kernels/gemm.py::mainloop_params``,
+   ``split_plan``, ``kernels/syrk.py::rank_k_params``);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
    reference conformance harness's 5e-4, so that a TF32 product fails it):
@@ -28,7 +28,10 @@ calls, and fails (non-zero exit) if any phase fails:
    ``tri_packed`` must equal ``tri`` bit for bit.  trmm under every knob on
    operands with unaligned leading strides must equal aligned copies bit
    for bit, and an A with NaN everywhere above its diagonal must give the
-   bits of an A with zeros there, on both copy paths.  Then the structural
+   bits of an A with zeros there, on both copy paths.  syrk and syr2k under
+   every knob, single and stacked: unaligned == aligned strides and masked
+   == zero-padded operands bit for bit, and ``tri``/``tri_packed`` outputs
+   symmetric bit for bit.  Then the structural
    contracts: ``run_op`` equals the padded run (``kernels/padded_ref.py``)
    bit for bit for gemm, symm, syrk, syr2k and trmm under every variant at
    ragged and one-row dims and, for the GEMM, a split-k shape (trsm within
@@ -52,10 +55,11 @@ calls, and fails (non-zero exit) if any phase fails:
    (8, 512, 512) call per op.  Every decision must come from the model,
    every call must launch exactly the kernels its knob names (trsm:
    ``2 ceil(m / bm) - 1`` GEMMs) and every result must be within
-   ``F32_TOL`` of the plain version.  Then syrk and syr2k run the stacked
-   call, and trmm both its calls, once under each variant with the tile
-   the model chose (a caller that pins the variant through ``run_op(...,
-   knob=...)``), which must give tri_packed == tri bit for bit.  Last, a
+   ``F32_TOL`` of the plain version.  Then syrk runs the L = G G^T call and
+   the stacked call, syr2k its big and its stacked call, and trmm both its
+   calls, once under each variant with the tile the model chose (a caller
+   that pins the variant through ``run_op(..., knob=...)``), which must
+   give tri_packed == tri bit for bit.  Last, a
    ``BlasService`` on the card under the same runtime: 4 client threads
    submit 192 requests together (32 of each op at the preconditioner-block
    shape), one warm-up window and then 5 timed ones, every future within
@@ -67,9 +71,10 @@ calls, and fails (non-zero exit) if any phase fails:
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
    ``torch.addmm``, ``torch.linalg.solve_triangular``) and the float32
-   bound of the card; for each gemm, symm and trmm call (trmm's pinned
-   variants too) also its rate (TFLOP/s, or GB/s when bytes bound it), its
-   share of the bound and, for the GEMM, the split-k plan it launched; and
+   bound of the card; for each gemm, symm, syrk, syr2k and trmm call (the
+   pinned variants too) also its rate (TFLOP/s, or GB/s when bytes bound
+   it), its share of the bound and, for the GEMM, the split-k plan it
+   launched; and
    the host's time per call of the GEMM wrapper against ``torch.matmul``
    at a product too small to time the card.
 
@@ -125,6 +130,9 @@ ALIGNED_2D = (256, 384)
 #: with NaN above its diagonal: ragged, and the aligned shape (16-byte
 #: copies when the strides allow them)
 TRMM_PATH_DIMS = ((129, 257), ALIGNED_2D)
+#: syrk/syr2k (n, k) run on unaligned and on zero-padded operands: ragged
+#: (k not a multiple of 4: the 4-byte copies), one row, and aligned
+RANK_K_PATH_DIMS = ((129, 65), (1, 384), ALIGNED_2D)
 STACK = 3
 #: max relative error (to the largest output) of the kernel vs a float64
 #: oracle and of a served result vs the plain version.  The reference
@@ -157,7 +165,7 @@ SERVE_TIMEOUT_S = 600
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 #: the ops whose calls phase 6 prints a ``[rate]`` line for
-RATE_OPS = ("gemm", "symm", "trmm")
+RATE_OPS = ("gemm", "symm", "syrk", "syr2k", "trmm")
 
 #: calibration settings of phase 4, and the Halton dims each op installs
 #: with (log-scaled, so most are small: the six gather in about two
@@ -402,14 +410,17 @@ def serve_main(registry_dir: str) -> None:
     for case in serve_cases():
         operands = make_operands(torch, gen, case["op"], case["shapes"])
         call(case, operands)
-        if case["op"] == "trmm" or (case["op"] in ("syrk", "syr2k")
-                                    and "stacked" in case["label"]):
+        # every rank-k and trmm call but R = G^T G, whose full variant
+        # alone takes about 48 ms on an H100
+        if case["op"] in ("syrk", "syr2k", "trmm") \
+                and case["shapes"][0] != [D_FF, D_MODEL]:
             pinned.append((case, operands))
         del operands
     stats = rt.stats
     served = len(rows)
-    # a caller that pins the variant: the stacked rank-k calls and both
-    # trmm calls under each variant, with the tile the model chose
+    # a caller that pins the variant: syrk L = G G^T, both syr2k calls, the
+    # stacked syrk call and both trmm calls under each variant, with the
+    # tile the model chose
     for case, operands in pinned:
         model = dict(rows[[r["label"] for r in rows].index(case["label"])]
                      ["knob"])
@@ -576,8 +587,11 @@ def check_build() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import symm as S
+    from repro_torch.kernels import syrk as K
     from repro_torch.kernels import trmm as TM
     for name, count in (("gemm", len(G.TILES)), ("symm", len(S.TILES)),
+                        ("rank_k", len(K.TILES)),
+                        ("rank_k_packed", len(K.TILES)),
                         ("trmm", len(TM.TILES)),
                         ("trmm_packed", len(TM.TILES))):
         entries = _ptxas_entries(name)
@@ -599,8 +613,14 @@ def check_build() -> None:
                  for name, tiles in (("symm", S.TILES), ("trmm", TM.TILES),
                                      ("trmm_packed", TM.TILES))
                  for bm, bn in sorted(tiles)]
+    configs += [(name, (bm, bk, bm), lambda o, t=(bm, bk), name=name:
+                 getattr(_build.load(name), f"repro_{name}_f32_config")(*t,
+                                                                        o))
+                 for name in ("rank_k", "rank_k_packed")
+                 for bm, bk in sorted(K.TILES)]
     for name, (bm, bk, bn), query in configs:
-        p = G.mainloop_params(bm, bk, bn)
+        p = K.rank_k_params(bm, bk) if name.startswith("rank_k") \
+            else G.mainloop_params(bm, bk, bn)
         want = [p["threads"], p["stages"], p["smem"], p["passes"]]
         if query(out) != 0 or list(out) != want:
             raise SystemExit(f"[build:{name}] tile {(bm, bk, bn)}: built "
@@ -825,6 +845,74 @@ def check_trmm_paths(torch, rand) -> None:
           f"aligned strides bit for bit (16-byte copies at {vec_dims}), and "
           f"NaN or zeros above A's diagonal change no bit, on both copy "
           f"paths", flush=True)
+
+
+def check_rank_k_paths(torch, rand) -> None:
+    """syrk and syr2k under every knob, single and stacked, with and without
+    C: operands with unaligned leading strides (the 4-byte copies) and
+    operands zero-padded to multiples of 128 in n and k (sliced back) give
+    the bits of aligned, unpadded operands, and ``tri``/``tri_packed``
+    outputs equal their transposes bit for bit (the epilogue's mirror)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import syrk as K
+
+    def rup(v):
+        return -(-v // 128) * 128
+
+    checks, vec_dims = 0, []
+    for op, fn in (("syrk", K.syrk), ("syr2k", K.syr2k)):
+        space = ops.knob_space_for(op)
+        for n, k in RANK_K_PATH_DIMS:
+            for lead in ((), (STACK,)):
+                xs = [rand(*lead, n, k) for _ in range(1 if op == "syrk"
+                                                       else 2)]
+                c = rand(*lead, n, n)
+                sb = n * k if lead else 0
+                if op == "syrk" and G.vec_aligned((xs[0], k, sb)):
+                    vec_dims.append((*lead, n, k))
+                pad_n, pad_k = rup(n) - n, rup(k) - k
+                padded = [F.pad(x, (0, pad_k, 0, pad_n)) for x in xs]
+                cpad = F.pad(c, (0, pad_n, 0, pad_n))
+                ua = _unaligned(torch, xs[0])
+                inputs = [(padded, "zero-padded n and k"),
+                          ([ua, *xs[1:]], "unaligned A")]
+                if op == "syr2k":
+                    ub = _unaligned(torch, xs[1])
+                    inputs += [([xs[0], ub], "unaligned B"),
+                               ([ua, ub], "unaligned A and B")]
+                for knob in space:
+                    kw = dict(bm=knob["bm"], bk=knob["bn"], alpha=0.5,
+                              variant=knob["variant"])
+                    for cc, cp, beta in ((None, None, 0.0), (c, cpad, 2.0)):
+                        want = fn(*xs, cc, beta=beta, **kw).view(torch.int32)
+                        for ys, what in inputs:
+                            got = fn(*ys, cp if ys is padded else cc,
+                                     beta=beta, **kw)[..., :n, :n]
+                            checks += 1
+                            if not torch.equal(got.contiguous()
+                                               .view(torch.int32), want):
+                                raise SystemExit(
+                                    f"[kernel:{op}] {knob} at "
+                                    f"{(*lead, n, k)}: {what} differs from "
+                                    f"aligned, unpadded operands bit for "
+                                    f"bit")
+                        if knob["variant"] != "full" and not torch.equal(
+                                want, want.mT):
+                            raise SystemExit(f"[kernel:{op}] {knob} at "
+                                             f"{(*lead, n, k)}: output not "
+                                             f"symmetric bit for bit")
+    if not vec_dims:
+        raise SystemExit("[kernel:rank_k] no aligned operands: the 16-byte "
+                         "copies were not held")
+    torch.cuda.synchronize()
+    print(f"[kernel:rank_k] {checks} checks over the 18 syrk and 18 syr2k "
+          f"candidates at {RANK_K_PATH_DIMS} (single, stack of {STACK}, "
+          f"with and without C): unaligned strides and zero-padded n, k == "
+          f"aligned, unpadded bit for bit (16-byte copies at {vec_dims}); "
+          f"tri and "
+          f"tri_packed symmetric bit for bit", flush=True)
 
 
 #: the ragged and one-row dims of the reference's zero-copy tests
@@ -1167,6 +1255,7 @@ def main(argv: list[str]) -> int:
             check_gemm(torch, rand)
             check_2d_ops(torch, rand)
             check_trmm_paths(torch, rand)
+            check_rank_k_paths(torch, rand)
             check_contracts(torch, rand)
             print(f"[repeat {i + 1}/{repeats}] clean in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1175,6 +1264,7 @@ def main(argv: list[str]) -> int:
     check_gemm(torch, rand)
     check_2d_ops(torch, rand)
     check_trmm_paths(torch, rand)
+    check_rank_k_paths(torch, rand)
     check_contracts(torch, rand)
     print(f"[kernel] {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -9,6 +9,7 @@ Public surface:
     ModelRegistry       — atomic JSON persistence
     subroutine_from_state — an artifact from a ``get_state()`` dict
     hopper_knob_space / block_knob_space / thread_knob_space — config spaces
+    DistilledTree       — one tree fit to an ensemble's predictions
 """
 
 from .features import (SUBROUTINES, SUBROUTINE_NDIMS, build_features,
@@ -27,6 +28,7 @@ from .runtime import (AdsalaRuntime, BackendStats, BucketStats, RuntimeStats,
                       global_runtime)
 from .registry import (ModelRegistry, load_subroutine, pack_state,
                        save_subroutine, subroutine_from_state, unpack_state)
+from .distill import DistilledTree
 
 __all__ = [
     "SUBROUTINES", "SUBROUTINE_NDIMS", "build_features", "feature_names",
@@ -41,4 +43,5 @@ __all__ = [
     "AdsalaRuntime", "BackendStats", "BucketStats", "RuntimeStats",
     "global_runtime", "ModelRegistry", "load_subroutine", "pack_state",
     "save_subroutine", "subroutine_from_state", "unpack_state",
+    "DistilledTree",
 ]

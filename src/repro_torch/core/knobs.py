@@ -210,8 +210,9 @@ HOPPER_2D_VARIANTS = {"symm": ("full",), "syrk": ("full", "tri", "tri_packed"),
 
 def _rank_k_smem_bytes(bm: int, bk: int, *, two: bool,
                        dtype_bytes: int) -> int:
-    """Shared memory of a rank-k block: the transposed row tiles of A (and
-    B for syr2k) for rows i and j, and the packed kernel's output tile."""
+    """Shared memory of a rank-k block of the first design (kept as the
+    space's filter): the transposed row tiles of A (and B for syr2k) for
+    rows i and j, and the packed kernel's output tile."""
     operands = (4 if two else 2) * bk * (bm + 1)
     return dtype_bytes * max(operands, bm * (bm + 1))
 
@@ -237,15 +238,17 @@ def hopper_2d_knob_space(
     ``bk`` repeats ``bm`` and is unused, as in the reference.  The filter
     is the one the space was first fixed with, and is kept so that the
     candidates (8 for symm and trsm, 24 for trmm, 18 for syrk and syr2k)
-    and so the installs stay comparable.  For syrk and syr2k it is still
-    their kernels' (``csrc/rank_k*.cu``): ``bm * bm / 64`` threads below
-    1024 and their staged tiles in shared memory.  For symm, trmm and trsm
-    it reckons the first design of their kernels (``bm * bn / 64``
-    threads of 8 x 8 accumulators below 1024, one shared stage of
-    ``64 * (bm + 1 + bn)`` floats) and so leaves out 256x256 alone; those
-    kernels now run on the f32 mainloop, whose launch parameters come from
-    the tile (``kernels/gemm.py::mainloop_params``: 128-256 threads, a
-    ring of 2-4 stages, passes of at most 128 x 128).  ``full`` and
+    and so the installs stay comparable.  It reckons the first design of
+    every kernel: for syrk and syr2k ``bm * bm / 64`` threads below 1024
+    and one shared stage of transposed row tiles
+    (:func:`_rank_k_smem_bytes`), which leaves out ``bm`` = 256; for symm,
+    trmm and trsm ``bm * bn / 64`` threads of 8 x 8 accumulators below
+    1024 and one shared stage of ``64 * (bm + 1 + bn)`` floats, which
+    leaves out 256x256 alone.  All these kernels now run on the f32
+    mainloop, whose launch parameters come from the tile
+    (``kernels/gemm.py::mainloop_params``, ``kernels/syrk.py::
+    rank_k_params``: 128-256 threads, a ring of 2-4 stages, passes of at
+    most 128 x 128).  ``full`` and
     ``tri`` launch the same grid and so share a feature row
     (:func:`_grid_parallelism`), as in the reference, and ``tri_packed``
     has a row of its own.

@@ -10,17 +10,17 @@
 // tile symmetrised, and one extra write-only step stores the transposed tile
 // to (j, i) from VMEM scratch.  Here grid x is the packed tile index t and
 // grid z the batch; a block de-triangularises t to (i, j), j <= i (a float
-// sqrt seed, then an exact integer fix-up), accumulates the tile with the
-// code rank_k.cu runs (rank_k_tile.cuh), parks its values in shared memory
-// and, in the same epilogue, stores the tile (i, j) and its transpose to
-// (j, i).  A diagonal tile takes its upper triangle from its own lower one.
-// Every stored value is one that tri computes with the same operations and
-// then mirrors by selection, so tri_packed equals tri bit for bit.
+// sqrt seed, then an exact integer fix-up), and runs the tile rank_k.cu
+// runs under tri (rank_k_tile.cuh: the rank-k producer on the f32 mainloop
+// of sgemm_mainloop.cuh, then one epilogue that parks the values in the
+// idle ring and stores the tile (i, j) and its transpose to (j, i), both
+// coalesced; a diagonal tile takes its upper triangle from its own lower
+// one).  Every stored value is computed by the same operations in the same
+// order as under tri, so tri_packed equals tri bit for bit.
 //
 // Bound on an H100 SXM: as rank_k.cu, n^2 k operations (syrk) at
 // 67 TFLOP/s; this variant does the BLAS count plus the diagonal tiles'
-// upper halves and launches no idle block.  The epilogue writes each tile
-// twice from shared memory, both times coalesced.
+// upper halves and launches no idle block.
 
 #include "launch_grid.cuh"
 #include "rank_k_tile.cuh"
@@ -39,77 +39,33 @@ __device__ __forceinline__ void detri(long long t, int& i, int& j) {
 }
 
 template <int BM, int BK>
-__global__ void __launch_bounds__(BM * BM / 64)
-rank_k_packed_kernel(Args p) {
-  constexpr int T = BM / 8;
-  constexpr int THREADS = T * T;
-  constexpr int LDS = BM + 1;
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(rank_k::Tile<BM, BK>::THREADS)
+rank_k_packed_kernel(const Args p) {
+  using T = rank_k::Tile<BM, BK>;
+  extern __shared__ __align__(16) float smem[];
   int ti, tj;
   detri(blockIdx.x, ti, tj);
   const long long z = blockIdx.z;
-  const float* A = p.A + z * p.sAb;
-  const float* B = p.two ? p.B + z * p.sBb : nullptr;
-  const float* C = p.has_c ? p.C + z * p.sCb : nullptr;
-  float* O = p.O + z * p.sOb;
-  const int row0 = ti * BM, col0 = tj * BM;
-
-  float acc[8][8];
-  rank_k::accumulate<BM, BK>(acc, p, A, B, row0, col0, smem);
-
-  // accumulate() ends on a barrier, so its shared memory is free again
-  float* tile = smem;  // [BM][BM + 1]
-  const int tid = threadIdx.x;
-  const int tx = tid % T, ty = tid / T;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + i * T, gr = row0 + r;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tx + j * T, gc = col0 + c;
-      if (gr < p.n && gc < p.n)
-        tile[r * LDS + c] = rank_k::value(p, C, acc[i][j], gr, gc, true);
-    }
-  }
-  __syncthreads();
-  const bool diag = ti == tj;
-  for (int idx = tid; idx < BM * BM; idx += THREADS) {
-    const int r = idx / BM, c = idx % BM;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr < p.n && gc < p.n)
-      O[gr * p.ldo + gc] = (diag && r < c) ? tile[c * LDS + r]
-                                           : tile[r * LDS + c];
-  }
-  if (!diag) {
-    // the mirror: O[col0 + c, row0 + r] = tile[r][c], neighbouring threads
-    // on neighbouring r
-    for (int idx = tid; idx < BM * BM; idx += THREADS) {
-      const int c = idx / BM, r = idx % BM;
-      const int gr = row0 + r, gc = col0 + c;
-      if (gr < p.n && gc < p.n) O[gc * p.ldo + gr] = tile[r * LDS + c];
-    }
-  }
+  rank_k::tile<T, true>(p, p.A + z * p.sAb,
+                        p.two ? p.B + z * p.sBb : nullptr,
+                        p.has_c ? p.C + z * p.sCb : nullptr, p.O + z * p.sOb,
+                        ti * BM, tj * BM, smem);
 }
 
 template <int BM, int BK>
 cudaError_t launch(const Args& p, int batch, cudaStream_t stream,
                    int* launched) {
-  constexpr int THREADS = BM * BM / 64;
-  static_assert(THREADS < 1024, "tiles of 1024 threads spill");
-  const int operands = rank_k::operand_floats<BM, BK>(p.two);
-  const int out_tile = BM * (BM + 1);
-  const int smem =
-      int(sizeof(float)) * (operands > out_tile ? operands : out_tile);
-  if (smem > 48 * 1024) {
+  using T = rank_k::Tile<BM, BK>;
+  if (T::SMEM > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         rank_k_packed_kernel<BM, BK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return e;
   }
   const long long nb = (p.n + BM - 1) / BM;
   const dim3 grid(static_cast<unsigned>(nb * (nb + 1) / 2), 1, batch);
   set_grid(launched, grid);
-  rank_k_packed_kernel<BM, BK><<<grid, THREADS, smem, stream>>>(p);
+  rank_k_packed_kernel<BM, BK><<<grid, T::THREADS, T::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -119,7 +75,8 @@ cudaError_t launch(const Args& p, int batch, cudaStream_t stream,
 // knob space (bk is the knob's bn).  Returns the cudaError_t of the launch
 // (0 on success); cudaErrorInvalidValue for a tile with no instantiation.
 // Writes the grid it launched (x, y, z) to launched[0..2].  Does not
-// synchronise.
+// synchronise.  vec says that A, B, their leading strides and batch
+// strides are 16-byte aligned.
 extern "C" int repro_rank_k_packed_f32(int bm, int bk, const void* a,
                                        const void* b, const void* c, void* o,
                                        int n, int k, int batch, long long sAb,
@@ -127,19 +84,27 @@ extern "C" int repro_rank_k_packed_f32(int bm, int bk, const void* a,
                                        long long ldb, long long sCb,
                                        long long ldc, long long sOb,
                                        long long ldo, float alpha, float beta,
-                                       int two, int has_c, void* stream,
-                                       int* launched) {
+                                       int two, int has_c, int vec,
+                                       void* stream, int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                n, k, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
-               alpha, beta, two, has_c};
+               alpha, beta, two, has_c, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_RANK_K_TILE(BM, BK) \
-  if (bm == BM && bk == BK)                    \
+#define REPRO_RANK_K_LAUNCH(BM, BK) \
+  if (bm == BM && bk == BK)           \
     return int(launch<BM, BK>(p, batch, s, launched));
-  REPRO_RANK_K_TILE(64, 16) REPRO_RANK_K_TILE(64, 32) REPRO_RANK_K_TILE(64, 64)
-  REPRO_RANK_K_TILE(128, 16) REPRO_RANK_K_TILE(128, 32)
-  REPRO_RANK_K_TILE(128, 64)
-#undef REPRO_RANK_K_TILE
+  REPRO_RANK_K_TILES(REPRO_RANK_K_LAUNCH)
+#undef REPRO_RANK_K_LAUNCH
+  return int(cudaErrorInvalidValue);
+}
+
+// The launch parameters the kernel of a tile was built with: threads,
+// stages, dynamic shared bytes and passes, to out[0..3].
+extern "C" int repro_rank_k_packed_f32_config(int bm, int bk, int* out) {
+#define REPRO_RANK_K_CONFIG(BM, BK) \
+  if (bm == BM && bk == BK) return rank_k::config<BM, BK>(out), 0;
+  REPRO_RANK_K_TILES(REPRO_RANK_K_CONFIG)
+#undef REPRO_RANK_K_CONFIG
   return int(cudaErrorInvalidValue);
 }

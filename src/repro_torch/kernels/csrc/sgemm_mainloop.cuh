@@ -1,10 +1,13 @@
-// The float32 mainloop shared by gemm.cu, symm.cu and the trmm kernels
-// (trmm.cu, trmm_packed.cu): one block computes its BM x BN tile of
-// accumulators over a range of the contraction, in IEEE fmaf on the CUDA
-// cores.  What feeds the A tile is a template parameter (a "producer"), so
-// the GEMM stages a row-major A, symm stitches sym(A) from the stored
-// triangle and trmm stages tril(A) with a per-row column limit; B is
-// row-major in all three.
+// The float32 mainloop shared by gemm.cu, symm.cu, the trmm kernels
+// (trmm.cu, trmm_packed.cu) and the rank-k kernels (rank_k.cu,
+// rank_k_packed.cu): one block computes its BM x BN tile of accumulators
+// over a range of the contraction, in IEEE fmaf on the CUDA cores.  What
+// feeds the A tile is a template parameter (a "producer"), so the GEMM
+// stages a row-major A, symm stitches sym(A) from the stored triangle and
+// trmm stages tril(A) with a per-row column limit; B is row-major in all
+// three.  The rank-k tile (rank_k_tile.cuh, a Tile with B_ROWS) stages its
+// B side as rows too, [PN][BK + 4] with the contraction innermost, and runs
+// fma_nt in place of fma_rows.
 //
 // Pipeline.  Every contraction step of BK stages one A and one B tile in a
 // ring of STAGES buffers in shared memory, filled with cp.async: while the
@@ -24,10 +27,11 @@
 // its A rows as 16-byte shared loads (4 consecutive k of one row; the eight
 // threads of a quarter warp share ty, so the reads broadcast) and per index
 // its B row as 16-byte loads (a quarter warp reads 128 consecutive bytes),
-// 12 or 16 LDS.128 per 128 or 256 FMAs.  A tile beyond 128 x 128
-// accumulators (the whole register file at 256 x 256) runs as passes of
-// 128 x 128, one after the other in the same block.  A thread whose rows all
-// lie past m skips the FMAs (the decode grids of a few rows).
+// 12 or 16 LDS.128 per 128 or 256 FMAs (fma_nt: the same count, its B
+// loads along k).  A tile beyond 128 x 128 accumulators (the whole register
+// file at 256 x 256) runs as passes of 128 x 128, one after the other in the
+// same block.  A thread whose rows all lie past m skips the FMAs (the
+// decode grids of a few rows).
 //
 // Order.  Whatever the path (aligned or not), the layout of a step (symm
 // reads a tile above the diagonal transposed) or the pass, each output
@@ -49,6 +53,13 @@ constexpr int kMaxPass = 128 * 128;
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
+// the stages of a ring: as many of 4, 3 as fit in kRingBudget, else 2
+__host__ __device__ constexpr int ring_stages(int stage_bytes) {
+  return 4 * stage_bytes <= kRingBudget   ? 4
+         : 3 * stage_bytes <= kRingBudget ? 3
+                                          : 2;
+}
+
 // The launch parameters of a BM x BN tile with contraction step BK, all
 // derived from the tile (kernels/gemm.py::mainloop_params mirrors them).
 template <int BM_, int BN_, int BK_>
@@ -65,10 +76,10 @@ struct Tile {
   static constexpr int A_FLOATS = PM * BK;
   static constexpr int STAGE_FLOATS = BK * (PM + PN);
   static constexpr int STAGE_BYTES = 4 * STAGE_FLOATS;
-  static constexpr int STAGES = 4 * STAGE_BYTES <= kRingBudget   ? 4
-                                : 3 * STAGE_BYTES <= kRingBudget ? 3
-                                                                 : 2;
+  static constexpr int STAGES = ring_stages(STAGE_BYTES);
   static constexpr int SMEM = STAGES * STAGE_BYTES;
+  // B staged [BK][PN] (k-major); a tile that stages it as rows says so
+  static constexpr bool B_ROWS = false;
   static_assert(TX * TY == THREADS, "thread grid covers the pass");
   static_assert(TM == 4 || TM == 8, "4 x 8 or 8 x 8 register tiles");
   static_assert(SMEM <= kSmemMax, "227 KB of shared memory per block");
@@ -104,12 +115,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stages the R x C window starting at (i0, j0) of the row-major matrix p
-// (leading stride ld, rows x cols stored) into s, row-major with stride C;
-// elements past rows or cols read zero.  With LOWER, row gi is stored in
-// its columns 0 .. gi only (the lower triangle of a square matrix): its
-// columns past gi read zero too, and no copy reads them.  p is a safe
-// address for the zero-byte copies.
-template <int R, int C, int THREADS, bool LOWER = false>
+// (leading stride ld, rows x cols stored) into s, row-major with stride LD
+// (C unless padded); elements past rows or cols read zero.  With LOWER, row
+// gi is stored in its columns 0 .. gi only (the lower triangle of a square
+// matrix): its columns past gi read zero too, and no copy reads them.  p is
+// a safe address for the zero-byte copies.
+template <int R, int C, int THREADS, bool LOWER = false, int LD = C>
 __device__ __forceinline__ void load_tile(float* s, const float* p,
                                           long long ld, int rows, int cols,
                                           int i0, int j0, bool vec) {
@@ -122,7 +133,7 @@ __device__ __forceinline__ void load_tile(float* s, const float* p,
     const int gi = i0 + i, gj = j0 + jc;
     // the end of row gi's stored columns
     const int lim = LOWER ? cmin(cols, gi + 1) : cols;
-    float* d = s + i * C + jc;
+    float* d = s + i * LD + jc;
     const float* row = p + gi * ld;
     if (vec) {
       const int nv = gi < rows ? cmin(cmax(lim - gj, 0), 4) : 0;
@@ -208,10 +219,49 @@ __device__ __forceinline__ void fma_cols(const float* As, const float* Bs,
   }
 }
 
+// One step's FMAs, A staged [PM][BK] and B staged as rows [PN][T::LDB]
+// (T::B_ROWS): both operands with the contraction innermost, so both are
+// read as 16-byte loads of 4 consecutive k.  Thread tx owns the columns
+// tx + j * TX; with a row stride of BK + 4 floats the 8 rows a quarter warp
+// reads start 4 banks apart (BK = 32, 64) or 20 (BK = 16), so its 128
+// bytes fall in 32 distinct banks.  Per element the products still add in
+// increasing k.
+template <class T>
+__device__ __forceinline__ void fma_nt(const float* As, const float* Bs,
+                                       int ty, int tx,
+                                       float (&acc)[T::TM][T::TN]) {
+#pragma unroll 4
+  for (int kq = 0; kq < T::BK / 4; ++kq) {
+    float a[T::TM][4];
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          As + (ty * T::TM + i) * T::BK + kq * 4);
+      a[i][0] = v.x;
+      a[i][1] = v.y;
+      a[i][2] = v.z;
+      a[i][3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(
+          Bs + (tx + j * T::TX) * T::LDB + kq * 4);
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i) {
+        acc[i][j] = fmaf(a[i][0], b.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i][1], b.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i][2], b.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i][3], b.w, acc[i][j]);
+      }
+    }
+  }
+}
+
 // The accumulators of one pass over the contraction [kbeg, kend).  The
 // producer P supplies
 //   void load(float* As, float* Bs, int k0)  issue the copies of step k0;
-//   bool transposed(int k0)                  its A layout ([BK][PM] if true).
+//   bool transposed(int k0)                  its A layout ([BK][PM] if true;
+//                                            not asked under T::B_ROWS).
 // `live` is false for a thread whose rows all lie past the output (it
 // skips the FMAs, never a barrier).  Leaves the ring idle on return.
 template <class T, class P>
@@ -243,7 +293,9 @@ __device__ __forceinline__ void mainloop(float* smem, const P& prod,
     cp_async_commit();
     if (live) {
       const float* st = smem + (s % T::STAGES) * T::STAGE_FLOATS;
-      if (prod.transposed(kbeg + s * T::BK))
+      if constexpr (T::B_ROWS)
+        fma_nt<T>(st, st + T::A_FLOATS, ty, tx, acc);
+      else if (prod.transposed(kbeg + s * T::BK))
         fma_cols<T>(st, st + T::A_FLOATS, ty, tx, acc);
       else
         fma_rows<T>(st, st + T::A_FLOATS, ty, tx, acc);

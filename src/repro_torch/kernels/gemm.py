@@ -37,7 +37,7 @@ from . import _build
 from .introspect import record_launch
 
 __all__ = ["gemm", "gemm_plain", "TILES", "split_plan", "mainloop_params",
-           "vec_aligned", "HOPPER_SMS"]
+           "ring_stages", "vec_aligned", "HOPPER_SMS"]
 
 #: the ``(bm, bk, bn)`` tiles ``csrc/gemm.cu`` is instantiated for
 TILES = frozenset(itertools.product(HOPPER_TILES_MN, HOPPER_TILES_K,
@@ -78,6 +78,12 @@ def split_plan(m: int, n: int, k: int, bm: int, bn: int) -> tuple[int, int]:
     return -(-k // length), length
 
 
+def ring_stages(stage_bytes: int) -> int:
+    """Stages of a ``cp.async`` ring: as many of 4, 3 as fit in
+    :data:`RING_BUDGET`, else 2 (``sgemm::ring_stages``)."""
+    return next((s for s in (4, 3) if s * stage_bytes <= RING_BUDGET), 2)
+
+
 def mainloop_params(bm: int, bk: int, bn: int) -> dict:
     """The launch parameters ``csrc/sgemm_mainloop.cuh`` derives from the
     tile ``(bm, bk, bn)`` (symm: ``bk`` = 64): the pass (at most 128 x 128
@@ -88,7 +94,7 @@ def mainloop_params(bm: int, bk: int, bn: int) -> dict:
     pm, pn = (bm, bn) if bm * bn <= MAX_PASS else (min(bm, 128), min(bn, 128))
     threads = min(256, max(128, pm * pn // 64))
     stage = 4 * bk * (pm + pn)
-    stages = next((s for s in (4, 3) if s * stage <= RING_BUDGET), 2)
+    stages = ring_stages(stage)
     return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
             "threads": threads, "thread_tile": (pm * pn // threads // 8, 8),
             "stages": stages, "smem": stages * stage}

@@ -18,6 +18,9 @@ from repro_torch.kernels import ops
 #: the model families cheap enough to fit here many times over; the forest
 #: and boosting families fit through the same tree code as DecisionTree
 FAMILIES = ("LinearRegression", "BayesianRidge", "DecisionTree", "KNN")
+#: one tree fit to a boosted ensemble's predictions (``core/distill.py``),
+#: held apart from FAMILIES so model selection's comparison stays as it was
+DISTILLED = ("DistilledTree",)
 
 
 def _cost(dims: np.ndarray, cands: list[dict]) -> np.ndarray:
@@ -110,10 +113,54 @@ def test_model_selection_picks_reference_model(datasets):
         model_name=port_sub.model_name))
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_reference_artifact_carried_across(datasets, family):
-    _, ref_ds = datasets
-    ref_sub = _install(ref_core, ref_ds, (family,))
+@pytest.fixture(scope="module")
+def distilled(datasets):
+    """A DistilledTree install by each package on the same dataset."""
+    port_ds, ref_ds = datasets
+    return {family: (_install(core, port_ds, (family,)),
+                     _install(ref_core, ref_ds, (family,)))
+            for family in DISTILLED}
+
+
+@pytest.mark.parametrize("family", DISTILLED)
+def test_distilled_install_decides_as_reference(distilled, family):
+    _assert_same_decisions(*distilled[family])
+
+
+@pytest.mark.parametrize("family", DISTILLED)
+def test_distilled_reference_artifact_carried_across(distilled, family):
+    _assert_carried_across(distilled[family][1])
+
+
+def test_registries_hold_the_reference_families():
+    """Every model family the reference registers at import, the port
+    registers too: an install may name any of them, and an artifact of any
+    of them unpacks."""
+    from repro.core.ml import MODEL_REGISTRY as ref_registry
+    from repro_torch.core.ml import MODEL_REGISTRY as port_registry
+    assert sorted(port_registry) == sorted(ref_registry)
+    assert len(port_registry) == 10 and "DistilledTree" in port_registry
+
+
+def test_distilled_tree_lowers_to_predicated_tree(distilled):
+    """A DistilledTree install compiles to the predicated single-tree
+    lowering, as the reference's does, and predicts the times of the
+    artifact's own path bit for bit."""
+    from repro.core.fastpath import compile_predictor as ref_compile
+    from repro_torch.core.fastpath import compile_predictor
+    port_sub, ref_sub = distilled["DistilledTree"]
+    cp, ref_cp = compile_predictor(port_sub), ref_compile(ref_sub)
+    assert cp is not None and cp.lowering == "predicated-tree"
+    assert ref_cp.lowering == cp.lowering
+    for dims in _grid():
+        assert np.array_equal(cp.predict_times(dims),
+                              port_sub.predict_times(dims)), dims
+        assert np.array_equal(cp.predict_times(dims),
+                              ref_cp.predict_times(dims)), dims
+        assert cp.select(dims) == port_sub.select(dims)
+
+
+def _assert_carried_across(ref_sub):
     state = ref_sub.get_state()
     port_sub = subroutine_from_state(state)
     assert port_sub.backend == "hopper"
@@ -122,6 +169,12 @@ def test_reference_artifact_carried_across(datasets, family):
     # and through the port's own JSON artifact encoding
     again = subroutine_from_state(core.unpack_state(pack_state(state)))
     _assert_same_decisions(again, ref_sub)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_reference_artifact_carried_across(datasets, family):
+    _, ref_ds = datasets
+    _assert_carried_across(_install(ref_core, ref_ds, (family,)))
 
 
 # -- the 2-dim subroutines ----------------------------------------------------

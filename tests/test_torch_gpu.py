@@ -4,8 +4,9 @@ oracle and their plain versions under every candidate of their Hopper knob
 spaces, stacked == per-item bit for bit, tri_packed == tri bit for bit;
 masked == padded bit for bit, no copy op on the dispatch path, and the
 recorded grids equal to the grid formulas; the GEMM's split-k on a ragged
-shape, its unaligned-stride path equal to the aligned one bit for bit (symm
-and trmm too), trmm's A read nowhere above its diagonal, and the launch
+shape, its unaligned-stride path equal to the aligned one bit for bit (symm,
+syrk/syr2k and trmm too), ``tri``'s rank-k output symmetric bit for bit,
+trmm's A read nowhere above its diagonal, and the launch
 parameters built into the kernels equal to their Python mirrors.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
@@ -175,13 +176,14 @@ def test_unaligned_strides_equal_aligned_bitwise():
 
 @pytest.mark.gpu
 def test_kernels_are_built_with_their_python_mirrors():
-    """The launch parameters compiled into gemm.cu, symm.cu, trmm.cu and
-    trmm_packed.cu and the C split plan equal ``mainloop_params`` and
-    ``split_plan``."""
+    """The launch parameters compiled into gemm.cu, symm.cu, trmm.cu,
+    trmm_packed.cu, rank_k.cu and rank_k_packed.cu and the C split plan
+    equal ``mainloop_params``, ``rank_k_params`` and ``split_plan``."""
     _need_card()
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import symm as S
+    from repro_torch.kernels import syrk as K
     from repro_torch.kernels import trmm as TM
     out = (ctypes.c_int * 4)()
     gemm_lib, symm_lib = _build.load("gemm"), _build.load("symm")
@@ -206,6 +208,13 @@ def test_kernels_are_built_with_their_python_mirrors():
             p = G.mainloop_params(bm, 64, bn)
             assert list(out) == [p["threads"], p["stages"], p["smem"],
                                  p["passes"]], (name, bm, bn)
+    for name in ("rank_k", "rank_k_packed"):
+        config = getattr(_build.load(name), f"repro_{name}_f32_config")
+        for bm, bk in sorted(K.TILES):
+            assert config(bm, bk, out) == 0, (name, bm, bk)
+            p = K.rank_k_params(bm, bk)
+            assert list(out) == [p["threads"], p["stages"], p["smem"],
+                                 p["passes"]], (name, bm, bk)
 
 
 # -- symm, syrk/syr2k and trsm ------------------------------------------------
@@ -297,6 +306,59 @@ def test_tri_packed_equals_tri_bitwise(op):
                             variant="tri_packed")
                 assert torch.equal(tri.view(torch.int32),
                                    packed.view(torch.int32)), (bm, bk, n, k)
+
+
+#: syrk/syr2k (n, k) of the copy-path checks: ragged (k not a multiple of
+#: 4, so both paths copy 4 bytes), one row, and aligned (16-byte copies)
+_RANK_K_PATH_DIMS = ((129, 65), (1, 384), (256, 384))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ("syrk", "syr2k"))
+def test_rank_k_unaligned_strides_equal_aligned_bitwise(op):
+    _need_card()
+    from repro_torch.kernels import syrk as K
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    fn = K.syrk if op == "syrk" else K.syr2k
+    for n, k in _RANK_K_PATH_DIMS:
+        for lead in ((), (STACK,)):
+            a, b = _rand(gen, *lead, n, k), _rand(gen, *lead, n, k)
+            c = _rand(gen, *lead, n, n)
+            assert G.vec_aligned((a, k, n * k), (b, k, n * k)) == \
+                (k % 4 == 0)
+            pairs = [((_unaligned(a),), (a,))] if op == "syrk" else \
+                [((_unaligned(a), b), (a, b)), ((a, _unaligned(b)), (a, b)),
+                 ((_unaligned(a), _unaligned(b)), (a, b))]
+            for knob in ops.knob_space_for(op):
+                kw = dict(bm=knob["bm"], bk=knob["bn"], alpha=0.5, beta=2.0,
+                          variant=knob["variant"])
+                for unal, al in pairs:
+                    want = fn(*al, c, **kw).view(torch.int32)
+                    got = fn(*unal, c, **kw)
+                    assert torch.equal(got.view(torch.int32), want), \
+                        (knob, lead, n, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ("syrk", "syr2k"))
+def test_rank_k_tri_is_symmetric_bitwise(op):
+    """``tri`` stores each lower tile with its mirror in the kernel (and a
+    diagonal tile's upper triangle from its lower one): the output equals
+    its transpose bit for bit, with and without C, single and stacked."""
+    _need_card()
+    from repro_torch.kernels import syrk as K
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    fn = K.syrk if op == "syrk" else K.syr2k
+    for n, k in DIMS_2D:
+        for lead in ((), (STACK,)):
+            xs = [_rand(gen, *lead, n, k) for _ in range(1 + (op == "syr2k"))]
+            c = _rand(gen, *lead, n, n)     # not symmetric: read lower-stored
+            for bm, bk in sorted(K.TILES):
+                for cc, beta in ((None, 0.0), (c, 2.0)):
+                    got = fn(*xs, cc, bm=bm, bk=bk, alpha=0.5, beta=beta,
+                             variant="tri")
+                    bits = got.view(torch.int32)
+                    assert torch.equal(bits, bits.mT), (bm, bk, n, k, lead)
 
 
 @pytest.mark.gpu

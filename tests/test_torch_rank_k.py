@@ -176,3 +176,59 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(bad):
         a, b = torch.randn(2, 2, 16, 8), torch.randn(2, 2, 16, 8)
     with pytest.raises((TypeError, ValueError)):
         K.syr2k(a, b, c, alpha=1.0, beta=1.0, variant=variant, **tile)
+
+
+@pytest.mark.parametrize("op", ("syrk", "syr2k"))
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_wrapper_makes_one_launch_with_vec_and_no_pass_after_it(
+        monkeypatch, op, variant):
+    """The launch half of the wrapper, with a recording launcher in place
+    of the built library: one launch of the variant's kernel with the tile,
+    the flags (``two``, ``tri`` for ``rank_k.cu``, ``has_c``) and ``vec``
+    (true for aligned operands, false for a view with an unaligned leading
+    stride), the recorded grid, and no tensor op at all around it: ``tri``
+    is stored with its mirror by the kernel, not by a pass after it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import introspect as I
+    calls, dispatched = [], []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            dispatched.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    def launcher(name, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes) + 1     # + the grid
+            calls.append((name, args[:-1]))
+            args[-1][:] = (7, 1, 3)
+            return 0
+        return fn
+
+    monkeypatch.setattr(K._build, "launcher", launcher)
+    a, b, c = torch.randn(3, 40, 24), torch.randn(3, 40, 24), \
+        torch.randn(3, 40, 40)
+    wide = torch.zeros(3, 40, 25)
+    wide[..., :24] = a
+    two = op == "syr2k"
+    kernel = "rank_k_packed" if variant == "tri_packed" else "rank_k"
+    for x, vec in ((a, 1), (wide[..., :24], 0)):
+        out = torch.empty(3, 40, 40)
+        with I.capture_launches() as launched, Ops():
+            K._launch(x, b if two else None, c, out, 40, 24, 3, bm=128,
+                      bk=32, alpha=0.5, beta=2.0, variant=variant, stream=0)
+        assert launched == [(kernel, (7, 1, 3))]
+        assert dispatched == []
+        name, args = calls.pop()
+        assert name == kernel and args[:2] == (128, 32)
+        assert args[6:9] == (40, 24, 3)
+        assert args[9:17] == (x.stride(0), x.stride(1),
+                              960 if two else 0, 24 if two else 0,
+                              1600, 40, 1600, 40)
+        assert args[17:19] == (0.5, 2.0) and args[-1] == 0
+        flags = args[19:-1]
+        assert flags == ((int(two), 1, vec) if kernel == "rank_k_packed"
+                         else (int(two), int(variant == "tri"), 1, vec)), \
+            flags
+

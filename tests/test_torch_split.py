@@ -1,7 +1,7 @@
 """The GEMM's split-k plan and the launch parameters of the shared f32
 mainloop (``csrc/sgemm_mainloop.cuh``), checked without a card: every tile
-of the GEMM, symm and trmm knob spaces stays within the H100's limits, the
-split never depends on the batch, padding to multiples of 128
+of the GEMM, symm, syrk/syr2k and trmm knob spaces stays within the H100's
+limits, the split never depends on the batch, padding to multiples of 128
 (``padded_run``) keeps every slice boundary, and the grid formula counts
 the slices.  The card checks the C mirror of both rules
 (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2)."""
@@ -15,6 +15,7 @@ import pytest
 from repro_torch.kernels import gemm as G
 from repro_torch.kernels import introspect as I
 from repro_torch.kernels import symm as S
+from repro_torch.kernels import syrk as K
 from repro_torch.kernels import trmm as TM
 
 _spec = importlib.util.spec_from_file_location(
@@ -85,6 +86,29 @@ def test_trmm_launch_params_fit_the_card(bm, bn):
     assert p["smem"] <= G.SMEM_MAX and 2 <= p["stages"] <= 4
     assert p["passes"] * p["pass"][0] * p["pass"][1] == bm * bn
     assert pm % 64 == 0 and bm % pm == 0
+
+
+@pytest.mark.parametrize("bm,bk", sorted(K.TILES))
+def test_rank_k_launch_params_fit_the_card(bm, bk):
+    """Both rank-k kernels run the mainloop's ``bm x bm`` tile in one pass
+    with a stage of ``bm x bk`` A floats and ``bm x (bk + 4)`` B floats (B
+    staged as rows, padded so a quarter warp's 16-byte reads hit distinct
+    banks): 4-8 warps, a ring of 2-4 stages within the card's shared
+    memory, and the epilogue's parked ``bm x (bm + 1)`` tile within the
+    ring it reuses."""
+    p = K.rank_k_params(bm, bk)
+    assert p["threads"] == (128 if bm == 64 else 256)
+    assert p["thread_tile"] == ((4, 8) if bm == 64 else (8, 8))
+    assert p["passes"] == 1 and p["pass"] == (bm, bm)
+    stage = 4 * (bm * bk + bm * (bk + 4))
+    assert 2 <= p["stages"] <= 4 and p["smem"] == p["stages"] * stage
+    assert p["smem"] <= G.SMEM_MAX
+    assert p["stages"] == 2 or p["stages"] == 4 or \
+        (p["stages"] + 1) * stage > G.RING_BUDGET
+    assert p["park"] == 4 * bm * (bm + 1) <= p["smem"]
+    # the B rows a quarter warp reads (8 consecutive tx, 16 bytes each)
+    # start in distinct groups of 4 banks
+    assert len({(t * (bk + 4)) % 32 for t in range(8)}) == 8
 
 
 def test_default_tile_gets_four_warps_and_the_big_tiles_run_in_passes():
