@@ -6,13 +6,14 @@ calls, and fails (non-zero exit) if any phase fails:
 
 1. environment: the card's name and power limit, CUDA, nvcc;
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
-   ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``), all nvcc runs
-   started together, with nvcc's ``-Xptxas -v`` report (registers, shared
-   memory, spills).  Fails if any instantiation of the kernels (all on the
-   f32 mainloop) spills, or if the launch parameters they were built with
-   (threads, stages, shared bytes, passes) or the GEMM's split-k plan
-   differ from their Python mirrors (``kernels/gemm.py::mainloop_params``,
-   ``split_plan``, ``kernels/syrk.py::rank_k_params``);
+   ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``, ``trsm``), all
+   nvcc runs started together, with nvcc's ``-Xptxas -v`` report
+   (registers, shared memory, spills).  Fails if any instantiation of the
+   kernels spills, or if the launch parameters they were built with
+   (threads, stages, shared bytes, passes; trsm's inverse kernel and
+   workspace too) or the GEMM's split-k plan differ from their Python
+   mirrors (``kernels/gemm.py::mainloop_params``, ``split_plan``,
+   ``kernels/syrk.py::rank_k_params``, ``kernels/trsm.py::trsm_params``);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
    reference conformance harness's 5e-4, so that a TF32 product fails it):
@@ -31,7 +32,11 @@ calls, and fails (non-zero exit) if any phase fails:
    bits of an A with zeros there, on both copy paths.  syrk and syr2k under
    every knob, single and stacked: unaligned == aligned strides and masked
    == zero-padded operands bit for bit, and ``tri``/``tri_packed`` outputs
-   symmetric bit for bit.  Then the structural
+   symmetric bit for bit.  trsm's two kernels under every knob, single and
+   stacked: ``trsm_inv`` with ``tril(D_i) D_i^-1 = I`` and within
+   ``F32_TOL`` of ``diag_inverses_plain``, ``trsm`` within ``F32_TOL`` of
+   ``substitute_plain`` fed the same inverses, each stack equal to its items
+   bit for bit.  Then the structural
    contracts: ``run_op`` equals the padded run (``kernels/padded_ref.py``)
    bit for bit for gemm, symm, syrk, syr2k and trmm under every variant at
    ragged and one-row dims and, for the GEMM, a split-k shape (trsm within
@@ -53,8 +58,8 @@ calls, and fails (non-zero exit) if any phase fails:
    factor tril(L) (4096, 4096) against G (whitening G with a triangular
    factor), ``trsm`` of a (4096, 4096) tril(A) against G, and one stacked
    (8, 512, 512) call per op.  Every decision must come from the model,
-   every call must launch exactly the kernels its knob names (trsm:
-   ``2 ceil(m / bm) - 1`` GEMMs) and every result must be within
+   every call must launch exactly the kernels its knob names (trsm: one
+   ``trsm_inv`` and one ``trsm``, no GEMM) and every result must be within
    ``F32_TOL`` of the plain version.  Then syrk runs the L = G G^T call and
    the stacked call, syr2k its big and its stacked call, and trmm both its
    calls, once under each variant with the tile the model chose (a caller
@@ -71,10 +76,13 @@ calls, and fails (non-zero exit) if any phase fails:
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
    ``torch.addmm``, ``torch.linalg.solve_triangular``) and the float32
-   bound of the card; for each gemm, symm, syrk, syr2k and trmm call (the
-   pinned variants too) also its rate (TFLOP/s, or GB/s when bytes bound
-   it), its share of the bound and, for the GEMM, the split-k plan it
-   launched; and
+   bound of the card; for each call (the pinned variants too) also its rate
+   (TFLOP/s, or GB/s when bytes bound it), its share of the bound and, for
+   the GEMM, the split-k plan it launched; for each trsm call its two
+   kernels apart (each against its plain version, and ``trsm_inv`` against
+   ``solve_triangular`` of the diagonal blocks against I, those three as
+   device times from ``torch.profiler``: the inverses take less than their
+   call's host time); and
    the host's time per call of the GEMM wrapper against ``torch.matmul``
    at a product too small to time the card.
 
@@ -114,7 +122,7 @@ SEED = 0
 
 #: the kernel sources of the main paths, built side by side
 KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm",
-                  "trmm_packed")
+                  "trmm_packed", "trsm")
 
 #: the reference conformance harness's ragged GEMM dims
 #: (src/repro/backends/conformance.py RAGGED_DIMS["gemm"]) and one aligned
@@ -165,7 +173,7 @@ SERVE_TIMEOUT_S = 600
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 #: the ops whose calls phase 6 prints a ``[rate]`` line for
-RATE_OPS = ("gemm", "symm", "syrk", "syr2k", "trmm")
+RATE_OPS = ("gemm", "symm", "syrk", "syr2k", "trmm", "trsm")
 
 #: calibration settings of phase 4, and the Halton dims each op installs
 #: with (log-scaled, so most are small: the six gather in about two
@@ -191,8 +199,10 @@ KERNELS = {
              "src/repro/kernels/trmm.py:57"),
     "trmm_packed": ("cuda", "src/repro_torch/kernels/csrc/trmm_packed.cu",
                     "src/repro/kernels/trmm.py:85"),
-    "trsm": ("cuda", "src/repro_torch/kernels/trsm.py",
+    "trsm": ("cuda", "src/repro_torch/kernels/csrc/trsm.cu",
              "src/repro/kernels/trsm.py:41"),
+    "trsm_inv": ("cuda", "src/repro_torch/kernels/csrc/trsm.cu",
+                 "src/repro/kernels/trsm.py:58"),
 }
 
 
@@ -302,6 +312,26 @@ def _time_ms(torch, fn, sets, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(torch, fn, sets, iters: int) -> float:
+    """Mean device time per call of every kernel (and copy) ``fn`` runs on
+    the card, over ``iters`` calls cycling through ``sets`` after a warmup,
+    from ``torch.profiler``: for work shorter than the host time of its
+    call, which CUDA events around back-to-back calls measure instead.
+    Fails if the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for ops in sets:
+        fn(*ops)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages())
+    if not us > 0:
+        raise SystemExit("[times] torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
 def kernel_of(op: str, knob: dict) -> str:
     """The kernel (a key of :data:`KERNELS`) a call of ``op`` under
     ``knob`` runs."""
@@ -313,10 +343,9 @@ def kernel_of(op: str, knob: dict) -> str:
     return op
 
 
-def _expected_launches(op: str, knob: dict, shapes) -> dict:
+def _expected_launches(op: str, knob: dict) -> dict:
     if op == "trsm":
-        n_gemm = 2 * -(-shapes[0][-1] // knob["bm"]) - 1
-        return {"gemm": n_gemm, "trsm": n_gemm}
+        return {"trsm_inv": 1, "trsm": 1}
     return {kernel_of(op, knob): 1}
 
 
@@ -397,7 +426,7 @@ def serve_main(registry_dir: str) -> None:
                 not bool(torch.isfinite(out).all()):
             raise SystemExit(f"{case['label']}: bad output "
                              f"{tuple(out.shape)}")
-        want = _expected_launches(case["op"], kd, case["shapes"])
+        want = _expected_launches(case["op"], kd)
         rows.append({**case, "knob": kd, "launches": launches,
                      "expected_launches": want,
                      "kernel": kernel_of(case["op"], kd),
@@ -534,12 +563,10 @@ def serve_service(torch, rt) -> dict:
         _be, op, _bytes, dims = key
         knob = rt.peek(op, dims, 4, "hopper").dict
         knobs[op] = _knob_str(op, knob)
-        shapes = [[dims[0], dims[0]]] if op in ("symm", "trmm", "trsm") \
-            else [[dims[0], dims[1]]]
         n0, exec0 = buckets0.get(key, (0, 0.0))
         n_batches -= n0
         spans[op] = 1e3 * (exec_s - exec0) / max(1, n_batches)
-        for kernel, count in _expected_launches(op, knob, shapes).items():
+        for kernel, count in _expected_launches(op, knob).items():
             expected[kernel] += count * n_batches
     completed = st.completed - st0.completed
     failed = st.failed - st0.failed
@@ -561,8 +588,9 @@ def serve_service(torch, rt) -> dict:
 # -- phase 2 ----------------------------------------------------------------
 
 def _ptxas_entries(name: str) -> list[tuple[str, int, int]]:
-    """(template arguments, registers, spill bytes stored + loaded) of
-    every kernel instantiation in the ``-Xptxas -v`` report of ``name``."""
+    """(template arguments, registers, spill bytes stored + loaded, with
+    those of the functions it calls) of every kernel instantiation in the
+    ``-Xptxas -v`` report of ``name``."""
     import re
     from repro_torch.kernels import _build
     entries = []
@@ -571,29 +599,34 @@ def _ptxas_entries(name: str) -> list[tuple[str, int, int]]:
         tile = "x".join(re.findall(r"Li(\d+)E", args.group(1))) \
             if args else "?"
         regs = re.search(r"Used (\d+) registers", seg)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", seg)
+        # the entry's own line and one for each function it calls
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", seg)
         entries.append((tile, int(regs.group(1)) if regs else -1,
-                        int(spill.group(1)) + int(spill.group(2))
-                        if spill else -1))
+                        sum(int(a) + int(b) for a, b in spills)
+                        if spills else -1))
     return entries
 
 
 def check_build() -> None:
-    """No spill in any instantiation of the kernels on the f32 mainloop,
-    and the launch parameters and split-k plan compiled into the kernels
-    equal their Python mirrors."""
+    """No spill in any instantiation of the kernels, and the launch
+    parameters and split-k plan compiled into the kernels equal their
+    Python mirrors."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import symm as S
     from repro_torch.kernels import syrk as K
     from repro_torch.kernels import trmm as TM
+    from repro_torch.kernels import trsm as T
+    # trsm.cu: the substitution under each tile, the inverses under each bm
+    trsm_count = len(T.TILES) + len({bm for bm, _ in T.TILES})
     for name, count in (("gemm", len(G.TILES)), ("symm", len(S.TILES)),
                         ("rank_k", len(K.TILES)),
                         ("rank_k_packed", len(K.TILES)),
                         ("trmm", len(TM.TILES)),
-                        ("trmm_packed", len(TM.TILES))):
+                        ("trmm_packed", len(TM.TILES)),
+                        ("trsm", trsm_count)):
         entries = _ptxas_entries(name)
         spilled = [e for e in entries if e[2] != 0]
         if len(entries) != count or spilled:
@@ -625,6 +658,16 @@ def check_build() -> None:
         if query(out) != 0 or list(out) != want:
             raise SystemExit(f"[build:{name}] tile {(bm, bk, bn)}: built "
                              f"with {list(out)}, mainloop_params {want}")
+    trsm_out = (ctypes.c_int * 7)()
+    for bm, bn in sorted(T.TILES):
+        p = T.trsm_params(bm, bn)
+        want = [p[key] for key in ("threads", "stages", "smem", "passes",
+                                   "inv_threads", "inv_smem",
+                                   "block_workspace")]
+        if _build.load("trsm").repro_trsm_f32_config(bm, bn, trsm_out) != 0 \
+                or list(trsm_out) != want:
+            raise SystemExit(f"[build:trsm] tile {(bm, bn)}: built with "
+                             f"{list(trsm_out)}, trsm_params {want}")
     split = _build.load("gemm").repro_gemm_f32_split
     dims = [*KERNEL_DIMS, *UNALIGNED_DIMS, *CONTRACT_DIMS["gemm"],
             *((t, k, n) for t in TOKENS for k, n in LINEARS),
@@ -635,9 +678,9 @@ def check_build() -> None:
             raise SystemExit(f"[build:gemm] split at {(m, k, n)} tile "
                              f"{bm}x{bn}: C {(out[0], out[1])}, Python "
                              f"{G.split_plan(m, n, k, bm, bn)}")
-    print(f"[build] launch parameters of {len(configs)} tiles and the split "
-          f"plan at {len(dims)} dims x {len(G.TILES)} tiles equal their "
-          f"Python mirrors", flush=True)
+    print(f"[build] launch parameters of {len(configs) + len(T.TILES)} "
+          f"tiles and the split plan at {len(dims)} dims x {len(G.TILES)} "
+          f"tiles equal their Python mirrors", flush=True)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -915,6 +958,71 @@ def check_rank_k_paths(torch, rand) -> None:
           f"tri_packed symmetric bit for bit", flush=True)
 
 
+def check_trsm_kernels(torch, rand) -> None:
+    """trsm's two kernels apart under every knob, on the conformance dims
+    and one aligned shape, single and stacked: ``trsm_inv`` with
+    ``tril(D_i) D_i^-1 = I`` (within ``F32_TOL``, relative to the largest
+    ``|D_i| |D_i^-1|`` product) and within ``F32_TOL`` of
+    ``diag_inverses_plain``; ``trsm`` within ``F32_TOL`` of
+    ``substitute_plain`` fed the same inverses; each kernel's stack equal to
+    its items bit for bit.  The ragged n of (129, 257) takes the 4-byte
+    copies that read the block's own X rows back through L1."""
+    from repro_torch.backends import conformance as C
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trsm as T
+    worst = {"eye": 0.0, "inv": 0.0, "sub": 0.0}
+    checks = 0
+    for knob in ops.knob_space_for("trsm"):
+        bm, bn = knob["bm"], knob["bn"]
+        for m, n in (*C.RAGGED_DIMS["trsm"], ALIGNED_2D):
+            for lead in ((), (STACK,)):
+                a, b = rand(*lead, m, m), rand(*lead, m, n)
+                a.diagonal(dim1=-2, dim2=-1).add_(m)
+                inv = T.diag_inverses(a, bm=bm)
+                full, last = T.diag_inverses_plain(a, bm)
+                for got, want in zip(T.inverse_blocks(inv, m, bm),
+                                     (full, last)):
+                    if want is not None:
+                        worst["inv"] = max(worst["inv"], _rel_err(got, want))
+                for i in range(-(-m // bm)):
+                    lo, hi = i * bm, min(m, (i + 1) * bm)
+                    d = torch.tril(a[..., lo:hi, lo:hi]).double()
+                    di = inv[..., i, :hi - lo, :hi - lo].double()
+                    eye = torch.eye(hi - lo, dtype=torch.float64,
+                                    device=a.device)
+                    scale = (d.abs() @ di.abs()).max().item()
+                    worst["eye"] = max(worst["eye"], (d @ di - eye).abs()
+                                       .max().item() / scale)
+                x = T.substitute(a, b, inv, bm=bm, bn=bn, alpha=0.5)
+                want = torch.empty_like(b)
+                T.substitute_plain(a, b, want, *T.inverse_blocks(inv, m, bm),
+                                   bm=bm, bn=bn, alpha=0.5)
+                worst["sub"] = max(worst["sub"], _rel_err(x, want))
+                checks += 1
+                if not max(worst.values()) < F32_TOL:
+                    raise SystemExit(f"[kernel:trsm] {knob} at "
+                                     f"{(*lead, m, n)}: {worst}")
+                if lead:
+                    for k in range(STACK):
+                        one_inv = T.diag_inverses(a[k], bm=bm)
+                        one = T.substitute(a[k], b[k], inv[k], bm=bm, bn=bn,
+                                           alpha=0.5)
+                        if not (torch.equal(one_inv.view(torch.int32),
+                                            inv[k].view(torch.int32))
+                                and torch.equal(one.view(torch.int32),
+                                                x[k].view(torch.int32))):
+                            raise SystemExit(f"[kernel:trsm] {knob} at "
+                                             f"{(*lead, m, n)}: stacked item "
+                                             f"{k} differs from per-item")
+    torch.cuda.synchronize()
+    print(f"[kernel:trsm] {checks} checks of trsm_inv and trsm over the 8 "
+          f"candidates at {(*C.RAGGED_DIMS['trsm'], ALIGNED_2D)} (single, "
+          f"stack of {STACK}): tril(D) D^-1 - I {worst['eye']:.3e}, "
+          f"trsm_inv vs diag_inverses_plain {worst['inv']:.3e}, trsm vs "
+          f"substitute_plain {worst['sub']:.3e} (< {F32_TOL}); stacked == "
+          f"per-item bit for bit", flush=True)
+
+
 #: the ragged and one-row dims of the reference's zero-copy tests
 #: (tests/test_zero_copy_kernels.py RAGGED and its one-row dims), and a GEMM
 #: whose contraction splits under the padded run's 128 x 128 tile
@@ -961,6 +1069,14 @@ def check_contracts(torch, rand) -> list[str]:
                     if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
                         raise SystemExit("[contract] trsm masked != padded "
                                          "within 1e-5")
+                    grids = [("trsm_inv", I.full_grid_for("trsm_inv", dims,
+                                                          128)),
+                             ("trsm", I.full_grid_for("trsm", dims, 128,
+                                                      128))]
+                    if launched != grids:
+                        raise SystemExit(f"[contract] trsm at {dims}: "
+                                         f"launched {launched}, formulas "
+                                         f"{grids}")
                     continue
                 if counts:
                     raise SystemExit(f"[contract] {op} {var} at {dims}: copy "
@@ -1091,13 +1207,20 @@ def time_rows(torch, card: str, rows: list[dict]) -> dict:
         library_ms = _time_ms(torch, lib, lib_sets, iters=3 if big else 10)
         del lib_sets
         bound_ms, bound_by = _bound(op, shapes, kw)
-        t = totals[row["kernel"]]
-        t["ms"] += ms
-        t["plain_ms"] += plain_ms
-        t["library_ms"] += library_ms
-        t["bound_ms"] += bound_ms
-        if bound_by == "operations":
-            t["ops_bound_ms"] += bound_ms
+        # trsm's two kernels count apart (the substitution against the
+        # solve's bound and library call)
+        parts = time_trsm_kernels(torch, card, row, sets, library_ms,
+                                  iters=3 if big else 10) \
+            if op == "trsm" else \
+            {row["kernel"]: (ms, plain_ms, library_ms, bound_ms, bound_by)}
+        for name, (k_ms, k_plain, k_lib, k_bound, k_by) in parts.items():
+            t = totals[name]
+            t["ms"] += k_ms
+            t["plain_ms"] += k_plain
+            t["library_ms"] += k_lib
+            t["bound_ms"] += k_bound
+            if k_by == "operations":
+                t["ops_bound_ms"] += k_bound
         line = (f"[times] [{card}] {row['label']}: {op} knob "
                 f"{_knob_str(op, row['knob'])} {ms:.4f} ms")
         if row.get("pinned"):
@@ -1145,6 +1268,84 @@ def time_rows(torch, card: str, rows: list[dict]) -> dict:
               f"{acc['best_ms']:.4f} ms", flush=True)
     host_cost(torch, card)
     return totals
+
+
+def _inverse_work(m: int, bm: int, batch: int) -> tuple[float, float]:
+    """Operations and bytes of the diagonal-block inverses: r^3 / 3 for a
+    lower-triangular r x r block solved against I, its lower triangle read
+    and the inverse's written."""
+    blocks = [min(bm, m - lo) for lo in range(0, m, bm)]
+    flops = batch * sum(r ** 3 / 3 for r in blocks)
+    nbytes = 4.0 * batch * sum(r * (r + 1) for r in blocks)
+    return flops, nbytes
+
+
+def time_trsm_kernels(torch, card: str, row: dict, sets, library_ms: float,
+                      iters: int) -> dict:
+    """A served trsm call's two kernels apart, on its operand ``sets``:
+    ``trsm_inv`` against ``diag_inverses_plain``, its bound and one
+    ``solve_triangular`` of the stacked diagonal blocks against I (the
+    main path's m is a multiple of every bm, so every block is full); and
+    ``trsm`` from those inverses against ``substitute_plain`` fed the same
+    ones, the solve's bound and ``library_ms``, the solve's library call.
+    The inverses' three times are device times (:func:`_device_ms`).
+    Returns ``{kernel: (ms, plain_ms, library_ms, bound_ms, bound_by)}``
+    and books the inverses' largest absolute error against their plain
+    version in ``row["inv_abs_err"]``."""
+    from repro_torch.kernels import trsm as T
+    bm, bn = row["knob"]["bm"], row["knob"]["bn"]
+    shapes = row["shapes"]
+    m = shapes[0][-1]
+    batch = shapes[0][0] if len(shapes[0]) == 3 else 1
+    if m % bm:
+        raise SystemExit(f"[times] {row['label']}: m={m} not a multiple of "
+                         f"bm={bm}")
+    inv_events_ms = _time_ms(torch, lambda a, _b: T.diag_inverses(a, bm=bm),
+                             sets, iters)
+    # device times: the inverses take less than their calls' host time
+    inv_ms = _device_ms(torch, lambda a, _b: T.diag_inverses(a, bm=bm), sets,
+                        iters)
+    inv_plain_ms = _device_ms(torch, lambda a, _b: T.diag_inverses_plain(
+        a, bm), sets, iters)
+    eye = torch.eye(bm, device="cuda")
+    blocks = [(a.as_strided((batch, m // bm, bm, bm),
+                            (m * m if batch > 1 else 0, (m + 1) * bm, m, 1)),
+               eye) for a, _b in sets]
+    inv_lib_ms = _device_ms(torch, lambda d, e: torch.linalg.solve_triangular(
+        d, e, upper=False), blocks, iters)
+    invs = [(a, b, T.diag_inverses(a, bm=bm)) for a, b in sets]
+    row["inv_abs_err"] = max(
+        (T.inverse_blocks(inv, m, bm)[0]
+         - T.diag_inverses_plain(a, bm)[0]).abs().max().item()
+        for a, _b, inv in invs)
+    sub_ms = _time_ms(torch, lambda a, b, inv: T.substitute(
+        a, b, inv, bm=bm, bn=bn), invs, iters)
+
+    def sub_plain(a, b, inv):
+        x = torch.empty_like(b)
+        T.substitute_plain(a, b, x, *T.inverse_blocks(inv, m, bm), bm=bm,
+                           bn=bn, alpha=1.0)
+        return x
+
+    sub_plain_ms = _time_ms(torch, sub_plain, invs, iters)
+    flops, nbytes = _inverse_work(m, bm, batch)
+    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    inv_bound = 1e3 * max(t_ops, t_bytes)
+    inv_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = _bound("trsm", shapes, row["kw"])
+    print(f"[times:trsm] [{card}] {row['label']}: knob "
+          f"{_knob_str('trsm', row['knob'])} | trsm_inv {inv_ms:.4f} ms "
+          f"(device; {inv_events_ms:.4f} ms a call from CUDA events), "
+          f"plain {inv_plain_ms:.4f} ms, library {inv_lib_ms:.4f} ms "
+          f"(solve_triangular of the {batch * (m // bm)} blocks against I), "
+          f"bound {inv_bound:.4f} ms ({inv_by}), max abs err vs plain "
+          f"{row['inv_abs_err']:.2e} | trsm {sub_ms:.4f} ms, plain "
+          f"{sub_plain_ms:.4f} ms (substitute_plain), bound {bound_ms:.4f} "
+          f"ms ({bound_by}), {100 * bound_ms / sub_ms:.1f} % of bound",
+          flush=True)
+    return {"trsm_inv": (inv_ms, inv_plain_ms, inv_lib_ms, inv_bound,
+                         inv_by),
+            "trsm": (sub_ms, sub_plain_ms, library_ms, bound_ms, bound_by)}
 
 
 def host_cost(torch, card: str) -> None:
@@ -1256,6 +1457,7 @@ def main(argv: list[str]) -> int:
             check_2d_ops(torch, rand)
             check_trmm_paths(torch, rand)
             check_rank_k_paths(torch, rand)
+            check_trsm_kernels(torch, rand)
             check_contracts(torch, rand)
             print(f"[repeat {i + 1}/{repeats}] clean in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1265,6 +1467,7 @@ def main(argv: list[str]) -> int:
     check_2d_ops(torch, rand)
     check_trmm_paths(torch, rand)
     check_rank_k_paths(torch, rand)
+    check_trsm_kernels(torch, rand)
     check_contracts(torch, rand)
     print(f"[kernel] {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1370,9 +1573,10 @@ def main(argv: list[str]) -> int:
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         t = totals[name]
-        errs = [r["abs_err"] for r in served["rows"]
-                if (r["op"] == "trsm" if name == "trsm"
-                    else r["kernel"] == name and r["op"] != "trsm")]
+        # trsm_inv: its inverses against their plain version, per call
+        errs = [r["inv_abs_err"] if name == "trsm_inv" else r["abs_err"]
+                for r in served["rows"]
+                if r["kernel"] == (name if name != "trsm_inv" else "trsm")]
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": served["launches"][name],

@@ -9,7 +9,10 @@ events, operands cycled through about 120 MB so they come from HBM:
   ``L = 0.05 G G^T + 0.95 L`` call, G ``(4096, 14336)``, and at the stacked
   ``(8, 512, 512)`` call;
 * ``--op syr2k``: the same 18 candidates at ``(4096, 4096)`` and at the
-  stacked ``(8, 512, 512)`` call.
+  stacked ``(8, 512, 512)`` call;
+* ``--op trsm``: its 8 tiles at the preconditioner's trsm call, tril(A)
+  ``(4096, 4096)`` against B ``(4096, 14336)``, and at the stacked
+  ``(8, 512, 512)`` call, A made diagonally dominant (``+ m * I``).
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed, so
 one call can time two checkouts in turns (parent, change, change, parent)
@@ -39,6 +42,8 @@ CALLS = {
              ([(8, 512, 512)], {})),
     "syr2k": (([(4096, 4096), (4096, 4096)], {}),
               ([(8, 512, 512), (8, 512, 512)], {})),
+    "trsm": (([(4096, 4096), (4096, 14336)], {}),
+             ([(8, 512, 512), (8, 512, 512)], {})),
 }
 SEED = 1
 
@@ -47,6 +52,9 @@ def _kernel(op: str, knob):
     """The wrapper of ``op`` called under ``knob`` on operands."""
     from repro_torch.kernels import syrk as K
     from repro_torch.kernels import trmm as TM
+    from repro_torch.kernels import trsm as T
+    if op == "trsm":
+        return lambda a, b, **kw: T.trsm(a, b, bm=knob["bm"], bn=knob["bn"])
     if op == "trmm":
         return lambda a, b, **kw: TM.trmm(
             a, b, bm=knob["bm"], bn=knob["bn"], variant=knob["variant"])
@@ -78,6 +86,9 @@ def main(argv: list[str]) -> int:
         per_set = 4 * sum(math.prod(s) for s in shapes)
         sets = [[torch.randn(s, generator=gen, device="cuda") for s in shapes]
                 for _ in range(max(1, math.ceil(120e6 / per_set)))]
+        if args.op == "trsm":
+            for xs in sets:
+                xs[0].diagonal(dim1=-2, dim2=-1).add_(shapes[0][-1])
         iters = 3 if per_set > 200e6 else 20
         label = f"{args.op} " + " ".join(str(s) for s in shapes)
         total = 0.0

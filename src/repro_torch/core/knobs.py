@@ -195,7 +195,7 @@ def hopper_knob_space(
 
 
 #: contraction step of the kernels that take a bm x bn output tile and no
-#: bk of their own (symm, trmm, and the GEMMs of trsm): a launch parameter,
+#: bk of their own (symm, trmm and trsm): a launch parameter,
 #: never a candidate.  Every best tile of a 27-tile sweep of the GEMM kernel
 #: over the llama3-8b linears on an H100 had bk=64 (``chip_smoke.py``).
 HOPPER_CONTRACTION_STEP = 64

@@ -79,16 +79,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launcher(name: str, argtypes: list):
-    """The launcher ``repro_{name}_f32`` of ``csrc/{name}.cu``, its
-    argument types set once under the build lock, so threads that launch
-    together at first use never call it half configured.  Every launcher
-    returns a ``cudaError_t`` and takes, last, an ``int[3]`` it writes the
-    launched grid to (:func:`launch_grid`)."""
+def launcher(name: str, argtypes: list, *, source: str | None = None):
+    """The launcher ``repro_{name}_f32`` of ``csrc/{source}.cu`` (``source``
+    defaults to ``name``), its argument types set once under the build
+    lock, so threads that launch together at first use never call it half
+    configured.  Every launcher returns a ``cudaError_t`` and takes, last,
+    an ``int[3]`` it writes the launched grid to (:func:`launch_grid`)."""
     fn = _FUNCS.get(name)
     if fn is not None:
         return fn
-    lib = load(name)
+    lib = load(source or name)
     with _LOCK:
         fn = _FUNCS.get(name)
         if fn is None:

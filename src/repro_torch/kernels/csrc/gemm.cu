@@ -16,17 +16,16 @@
 //
 // Split-k.  A grid of fewer output tiles than the card's 132 SMs leaves
 // SMs idle and has each block walk all of k alone: the decode GEMMs of a
-// few rows, and trsm's one-m-tile block-row products.  split_plan (mirrored
-// from kernels/gemm.py::split_plan, and checked against the plan the wrapper
-// sized its workspace for) cuts k into S slices of length L, a multiple of
-// 128 that depends only on the tile and the per-item tile count, so the
-// batch never changes the split and padding k to a multiple of 128 never
-// adds a slice or moves a boundary.  Each slice writes its partial tile to a
-// workspace of the call's own; the last block of a tile to arrive (an atomic
-// ticket per tile, zeroed on the stream before the launch, taken after a
-// __threadfence) adds the partials in slice order 0 .. S-1, 8 loads in
-// flight, and applies the epilogue: one kernel launch, no float atomics, the
-// same bits on every run.
+// few rows.  split_plan (mirrored from kernels/gemm.py::split_plan, and
+// checked against the plan the wrapper sized its workspace for) cuts k into
+// S slices of length L, a multiple of 128 that depends only on the tile and
+// the per-item tile count, so the batch never changes the split and padding
+// k to a multiple of 128 never adds a slice or moves a boundary.  Each slice
+// writes its partial tile to a workspace of the call's own; the last block
+// of a tile to arrive (an atomic ticket per tile, zeroed on the stream
+// before the launch, taken after a __threadfence) adds the partials in
+// slice order 0 .. S-1, 8 loads in flight, and applies the epilogue: one
+// kernel launch, no float atomics, the same bits on every run.
 //
 // Ragged edges.  Loads past m, n or k read zero and stores past m or n are
 // dropped.  The masked zeros add nothing to the sums, the semantics of the
@@ -79,22 +78,6 @@ struct Args {
   int has_c, vec, slices, slice_len;
 };
 
-template <class T>
-struct GemmProducer {
-  const float* A;
-  const float* B;
-  long long lda, ldb;
-  int m, n, k, prow0, pcol0;
-  bool vec;
-  __device__ void load(float* As, float* Bs, int k0) const {
-    sgemm::load_tile<T::PM, T::BK, T::THREADS>(As, A, lda, m, k, prow0, k0,
-                                               vec);
-    sgemm::load_tile<T::BK, T::PN, T::THREADS>(Bs, B, ldb, k, n, k0, pcol0,
-                                               vec);
-  }
-  __device__ bool transposed(int) const { return false; }
-};
-
 template <int BM, int BK, int BN>
 __global__ void __launch_bounds__(sgemm::Tile<BM, BN, BK>::THREADS)
 gemm_kernel(const Args p) {
@@ -130,8 +113,8 @@ gemm_kernel(const Args p) {
     for (int pn = 0; pn < T::PASSES_N; ++pn) {
       const int prow0 = row0 + pm * T::PM, pcol0 = col0 + pn * T::PN;
       if (prow0 >= p.m || pcol0 >= p.n) continue;  // uniform in the block
-      const GemmProducer<T> prod{A, B, p.lda, p.ldb, p.m, p.n, p.k,
-                                 prow0, pcol0, bool(p.vec)};
+      const sgemm::GemmProducer<T> prod{A, B, p.lda, p.ldb, p.m, p.n, p.k,
+                                        prow0, pcol0, bool(p.vec)};
       float acc[T::TM][T::TN];
       sgemm::mainloop<T>(smem, prod, kbeg, kend,
                          sgemm::live_rows<T>(prow0, p.m), acc);

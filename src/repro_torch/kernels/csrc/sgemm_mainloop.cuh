@@ -1,10 +1,11 @@
 // The float32 mainloop shared by gemm.cu, symm.cu, the trmm kernels
-// (trmm.cu, trmm_packed.cu) and the rank-k kernels (rank_k.cu,
-// rank_k_packed.cu): one block computes its BM x BN tile of accumulators
-// over a range of the contraction, in IEEE fmaf on the CUDA cores.  What
-// feeds the A tile is a template parameter (a "producer"), so the GEMM
-// stages a row-major A, symm stitches sym(A) from the stored triangle and
-// trmm stages tril(A) with a per-row column limit; B is row-major in all
+// (trmm.cu, trmm_packed.cu), the rank-k kernels (rank_k.cu,
+// rank_k_packed.cu) and trsm.cu: one block computes its BM x BN tile of
+// accumulators over a range of the contraction, in IEEE fmaf on the CUDA
+// cores.  What feeds the A tile is a template parameter (a "producer"), so
+// the GEMM stages a row-major A (GemmProducer, below; trsm's two steps
+// too), symm stitches sym(A) from the stored triangle and trmm
+// stages tril(A) with a per-row column limit; B is row-major in all
 // three.  The rank-k tile (rank_k_tile.cuh, a Tile with B_ROWS) stages its
 // B side as rows too, [PN][BK + 4] with the contraction innermost, and runs
 // fma_nt in place of fma_rows.
@@ -147,6 +148,23 @@ __device__ __forceinline__ void load_tile(float* s, const float* p,
     }
   }
 }
+
+// The row-major producer: the PM x BK window of A at (prow0, k0) and the
+// BK x PN window of B at (k0, pcol0), A (m, k) and B (k, n) both row-major
+// with leading strides lda and ldb, zero past their edges.
+template <class T>
+struct GemmProducer {
+  const float* A;
+  const float* B;
+  long long lda, ldb;
+  int m, n, k, prow0, pcol0;
+  bool vec;
+  __device__ void load(float* As, float* Bs, int k0) const {
+    load_tile<T::PM, T::BK, T::THREADS>(As, A, lda, m, k, prow0, k0, vec);
+    load_tile<T::BK, T::PN, T::THREADS>(Bs, B, ldb, k, n, k0, pcol0, vec);
+  }
+  __device__ bool transposed(int) const { return false; }
+};
 
 // B rows of one contraction index: the thread's 8 columns
 template <class T>

@@ -40,10 +40,10 @@ __all__ = ["KERNELS", "record_launch", "launch_counts", "reset_launches",
            "COPY_OPS", "grid_slots", "full_grid_for", "packed_grid_for",
            "packed_slot_ratio"]
 
-#: the kernels whose launches are recorded (``trsm`` counts the GEMM
-#: launches a solve issues, which ``gemm`` counts too)
+#: the kernels whose launches are recorded (``trsm`` the substitution of
+#: ``csrc/trsm.cu``, ``trsm_inv`` its diagonal-block inverses)
 KERNELS = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm", "trmm_packed",
-           "trsm")
+           "trsm", "trsm_inv")
 
 _LOCK = threading.Lock()
 _COUNTS: collections.Counter = collections.Counter()
@@ -140,7 +140,10 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     that one) of ``op`` at ``dims`` under the output tile ``bm x bn``
     (syrk/syr2k: the square tile ``bm``; ``bn`` is their contraction block
     and not part of the grid).  The GEMM's grid x counts the n-tiles of
-    every slice of :func:`~repro_torch.kernels.gemm.split_plan`."""
+    every slice of :func:`~repro_torch.kernels.gemm.split_plan`.  ``trsm``
+    is its substitution kernel, one block per column strip and item;
+    ``trsm_inv`` its inverse kernel, one block per diagonal block, chunk of
+    :data:`~repro_torch.kernels.trsm.INV_COLS` columns and item."""
     if op == "gemm":
         # the n-tiles times the slices of a split contraction (grid x)
         from .gemm import split_plan
@@ -153,6 +156,11 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     if op in ("syrk", "syr2k"):
         nb = _cdiv(dims[0], bm)
         return (nb, nb, batch)
+    if op == "trsm":
+        return (_cdiv(dims[1], bn), 1, batch)
+    if op == "trsm_inv":
+        from .trsm import INV_COLS
+        return (_cdiv(dims[0], bm), bm // INV_COLS, batch)
     raise ValueError(f"no full grid for {op!r}")
 
 

@@ -21,7 +21,7 @@ What differs from the reference, seam by seam:
 * each worker launches on a CUDA stream of its own, and the execution span
   is taken from CUDA events on that stream around ``run_op``: it holds this
   bucket's kernels and the gaps the host leaves between them (``run_op``'s
-  dispatch before the first launch, trsm's loop between its GEMMs), and no
+  dispatch before the first launch, the gap between trsm's two), and no
   other worker's kernels.  The worker waits on its stream before it
   resolves any future, so a resolved future holds a computed result;
 * there is no trace-time decision batcher (PyTorch has no trace time); the

@@ -1,13 +1,15 @@
 """The hand-written kernels on a CUDA card (GEMM, SYMM, the rank-k kernels
-of SYRK/SYR2K, the TRMM kernels, and TRSM on the GEMM): against a float64
+of SYRK/SYR2K, the TRMM kernels, and TRSM's inverse and substitution
+kernels): against a float64
 oracle and their plain versions under every candidate of their Hopper knob
 spaces, stacked == per-item bit for bit, tri_packed == tri bit for bit;
 masked == padded bit for bit, no copy op on the dispatch path, and the
 recorded grids equal to the grid formulas; the GEMM's split-k on a ragged
 shape, its unaligned-stride path equal to the aligned one bit for bit (symm,
 syrk/syr2k and trmm too), ``tri``'s rank-k output symmetric bit for bit,
-trmm's A read nowhere above its diagonal, and the launch
-parameters built into the kernels equal to their Python mirrors.  The card's
+trmm's A read nowhere above its diagonal, a TRSM call launching its two
+kernels and nothing else, and the launch parameters built into the
+kernels equal to their Python mirrors.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -382,6 +384,91 @@ def test_trsm_residual_is_small_and_stacked_equals_per_item():
                 one = T.trsm(a[i], b[i], bm=knob["bm"], bn=knob["bn"],
                              alpha=1.5)
                 assert torch.equal(one, x[i]), (knob, i)
+
+
+@pytest.mark.gpu
+def test_trsm_kernels_match_their_plain_versions_over_the_knob_space():
+    """``trsm_inv`` against ``diag_inverses_plain`` and ``tril(D) D^-1 =
+    I``; ``trsm`` against ``substitute_plain`` fed the same inverses; both
+    stacks equal to their items bit for bit."""
+    _need_card()
+    from repro_torch.kernels import trsm as T
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for m, n in DIMS_2D:
+        a = _rand(gen, STACK, m, m) + m * torch.eye(m, device="cuda")
+        b = _rand(gen, STACK, m, n)
+        for knob in ops.knob_space_for("trsm"):
+            bm, bn = knob["bm"], knob["bn"]
+            inv = T.diag_inverses(a, bm=bm)
+            full, last = T.diag_inverses_plain(a, bm)
+            for got, want in zip(T.inverse_blocks(inv, m, bm), (full, last)):
+                if want is not None:
+                    assert _rel(got, want) < TOL, (knob, (m, n))
+            for i in range(-(-m // bm)):
+                lo, hi = i * bm, min(m, (i + 1) * bm)
+                d = torch.tril(a[:, lo:hi, lo:hi]).double()
+                di = inv[:, i, :hi - lo, :hi - lo].double()
+                eye = torch.eye(hi - lo, dtype=torch.float64, device="cuda")
+                scale = (d.abs() @ di.abs()).max().item()
+                assert (d @ di - eye).abs().max().item() / scale < TOL
+            x = T.substitute(a, b, inv, bm=bm, bn=bn, alpha=1.5)
+            want = torch.empty_like(b)
+            T.substitute_plain(a, b, want, *T.inverse_blocks(inv, m, bm),
+                               bm=bm, bn=bn, alpha=1.5)
+            assert _rel(x, want) < TOL, (knob, (m, n))
+            for i in range(STACK):
+                one = T.diag_inverses(a[i], bm=bm)
+                assert torch.equal(one.view(torch.int32),
+                                   inv[i].view(torch.int32)), (knob, i)
+                one = T.substitute(a[i], b[i], inv[i], bm=bm, bn=bn,
+                                   alpha=1.5)
+                assert torch.equal(one.view(torch.int32),
+                                   x[i].view(torch.int32)), (knob, i)
+
+
+@pytest.mark.gpu
+def test_trsm_launches_its_two_kernels_and_no_library_solve(monkeypatch):
+    """A CUDA call makes one ``trsm_inv`` and one ``trsm`` launch, with the
+    grids of ``full_grid_for``, no GEMM, and never calls
+    ``torch.linalg.solve_triangular``."""
+    _need_card()
+    from repro_torch.kernels import introspect as I
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("solve_triangular on the CUDA path")
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    a = _rand(gen, 8, 300, 300) + 300 * torch.eye(300, device="cuda")
+    b = _rand(gen, 8, 300, 257)
+    want = torch.linalg.solve_triangular(torch.tril(a.double()),
+                                         0.5 * b.double(), upper=False)
+    monkeypatch.setattr(torch.linalg, "solve_triangular", refuse)
+    for knob in ops.knob_space_for("trsm"):
+        with I.capture_launches() as launched:
+            x = ops.run_op("trsm", (a, b), knob=knob, alpha=0.5)
+        assert launched == [
+            ("trsm_inv", I.full_grid_for("trsm_inv", (300, 257), knob["bm"],
+                                         batch=8)),
+            ("trsm", I.full_grid_for("trsm", (300, 257), knob["bm"],
+                                     knob["bn"], batch=8))], knob
+        assert _rel(x, want) < TOL, knob
+
+
+@pytest.mark.gpu
+def test_trsm_is_built_with_its_python_mirror():
+    """The launch parameters compiled into trsm.cu equal ``trsm_params``."""
+    _need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import trsm as T
+    out = (ctypes.c_int * 7)()
+    config = _build.load("trsm").repro_trsm_f32_config
+    for bm, bn in sorted(T.TILES):
+        assert config(bm, bn, out) == 0, (bm, bn)
+        p = T.trsm_params(bm, bn)
+        assert list(out) == [p[k] for k in (
+            "threads", "stages", "smem", "passes", "inv_threads", "inv_smem",
+            "block_workspace")], (bm, bn)
 
 
 # -- trmm and the zero-copy contracts -----------------------------------------

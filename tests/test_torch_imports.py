@@ -58,3 +58,10 @@ def test_the_scan_covers_the_serving_package():
     assert {"serving/__init__.py", "serving/service.py", "serving/budget.py",
             "serving/faults.py", "kernels/trmm.py", "kernels/introspect.py",
             "kernels/padded_ref.py"} <= scanned
+
+
+def test_chip_smoke_imports_nothing_of_repro():
+    """The chip machine has no JAX: the smoke script imports only the port."""
+    text = (SRC.parent / "chip_smoke.py").read_text()
+    assert _FORBIDDEN.search(text) is None, _FORBIDDEN.search(text).group(0)
+    assert "import repro." not in text

@@ -1,8 +1,10 @@
 """TRSM parity: the port's ``run_op("trsm", ...)`` (blocked forward
-substitution on the GEMM, run here on the GEMM's plain version) against the
-reference package's Pallas TRSM (interpret mode) on the same seeded numpy
-inputs, both held to a float64 oracle; the blocked scheme's GEMM calls; and
-the wrapper's checks.  The GEMM kernel under it is tested on the card by
+substitution, run here on the plain versions of its two kernels: the
+diagonal-block inverses and the substitution on the GEMM's plain version)
+against the reference package's Pallas TRSM (interpret mode) on the same
+seeded numpy inputs, both held to a float64 oracle; the blocked scheme's
+GEMM calls; the kernels' grids and launch parameters; and the wrapper's
+checks.  The kernels (``csrc/trsm.cu``) are tested on the card by
 ``test_torch_gpu.py``."""
 
 import numpy as np
@@ -13,6 +15,7 @@ import repro.kernels.ops as ref_ops
 from repro_torch.backends import HopperBackend
 from repro_torch.backends.conformance import oracle
 from repro_torch.kernels import gemm as G
+from repro_torch.kernels import introspect as I
 from repro_torch.kernels.introspect import launch_counts
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
@@ -138,3 +141,101 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         a, b = a.double(), b.double()
     with pytest.raises((TypeError, ValueError)):
         T.trsm(a, b, **tile)
+
+
+# -- the two kernels' plain versions, grids and launch parameters ------------
+
+#: the knob space's diagonal blocks
+BMS = sorted({k["bm"] for k in ops.knob_space_for("trsm")})
+
+
+@pytest.mark.parametrize("m", (1, 63, 129, 300))
+@pytest.mark.parametrize("bm", BMS)
+def test_diag_inverses_plain_inverts_every_block(m, bm):
+    (a, _b), _ = _case("stack", (m, 4), seed=m)
+    ta = torch.from_numpy(a)
+    full, last = T.diag_inverses_plain(ta, bm)
+    nfull, rag = divmod(m, bm)
+    assert (full is None) == (nfull == 0) and (last is None) == (rag == 0)
+    if rag:
+        # the ragged last block at its true size
+        assert tuple(last.shape) == (3, rag, rag)
+    for i in range(-(-m // bm)):
+        lo, hi = i * bm, min(m, (i + 1) * bm)
+        inv = full[:, i] if hi - lo == bm else last
+        d = torch.tril(ta[:, lo:hi, lo:hi]).double()
+        eye = torch.eye(hi - lo, dtype=torch.float64)
+        assert float((d @ inv.double() - eye).abs().max()) < 1e-5
+        # lower triangular, as the kernel's workspace holds it
+        assert torch.equal(inv, torch.tril(inv))
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("bm", BMS)
+def test_substitute_plain_matches_reference_pallas(dims, bm):
+    operands, kw = _case("alpha", dims)
+    a, b = map(torch.from_numpy, operands)
+    x = torch.empty_like(b)
+    T.substitute_plain(a, b, x, *T.diag_inverses_plain(a, bm), bm=bm, bn=64,
+                       **kw)
+    want = oracle("trsm", operands, **kw)
+    ref = np.asarray(ref_ops.run_op("trsm", operands, backend="pallas",
+                                    interpret=True, **kw))
+    assert _rel(x.numpy(), want) < TOL
+    assert _rel(x.numpy(), ref.astype(np.float64)) < TOL
+
+
+@pytest.mark.parametrize("bm", BMS)
+def test_kernel_wrappers_on_cpu_run_the_plain_scheme(bm):
+    """``diag_inverses`` packs the plain inverses into the kernel's
+    workspace layout, and ``substitute`` from it equals ``trsm``."""
+    (a, b), kw = _case("stack", (300, 33))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    inv = T.diag_inverses(ta, bm=bm)
+    assert tuple(inv.shape) == (3, -(-300 // bm), bm, bm)
+    for got, want in zip(T.inverse_blocks(inv, 300, bm),
+                         T.diag_inverses_plain(ta, bm)):
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert torch.equal(got, want)
+    x = T.substitute(ta, tb, inv, bm=bm, bn=128, **kw)
+    assert torch.equal(x, T.trsm(ta, tb, bm=bm, bn=128, **kw))
+    with pytest.raises(ValueError):
+        T.substitute(ta, tb, inv[:, :1], bm=bm, bn=128)
+
+
+@pytest.mark.parametrize("bn,blocks", [(64, 224), (128, 112), (256, 56)])
+def test_grids_at_the_main_path_shapes(bn, blocks):
+    big, stack = (4096, 14336), (512, 512)
+    for bm in BMS:
+        if (bm, bn) not in T.TILES:
+            continue
+        assert I.full_grid_for("trsm", big, bm, bn) == (blocks, 1, 1)
+        assert I.full_grid_for("trsm", stack, bm, bn, batch=8) == \
+            (512 // bn, 1, 8)
+        assert I.full_grid_for("trsm_inv", big, bm) == \
+            (4096 // bm, bm // T.INV_COLS, 1)
+        assert I.full_grid_for("trsm_inv", stack, bm, batch=8) == \
+            (512 // bm, bm // T.INV_COLS, 8)
+    assert I.full_grid_for("trsm_inv", (129, 257), 128) == (2, 2, 1)
+    with pytest.raises(ValueError):
+        I.packed_grid_for("trsm", big, 128, bn)
+
+
+@pytest.mark.parametrize("tile", sorted(T.TILES), ids=lambda t: "%dx%d" % t)
+def test_trsm_params_fit_the_card(tile):
+    bm, bn = tile
+    p = T.trsm_params(bm, bn)
+    assert 128 <= p["threads"] <= 256
+    assert p["smem"] <= G.SMEM_MAX and p["inv_smem"] <= G.SMEM_MAX
+    assert p["inv_threads"] == T.INV_COLS and bm % T.INV_COLS == 0
+    # the substitution runs the mainloop of the (bm, 64, bn) tile
+    assert {k: p[k] for k in G.mainloop_params(bm, 64, bn)} == \
+        G.mainloop_params(bm, 64, bn)
+    # one diagonal block's inverse; the big call holds 4096 / bm of them
+    assert p["block_workspace"] == 4 * bm * bm
+    assert (4096 // bm) * p["block_workspace"] == 4 * 4096 * bm
+
+
+def test_the_recorder_knows_both_kernels():
+    assert {"trsm", "trsm_inv"} <= set(I.KERNELS)
