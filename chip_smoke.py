@@ -72,7 +72,25 @@ calls, and fails (non-zero exit) if any phase fails:
    equal to the buckets executed, mean batch above 1, no failure;
    requests/s through the service against one ``run_op`` per request, in
    windows alternated with the service's, as median, min and max;
-6. times (CUDA events) of every served call: the kernel under the tuned and
+6. model: another fresh process loads the installed ``hopper__gemm_b4``
+   artifact into a new ``AdsalaRuntime``, builds llama3-8b at full width
+   and depth (32 layers, 8,030,261,248 float32 parameters) on the card
+   from a seed, routed (``use_pallas_gemm=True``), and serves 4 requests
+   of 128 prompt tokens, 32 new tokens greedy, through
+   ``ServeSession.generate`` (one prefill and 32 decode steps).  It fails
+   unless that generate launches the GEMM kernel 225 x 33 = 7,425 times
+   (7 linears a block and the LM head, every pass) and nothing else,
+   every decision comes from the installed model, and the logits of a
+   teacher-forced prefill and 4 decode steps lie within ``MODEL_TOL`` of
+   the plain version (the unrouted config: ``torch.matmul``, TF32 off)
+   while TF32-rounded weights do not.  It prints the prefill's time and
+   tokens/s, the median decode step, the host's time per step, the device
+   profile of one prefill and 4 decode steps (the GEMM kernel's share,
+   the top operations, the device's idle share), the greedy tokens of the
+   routed and the plain run, and the reckoning from the config (bytes a
+   decode step reads, as launched, the prefill's operations, the KV
+   cache);
+7. times (CUDA events) of every served call: the kernel under the tuned and
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
    ``torch.addmm``, ``torch.linalg.solve_triangular``) and the float32
@@ -87,9 +105,9 @@ calls, and fails (non-zero exit) if any phase fails:
    at a product too small to time the card.
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
-(the ``run_op`` calls, then the service) is driven with the counts set to 0
-just before it and read just after; launches made by the comparisons of
-phase 3 do not count.
+(the ``run_op`` calls, the service, the model's generate) is driven with
+the counts set to 0 just before it and read just after; launches made by
+the comparisons of phase 3 and the model's checks do not count.
 
 Run from the root of a checkout on a machine with the card:
 ``python3 chip_smoke.py``.  The last line of its output is
@@ -110,6 +128,7 @@ import faulthandler
 import itertools
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -169,10 +188,33 @@ SERVICE_WINDOWS = 5
 #: seconds the fresh serving process may take
 SERVE_TIMEOUT_S = 600
 
+#: the model phase: llama3-8b (src/repro_torch/configs/llama3_8b.py) at full
+#: width and depth, routed, float32; requests, prompt and new tokens of its
+#: generate, greedy
+MODEL_ARCH = "llama3-8b"
+MODEL_REQUESTS, MODEL_PROMPT, MODEL_NEW = 4, 128, 32
+MODEL_PARAMS = 8_030_261_248
+#: GEMM launches of one pass: 32 blocks x 7 linears + the LM head
+MODEL_LINEARS = 32 * 7 + 1
+#: decode steps after the prefill whose logits are held to the plain version
+MODEL_CHECK_STEPS = 4
+#: max |routed - plain| / max |plain| of those logits.  On the H100 (700 W)
+#: IEEE f32 in the two summation orders read 4.1e-6 through the 32 layers
+#: and TF32-rounded weights 1.4e-3; the phase prints both and fails unless
+#: the limit lies between them
+MODEL_TOL = 1e-4
+#: seconds the fresh model process may take, the device ops it lists and
+#: the calls over which it takes a linear's host time
+MODEL_TIMEOUT_S = 300
+MODEL_TOP_OPS = 8
+MODEL_HOST_CALLS = 50
+#: the GEMM kernel's name in a profile (csrc/gemm.cu's ``gemm_kernel``)
+GEMM_KERNEL = re.compile(r"(^|[\s:])gemm_kernel<")
+
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
-#: the ops whose calls phase 6 prints a ``[rate]`` line for
+#: the ops whose calls phase 7 prints a ``[rate]`` line for
 RATE_OPS = ("gemm", "symm", "syrk", "syr2k", "trmm", "trsm")
 
 #: calibration settings of phase 4, and the Halton dims each op installs
@@ -583,6 +625,325 @@ def serve_service(torch, rt) -> dict:
             "model_evals": after.model_evals - before.model_evals,
             "default_calls": after.default_calls - before.default_calls,
             "eval_failures": after.eval_failures - before.eval_failures}
+
+
+# -- phase 6, in a fresh process --------------------------------------------
+
+def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
+    """The model phase's bounds from the config alone, before any run: the
+    floats the GEMMs of one pass read (every linear weight), a decode
+    step's bytes at the HBM rate and as launched (the decode stack's items
+    each read the shared weight), the prefill's operations at the f32 peak
+    and the f32 KV cache."""
+    d, hd, f = cfg.d_model, cfg.hd(), cfg.d_ff
+    block = d * (cfg.n_heads + 2 * cfg.kv_heads) * hd + cfg.n_heads * hd * d \
+        + 3 * d * f
+    head = d * cfg.vocab
+    weights = cfg.n_layers * block + head
+    return {"weight_floats": weights,
+            "decode_bytes_ms": 4.0 * weights / HBM_BYTES_PER_S * 1e3,
+            "decode_launched_ms": 4.0 * batch * weights / HBM_BYTES_PER_S
+            * 1e3,
+            "prefill_flop": 2.0 * (batch * prompt * cfg.n_layers * block
+                                   + batch * head),
+            "prefill_ops_ms": 2.0 * (batch * prompt * cfg.n_layers * block
+                                     + batch * head) / F32_PEAK_FLOPS * 1e3,
+            "kv_cache_bytes": 2 * cfg.n_layers * batch * max_len
+            * cfg.kv_heads * hd * 4}
+
+
+def _teacher_forced(torch, tf, model, cfg, rt, prompts, forced, steps: int,
+                    max_len: int):
+    """Prefill ``prompts``, then ``steps`` decode steps fed ``forced``
+    (teacher-forced), the host never waiting on the card.  Returns the
+    logits of every pass, the prefill's ms and each step's ms (CUDA events
+    between consecutive passes), and each step's host ms (the time its
+    ``decode_step`` call takes to return)."""
+    caches = tf.init_decode_state(cfg, prompts.shape[0], max_len,
+                                  dtype=torch.float32, device="cuda")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
+    host = []
+    torch.cuda.synchronize()
+    events[0].record()
+    last, caches = tf.prefill(model, {"tokens": prompts}, caches, cfg,
+                              runtime=rt)
+    events[1].record()
+    logits = [last]
+    for t in range(steps):
+        h0 = time.perf_counter()
+        last, caches = tf.decode_step(model, forced[:, t:t + 1], caches, cfg,
+                                      runtime=rt)
+        host.append(1e3 * (time.perf_counter() - h0))
+        events[t + 2].record()
+        logits.append(last)
+    torch.cuda.synchronize()
+    return (logits, events[0].elapsed_time(events[1]),
+            [events[t + 1].elapsed_time(events[t + 2]) for t in range(steps)],
+            host)
+
+
+def _logits_err(got: list, want: list) -> float:
+    """Largest |got - want| over the largest |want|, over every pass."""
+    return max((g.double() - w.double()).abs().max().item()
+               / w.double().abs().max().item() for g, w in zip(got, want))
+
+
+def _device_profile(torch, fn) -> dict:
+    """``fn`` under ``torch.profiler`` (device activity only): the device
+    time by kernel name, the GEMM kernel's share of it, and the device's
+    idle share between its first and its last operation (1 - the union of
+    the operations' intervals over that span)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise SystemExit("[model] torch.profiler recorded no device time")
+    by_name: dict = {}
+    for s, e, name in ops:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    spans = sorted((s, e) for s, e, _ in ops)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    window = spans[-1][1] - spans[0][0]
+    total = sum(by_name.values())
+    gemm = sum(us for name, us in by_name.items() if GEMM_KERNEL.search(name))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:MODEL_TOP_OPS]
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / window, "device_ms": total / 1e3,
+            "gemm_ms": gemm / 1e3, "gemm_share": gemm / total,
+            "top": [(name[:90], us / 1e3) for name, us in top]}
+
+
+def _linear_host_us(torch, model, cfg, rt) -> dict:
+    """The host's µs per call of a decode step's q projection, ``(4, 1,
+    4096) @ (4096, 4096)``, three ways: the routed linear (``run_op``:
+    decision, backend, wrapper, launch), the GEMM wrapper alone under the
+    same knob, and ``torch.matmul``.  Host clock over
+    :data:`MODEL_HOST_CALLS` calls issued back to back, too few to fill
+    the launch queue, after one call each."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import Ctx, routed_matmul
+    w = model.layers[0].attn.wq.w
+    x = torch.randn(MODEL_REQUESTS, 1, cfg.d_model, device="cuda")
+    ctx = Ctx(cfg, rt)
+    kd = rt.peek("gemm", ops.dims_of("gemm", (tuple(x.shape),
+                                              tuple(w.shape))),
+                 4, "hopper").dict
+    out = {}
+    for name, fn in (("routed linear", lambda: routed_matmul(x, w, ctx)),
+                     ("gemm wrapper", lambda: G.gemm(
+                         x, w, bm=kd["bm"], bk=kd["bk"], bn=kd["bn"])),
+                     ("torch.matmul", lambda: torch.matmul(x, w))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MODEL_HOST_CALLS):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t0) / MODEL_HOST_CALLS
+        torch.cuda.synchronize()
+    return out
+
+
+def model_main(registry_dir: str) -> None:
+    """Serve llama3-8b at full width and depth from a fresh runtime holding
+    the installed ``hopper__gemm_b4`` artifact: one ``generate`` of
+    :data:`MODEL_REQUESTS` prompts (its GEMM launches and decisions), then
+    teacher-forced passes on its tokens for the times, the device profile
+    and the check against the plain version; prints one
+    ``MODEL_RESULT {json}`` line."""
+    faulthandler.dump_traceback_later(MODEL_TIMEOUT_S - 20, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import AdsalaRuntime
+    from repro_torch.core.registry import load_subroutine
+    from repro_torch.kernels import introspect
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = AdsalaRuntime()
+    rt.register(load_subroutine(Path(registry_dir) / "hopper__gemm_b4.adsala"))
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), use_pallas_gemm=True,
+                              compute_dtype="float32")
+    plain = dataclasses.replace(cfg, use_pallas_gemm=False)
+    max_len = MODEL_PROMPT + MODEL_NEW + 8
+    t0 = time.perf_counter()
+    model = tf.init_params(SEED, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tf.param_count(model)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (MODEL_REQUESTS, MODEL_PROMPT), dtype=np.int32)
+    sess = ServeSession(cfg=cfg, params=model, max_len=max_len, runtime=rt,
+                        device="cuda")
+
+    # the main path: counts and decisions from 0 just before, read after
+    introspect.reset_launches()
+    t0 = time.perf_counter()
+    tokens = sess.generate(prompts, max_new=MODEL_NEW)
+    generate_s = time.perf_counter() - t0
+    launches = introspect.launch_counts()
+    stats = rt.stats.for_backend("hopper")
+    decisions = {"model_evals": stats.model_evals,
+                 "default_calls": stats.default_calls,
+                 "calls": stats.calls, "cache_hits": stats.cache_hits,
+                 "eval_failures": rt.stats.eval_failures}
+
+    p_t = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    forced = torch.as_tensor(tokens, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        routed, prefill_ms, step_ms, host_ms = _teacher_forced(
+            torch, tf, model, cfg, rt, p_t, forced, MODEL_NEW, max_len)
+        routed = routed[:MODEL_CHECK_STEPS + 1]
+        profile = _device_profile(torch, lambda: _teacher_forced(
+            torch, tf, model, cfg, rt, p_t, forced, MODEL_CHECK_STEPS,
+            max_len))
+        # the decode steps alone (their prefill before the window)
+        caches = tf.init_decode_state(cfg, MODEL_REQUESTS, max_len,
+                                      dtype=torch.float32, device="cuda")
+        tf.prefill(model, {"tokens": p_t}, caches, cfg, runtime=rt)
+        decode_profile = _device_profile(torch, lambda: [
+            tf.decode_step(model, forced[:, t:t + 1], caches, cfg,
+                           runtime=rt) for t in range(MODEL_CHECK_STEPS)])
+        del caches
+        host_us = _linear_host_us(torch, model, cfg, rt)
+        want, plain_prefill_ms, plain_step_ms, plain_host_ms = \
+            _teacher_forced(torch, tf, model, plain, None, p_t, forced,
+                            MODEL_NEW, max_len)
+        want = want[:MODEL_CHECK_STEPS + 1]
+        plain_tokens = ServeSession(cfg=plain, params=model, max_len=max_len,
+                                    device="cuda").generate(
+            prompts, max_new=MODEL_NEW)
+        err = _logits_err(routed, want)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the precision the limit must reject: the same plain passes with
+        # every linear weight rounded to TF32's 10-bit mantissa, in place
+        # (the last use of the model)
+        for mod in model.modules():
+            if isinstance(mod, tf.Linear):
+                mod.w.copy_(_tf32(mod.w))
+        rounded, _, _, _ = _teacher_forced(
+            torch, tf, model, plain, None, p_t, forced, MODEL_CHECK_STEPS,
+            max_len)
+        tf32_err = _logits_err(rounded, want)
+    print("MODEL_RESULT " + json.dumps({
+        "arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "init_s": init_s, "generate_s": generate_s,
+        "launches": launches, "decisions": decisions,
+        "tokens": tokens.tolist(), "plain_tokens": plain_tokens.tolist(),
+        "prefill_ms": prefill_ms, "step_ms": step_ms, "host_ms": host_ms,
+        "plain_prefill_ms": plain_prefill_ms, "plain_step_ms": plain_step_ms,
+        "plain_host_ms": plain_host_ms, "host_us": host_us,
+        "err": err, "tf32_err": tf32_err, "peak_gb": peak_gb,
+        "profile": profile, "decode_profile": decode_profile,
+        "reckoning": _reckoning(cfg, MODEL_REQUESTS, MODEL_PROMPT, max_len)}),
+        flush=True)
+
+
+def report_model(card: str, res: dict) -> None:
+    """Print the model phase's ``[model]`` lines and fail unless it served
+    the full model through the installed GEMM model's knobs, one kernel
+    launch per linear and pass, within :data:`MODEL_TOL` of the plain
+    version (and the TF32 reading above it)."""
+    rk = res["reckoning"]
+    passes = 1 + MODEL_NEW
+    steps = sorted(res["step_ms"])
+    step_med = steps[len(steps) // 2]
+    plain_med = sorted(res["plain_step_ms"])[len(steps) // 2]
+    host_med = sorted(res["host_ms"])[len(steps) // 2]
+    prof = res["profile"]
+    tokens = MODEL_REQUESTS * MODEL_PROMPT
+    agree = [sum(a == b for a, b in zip(r, p))
+             for r, p in zip(res["tokens"], res["plain_tokens"])]
+    print(f"[model] [{card}] {res['arch']}: {res['layers']} layers, d_model "
+          f"{res['d_model']}, {res['params']:,} parameters (float32), "
+          f"initialised on the card in {res['init_s']:.2f} s; peak "
+          f"{res['peak_gb']:.2f} GB allocated", flush=True)
+    print(f"[model] [{card}] generate: {MODEL_REQUESTS} requests x "
+          f"{MODEL_PROMPT} prompt tokens, {MODEL_NEW} new (greedy) in "
+          f"{res['generate_s']:.3f} s; launches {res['launches']} "
+          f"(expected gemm {MODEL_LINEARS} x {passes} = "
+          f"{MODEL_LINEARS * passes}); decisions {res['decisions']}",
+          flush=True)
+    print(f"[model] [{card}] prefill {res['prefill_ms']:.3f} ms "
+          f"({tokens / res['prefill_ms'] * 1e3:.1f} tokens/s; plain "
+          f"{res['plain_prefill_ms']:.3f} ms) | decode per step median "
+          f"{step_med:.3f} ms over {len(steps)} (min {steps[0]:.3f}, max "
+          f"{steps[-1]:.3f}; plain median {plain_med:.3f} ms) | host per "
+          f"step median {host_med:.3f} ms (CUDA events between passes, "
+          f"teacher-forced on the generated tokens)", flush=True)
+    print(f"[model] [{card}] profile of one prefill + {MODEL_CHECK_STEPS} "
+          f"decode steps (torch.profiler, device activity): device window "
+          f"{prof['window_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, idle "
+          f"share {prof['idle_share']:.4f}; GEMM kernel "
+          f"{prof['gemm_ms']:.3f} ms = {prof['gemm_share']:.4f} of device "
+          f"time {prof['device_ms']:.3f} ms", flush=True)
+    for name, ms in prof["top"]:
+        print(f"[model:top] [{card}] {ms:10.3f} ms  {name}", flush=True)
+    dec = res["decode_profile"]
+    print(f"[model] [{card}] profile of {MODEL_CHECK_STEPS} decode steps "
+          f"alone: device window {dec['window_ms']:.3f} ms, busy "
+          f"{dec['busy_ms']:.3f} ms ({dec['busy_ms'] / MODEL_CHECK_STEPS:.3f}"
+          f" ms a step), idle share {dec['idle_share']:.4f}; GEMM kernel "
+          f"{dec['gemm_ms'] / MODEL_CHECK_STEPS:.3f} ms a step = "
+          f"{dec['gemm_share']:.4f} of device time", flush=True)
+    plain_host = sorted(res["plain_host_ms"])[len(steps) // 2]
+    print(f"[model:host] [{card}] host per decode step median: routed "
+          f"{host_med:.3f} ms, plain {plain_host:.3f} ms | per call at the "
+          f"q projection ({MODEL_REQUESTS},1,{res['d_model']})@"
+          f"({res['d_model']},{res['d_model']}), over "
+          f"{MODEL_HOST_CALLS} calls: " + ", ".join(
+              f"{name} {us:.2f} us" for name, us in res["host_us"].items()),
+          flush=True)
+    print(f"[model:reckoning] one pass's GEMMs read {rk['weight_floats']:,} "
+          f"weight floats ({4e-9 * rk['weight_floats']:.2f} GB): a decode "
+          f"step {rk['decode_bytes_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12} "
+          f"TB/s, {rk['decode_launched_ms']:.3f} ms as launched (each of the "
+          f"{MODEL_REQUESTS} stacked items reads the shared weight); prefill "
+          f"{rk['prefill_flop'] / 1e12:.3f} TFLOP = "
+          f"{rk['prefill_ops_ms']:.3f} ms at {F32_PEAK_FLOPS / 1e12:.0f} "
+          f"TFLOP/s; KV cache {rk['kv_cache_bytes'] / 1e6:.1f} MB; "
+          f"{MODEL_LINEARS} GEMM calls a pass", flush=True)
+    print(f"[model] [{card}] teacher-forced logits, prefill + "
+          f"{MODEL_CHECK_STEPS} decode steps: routed vs plain (torch.matmul, "
+          f"TF32 off) {res['err']:.3e}, TF32-rounded weights vs plain "
+          f"{res['tf32_err']:.3e}, limit {MODEL_TOL:.0e}", flush=True)
+    for r, p, n in zip(res["tokens"], res["plain_tokens"], agree):
+        print(f"[model:tokens] routed {r}\n[model:tokens] plain  {p} "
+              f"({n}/{MODEL_NEW} agree)", flush=True)
+    print(f"[model] greedy tokens agree at {sum(agree)}/"
+          f"{MODEL_REQUESTS * MODEL_NEW} positions", flush=True)
+    if res["params"] != MODEL_PARAMS or res["layers"] != 32 \
+            or res["d_model"] != 4096:
+        raise SystemExit(f"[model] not llama3-8b at full width and depth: "
+                         f"{res['params']} parameters")
+    want = {k: 0 for k in KERNELS}
+    want["gemm"] = MODEL_LINEARS * passes
+    if res["launches"] != want:
+        raise SystemExit(f"[model] launches {res['launches']}, expected "
+                         f"{want}")
+    dec = res["decisions"]
+    if dec["default_calls"] != 0 or dec["model_evals"] < 1 \
+            or dec["eval_failures"]:
+        raise SystemExit("[model] decisions did not come from the model")
+    if not res["err"] < MODEL_TOL < res["tf32_err"]:
+        raise SystemExit(f"[model] logits {res['err']:.3e} against the "
+                         f"plain version, TF32 {res['tf32_err']:.3e}: the "
+                         f"limit {MODEL_TOL:.0e} must lie between")
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -1137,7 +1498,7 @@ def _shapes_2d(op: str, dims) -> list:
     return [(a, b)] * (1 if op == "syrk" else 2)
 
 
-# -- phase 6 ----------------------------------------------------------------
+# -- phase 7 ----------------------------------------------------------------
 
 def _kernel_fn(op: str, kd: dict, kw: dict):
     """The kernel of ``op`` under the knob ``kd``, called on operands."""
@@ -1184,7 +1545,7 @@ def _library_fn(torch, op: str, kw: dict, shapes):
 
 
 def time_rows(torch, card: str, rows: list[dict]) -> dict:
-    """Phase 6: time every served call; returns per-kernel totals."""
+    """Phase 7: time every served call; returns per-kernel totals."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -1500,6 +1861,21 @@ def main(argv: list[str]) -> int:
         if proc.returncode != 0:
             raise SystemExit(f"[serve] fresh process failed "
                              f"({proc.returncode}):\n{proc.stdout[-4000:]}")
+        # 6. the model, from a fresh process too: its 32 GB of weights
+        # never meet phase 5's operands
+        t0 = time.perf_counter()
+        model_proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.model_main("
+             f"{str(tmp / 'models')!r})"],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=MODEL_TIMEOUT_S)
+        sys.stderr.write(model_proc.stderr[-4000:])
+        if model_proc.returncode != 0:
+            raise SystemExit(f"[model] fresh process failed "
+                             f"({model_proc.returncode}):\n"
+                             f"{model_proc.stdout[-4000:]}")
+        model_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     served = json.loads(next(line for line in proc.stdout.splitlines()
@@ -1566,7 +1942,13 @@ def main(argv: list[str]) -> int:
     if svc["default_calls"] or svc["eval_failures"]:
         raise SystemExit("[service] decisions did not come from the model")
 
-    # 6. times on the main paths' shapes
+    model = json.loads(next(line for line in model_proc.stdout.splitlines()
+                            if line.startswith("MODEL_RESULT "))
+                       .split(" ", 1)[1])
+    report_model(card, model)
+    print(f"[model] phase {model_s:.1f} s (a fresh process)", flush=True)
+
+    # 7. times on the main paths' shapes
     totals = time_rows(torch, card, served["rows"])
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -1585,6 +1967,9 @@ def main(argv: list[str]) -> int:
             "bound_by": ("operations" if 2 * t["ops_bound_ms"]
                          >= t["bound_ms"] else "bytes"),
             "library_ms": t["library_ms"]})
+    # the model path's GEMM launches (phase 6 fails unless they are these)
+    next(k for k in kernels if k["name"] == "gemm")["model_launches"] = \
+        model["launches"]["gemm"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

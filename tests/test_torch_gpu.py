@@ -625,3 +625,46 @@ def test_service_on_the_card_resolves_computed_rows():
         assert svc.drain(timeout=60)
     assert svc.stats.completed == 16 and svc.stats.failed == 0
     assert svc.stats.exec_sum > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("llama3_8b", "granite_20b"))
+def test_routed_smoke_model_on_the_card_matches_its_unrouted_run(arch):
+    """The dense smoke model on the card: routed, every linear one launch of
+    the GEMM kernel (7 or 6 per block and the head per pass) and logits
+    within ``TOL`` of the unrouted run (``torch.matmul``, TF32 off) on the
+    same weights; prefill and a decode step the same."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import AdsalaRuntime
+    from repro_torch.kernels import introspect
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                              use_pallas_gemm=True)
+    plain = dataclasses.replace(cfg, use_pallas_gemm=False)
+    model = tf.init_params(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=gen, device="cuda")
+    per_pass = (7 if cfg.mlp_type == "swiglu" else 6) * cfg.n_layers + 1
+
+    def err(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    with torch.inference_mode():
+        introspect.reset_launches()
+        got, _ = tf.forward(model, {"tokens": toks}, cfg,
+                            runtime=AdsalaRuntime())
+        torch.cuda.synchronize()
+        assert introspect.launch_counts()["gemm"] == per_pass
+        want, _ = tf.forward(model, {"tokens": toks}, plain)
+        assert err(got, want) < TOL
+        outs = {}
+        for c in (cfg, plain):
+            caches = tf.init_decode_state(c, 2, 32, dtype=torch.float32)
+            last, caches = tf.prefill(model, {"tokens": toks}, caches, c)
+            step, _ = tf.decode_step(model, toks[:, :1], caches, c)
+            outs[c.use_pallas_gemm] = (last, step)
+        for got, want in zip(outs[True], outs[False]):
+            assert got.is_cuda and err(got, want) < TOL

@@ -25,7 +25,9 @@ def test_import_loads_no_jax_repro_or_msgpack():
         "repro_torch.kernels.trsm, repro_torch.kernels.trmm, "
         "repro_torch.kernels.introspect, repro_torch.kernels.padded_ref, "
         "repro_torch.backends.conformance, repro_torch.launch.calibrate, "
-        "repro_torch.serving, repro_torch.serving.service\n"
+        "repro_torch.serving, repro_torch.serving.service, "
+        "repro_torch.configs, repro_torch.models, "
+        "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"
         "print(bad)\n"
@@ -57,7 +59,9 @@ def test_the_scan_covers_the_serving_package():
     scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"serving/__init__.py", "serving/service.py", "serving/budget.py",
             "serving/faults.py", "kernels/trmm.py", "kernels/introspect.py",
-            "kernels/padded_ref.py"} <= scanned
+            "kernels/padded_ref.py", "configs/base.py",
+            "models/layers.py", "models/transformer.py",
+            "launch/serve.py"} <= scanned
 
 
 def test_chip_smoke_imports_nothing_of_repro():

@@ -29,6 +29,10 @@ from repro_torch.serving.service import SERVABLE_OPS
 TOL = 5e-4
 #: seconds any one future may take here before the test fails
 WAIT = 60
+#: a linger no test outlasts: the ladder tests that need their requests in
+#: one stack flush it by size (max_batch), not by a 1 ms linger that a
+#: loaded host can let run out after the first submit
+ONE_STACK_LINGER_MS = 60_000.0
 
 DIMS = {"gemm": (48, 32, 40), "symm": (48, 40), "syrk": (48, 32),
         "syr2k": (48, 32), "trmm": (48, 40), "trsm": (48, 40)}
@@ -304,8 +308,8 @@ def test_transient_crash_is_retried_on_the_same_backend():
     plan = FaultPlan([FaultSpec(site="stacked_execute", times=1,
                                 match=lambda c: seen.append(
                                     c["backend"]) or True)])
-    cfg = cpu_cfg(max_batch=2, linger_ms=1.0, workers=1, min_steal=2,
-                  exec_retries=1, retry_backoff_s=0.0)
+    cfg = cpu_cfg(max_batch=2, linger_ms=ONE_STACK_LINGER_MS, workers=1,
+                  min_steal=2, exec_retries=1, retry_backoff_s=0.0)
     reqs = [make("gemm", (16, 16, 16), seed=i) for i in range(2)]
     with BlasService(runtime=AdsalaRuntime(), config=cfg, faults=plan,
                      device="cpu") as svc:
@@ -324,8 +328,9 @@ def test_knob_crash_is_quarantined_and_served_by_the_default_probe():
                                 match=lambda c: c["knob"] == bad)])
     rt = AdsalaRuntime()
     rt.register(FixedSub(bad))
-    cfg = cpu_cfg(max_batch=2, linger_ms=1.0, workers=1, min_steal=2,
-                  exec_retries=1, retry_backoff_s=0.0, quarantine_ttl_s=60.0)
+    cfg = cpu_cfg(max_batch=2, linger_ms=ONE_STACK_LINGER_MS, workers=1,
+                  min_steal=2, exec_retries=1, retry_backoff_s=0.0,
+                  quarantine_ttl_s=60.0)
     reqs = [make("gemm", (16, 16, 16), seed=i) for i in range(2)]
     with BlasService(runtime=rt, config=cfg, faults=plan,
                      device="cpu") as svc:
@@ -352,8 +357,9 @@ def test_persistent_crash_bisects_then_fails_typed_and_never_runs_ref(
     plan = FaultPlan([FaultSpec(site="stacked_execute", times=None,
                                 match=lambda c: seen.append(
                                     (c["backend"], c["n"])) or True)])
-    cfg = cpu_cfg(max_batch=4, linger_ms=1.0, workers=1, min_steal=4,
-                  exec_retries=0, retry_backoff_s=0.0, error_budget=False)
+    cfg = cpu_cfg(max_batch=4, linger_ms=ONE_STACK_LINGER_MS, workers=1,
+                  min_steal=4, exec_retries=0, retry_backoff_s=0.0,
+                  error_budget=False)
     with BlasService(runtime=AdsalaRuntime(), config=cfg, faults=plan,
                      device="cpu") as svc:
         futs = [svc.submit("trmm", make("trmm", (16, 16), seed=i))
@@ -371,8 +377,8 @@ def test_persistent_crash_bisects_then_fails_typed_and_never_runs_ref(
 def test_bisection_isolates_a_poisoned_stack():
     plan = FaultPlan([FaultSpec(site="stacked_execute", times=None,
                                 match=lambda c: c["n"] > 1)])
-    cfg = cpu_cfg(max_batch=4, linger_ms=1.0, workers=1, min_steal=4,
-                  exec_retries=0, retry_backoff_s=0.0)
+    cfg = cpu_cfg(max_batch=4, linger_ms=ONE_STACK_LINGER_MS, workers=1,
+                  min_steal=4, exec_retries=0, retry_backoff_s=0.0)
     reqs = [make("symm", (16, 16), seed=i) for i in range(4)]
     with BlasService(runtime=AdsalaRuntime(), config=cfg, faults=plan,
                      device="cpu") as svc:
