@@ -90,6 +90,27 @@ calls, and fails (non-zero exit) if any phase fails:
    routed and the plain run, and the reckoning from the config (bytes a
    decode step reads, as launched, the prefill's operations, the KV
    cache);
+6b. the MoE model: a third fresh process, after phase 6's has exited,
+   loads the installed ``hopper__gemm_b4`` artifact into a new runtime and
+   serves deepseek-v2-lite-16b at full width and depth (27 layers: MLA,
+   a dense first layer, 26 MoE layers of 64 experts top-6 and 2 shared;
+   15,706,484,224 float32 parameters) the same 4 x 128 prompt tokens, 32
+   new, greedy.  It fails unless that generate launches the GEMM kernel
+   268 + 32 x 241 = 7,980 times (counted from the config: MLA's 4 linears
+   at the prefill and 3 at a decode step, the dense MLP's 3, each MoE
+   layer's 3 expert stacks, one launch each over all 64 experts, and 3
+   shared linears, and the LM head) and nothing else, every decision
+   comes from the installed model, each MoE layer routed is within
+   ``F32_TOL`` of its plain version on the same captured input (prefill
+   and 4 steps, teacher-forced), and the logits lie within ``MODEL_TOL``
+   of the plain version (einsum and ``torch.matmul``, TF32 off) with the
+   TF32-rounded weights (the linears and the expert tensors) above it, or
+   differ only where the routed and plain runs chose other experts by a
+   near tie (a gap under ``NEAR_TIE`` of the top probability).  It prints
+   what phase 6 prints, the routing flips with their gaps, the profiles'
+   GEMM time of the expert stacks apart from the other linears, and the
+   expert stacks at the decode and prefill shapes against their plain
+   version, ``torch.bmm`` and the bound;
 7. times (CUDA events) of every served call: the kernel under the tuned and
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
@@ -105,9 +126,9 @@ calls, and fails (non-zero exit) if any phase fails:
    at a product too small to time the card.
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
-(the ``run_op`` calls, the service, the model's generate) is driven with
+(the ``run_op`` calls, the service, each model's generate) is driven with
 the counts set to 0 just before it and read just after; launches made by
-the comparisons of phase 3 and the model's checks do not count.
+the comparisons of phase 3 and the models' checks do not count.
 
 Run from the root of a checkout on a machine with the card:
 ``python3 chip_smoke.py``.  The last line of its output is
@@ -188,14 +209,19 @@ SERVICE_WINDOWS = 5
 #: seconds the fresh serving process may take
 SERVE_TIMEOUT_S = 600
 
-#: the model phase: llama3-8b (src/repro_torch/configs/llama3_8b.py) at full
-#: width and depth, routed, float32; requests, prompt and new tokens of its
-#: generate, greedy
-MODEL_ARCH = "llama3-8b"
+#: the model phases, each serving one model at full width and depth,
+#: routed, float32, in a fresh process of its own (both do not fit the
+#: card together): arch -> (the tag of its lines, parameters, layers,
+#: d_model, seconds its process may take).  Phase 6: llama3-8b
+#: (src/repro_torch/configs/llama3_8b.py); phase 6b: deepseek-v2-lite-16b
+#: (configs/deepseek_v2_lite.py: MLA, a dense first layer, 26 MoE layers
+#: of 64 experts top-6 and 2 shared)
+MODEL_PHASES = {
+    "llama3-8b": ("model", 8_030_261_248, 32, 4096, 300),
+    "deepseek-v2-lite-16b": ("moe", 15_706_484_224, 27, 2048, 420),
+}
+#: requests, prompt and new tokens of each model's generate, greedy
 MODEL_REQUESTS, MODEL_PROMPT, MODEL_NEW = 4, 128, 32
-MODEL_PARAMS = 8_030_261_248
-#: GEMM launches of one pass: 32 blocks x 7 linears + the LM head
-MODEL_LINEARS = 32 * 7 + 1
 #: decode steps after the prefill whose logits are held to the plain version
 MODEL_CHECK_STEPS = 4
 #: max |routed - plain| / max |plain| of those logits.  On the H100 (700 W)
@@ -203,11 +229,14 @@ MODEL_CHECK_STEPS = 4
 #: and TF32-rounded weights 1.4e-3; the phase prints both and fails unless
 #: the limit lies between them
 MODEL_TOL = 1e-4
-#: seconds the fresh model process may take, the device ops it lists and
-#: the calls over which it takes a linear's host time
-MODEL_TIMEOUT_S = 300
+#: the device ops a model phase lists and the calls over which it takes a
+#: linear's host time
 MODEL_TOP_OPS = 8
 MODEL_HOST_CALLS = 50
+#: a routing flip between the routed and the plain run is a near tie where
+#: the routed run's k-th and (k+1)-th expert probabilities differ by less
+#: than this share of its top probability
+NEAR_TIE = 1e-5
 #: the GEMM kernel's name in a profile (csrc/gemm.cu's ``gemm_kernel``)
 GEMM_KERNEL = re.compile(r"(^|[\s:])gemm_kernel<")
 
@@ -627,29 +656,67 @@ def serve_service(torch, rt) -> dict:
             "eval_failures": after.eval_failures - before.eval_failures}
 
 
-# -- phase 6, in a fresh process --------------------------------------------
+# -- phases 6 and 6b, each in a fresh process -------------------------------
+
+def _gemm_calls(cfg, decode: bool) -> int:
+    """GEMM launches of one pass from the config: per block its attention's
+    linears (GQA q, k, v, o; MLA wq, wkv_a, wkv_b, wo, and at decode no
+    wkv_b, which the absorbed form reads in its einsums), then the MLP's
+    3 (SwiGLU) or 2, or the MoE's 3 expert stacks and its shared experts'
+    3 linears; and the LM head."""
+    attn = 3 if decode and cfg.use_mla else 4
+    mlp = 3 if cfg.mlp_type == "swiglu" else 2
+    moe = 3 + (3 if cfg.n_shared_experts else 0)
+    return sum(repeat * (attn + (moe if kind == "moe" else mlp))
+               for kind, repeat in cfg.segments()) + 1
+
 
 def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
-    """The model phase's bounds from the config alone, before any run: the
-    floats the GEMMs of one pass read (every linear weight), a decode
-    step's bytes at the HBM rate and as launched (the decode stack's items
-    each read the shared weight), the prefill's operations at the f32 peak
-    and the f32 KV cache."""
-    d, hd, f = cfg.d_model, cfg.hd(), cfg.d_ff
-    block = d * (cfg.n_heads + 2 * cfg.kv_heads) * hd + cfg.n_heads * hd * d \
-        + 3 * d * f
-    head = d * cfg.vocab
-    weights = cfg.n_layers * block + head
-    return {"weight_floats": weights,
-            "decode_bytes_ms": 4.0 * weights / HBM_BYTES_PER_S * 1e3,
-            "decode_launched_ms": 4.0 * batch * weights / HBM_BYTES_PER_S
-            * 1e3,
-            "prefill_flop": 2.0 * (batch * prompt * cfg.n_layers * block
-                                   + batch * head),
-            "prefill_ops_ms": 2.0 * (batch * prompt * cfg.n_layers * block
-                                     + batch * head) / F32_PEAK_FLOPS * 1e3,
-            "kv_cache_bytes": 2 * cfg.n_layers * batch * max_len
-            * cfg.kv_heads * hd * 4}
+    """A model phase's bounds from the config alone, before any run: the
+    weight floats a decode step's GEMMs read (the experts apart), once and
+    as launched (an expert stack reads each expert once; every other
+    weight is read by each of the ``batch`` stacked items), at the HBM
+    rate; the prefill's GEMM operations at the f32 peak (MLA's cached
+    prefill expands the whole cache of ``max_len`` through ``wkv_b``; the
+    experts run every capacity row) and the share of the expert rows that
+    carry a token; the f32 KV (or latent) cache; the GEMM calls a pass."""
+    from repro_torch.models.moe import capacity
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    if cfg.use_mla:
+        h, nope, rp = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        attn = (d * (cfg.kv_lora + rp) + d * h * (nope + rp)
+                + h * cfg.v_head_dim * d)
+        wkv_b = cfg.kv_lora * h * (nope + cfg.v_head_dim)
+        cache = L * batch * max_len * (cfg.kv_lora + rp) * 4
+    else:
+        hd = cfg.hd()
+        attn = d * (cfg.n_heads + 2 * cfg.kv_heads) * hd \
+            + cfg.n_heads * hd * d
+        wkv_b = 0
+        cache = 2 * L * batch * max_len * cfg.kv_heads * hd * 4
+    n_moe = sum(r for k, r in cfg.segments() if k == "moe")
+    f, E = cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+    mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff
+    experts = n_moe * E * 3 * d * f
+    shared = n_moe * 3 * d * cfg.n_shared_experts * f
+    body = L * attn + (L - n_moe) * mlp + shared
+    C = capacity(cfg, prompt) if n_moe else 0
+    rows = E * batch * C
+    expert_flop = 2.0 * n_moe * rows * 3 * d * f
+    flop = 2.0 * (batch * prompt * body + batch * max_len * L * wkv_b
+                  + batch * d * V) + expert_flop
+    return {"expert_floats": experts, "other_floats": body + d * V,
+            "decode_bytes_ms": 4.0 * (experts + body + d * V)
+            / HBM_BYTES_PER_S * 1e3,
+            "decode_launched_ms": 4.0 * (experts + batch * (body + d * V))
+            / HBM_BYTES_PER_S * 1e3,
+            "prefill_flop": flop,
+            "prefill_ops_ms": flop / F32_PEAK_FLOPS * 1e3,
+            "expert_flop": expert_flop, "capacity": C, "expert_rows": rows,
+            "useful_rows": batch * prompt * cfg.top_k if n_moe else 0,
+            "cache_bytes": cache,
+            "calls_prefill": _gemm_calls(cfg, False),
+            "calls_decode": _gemm_calls(cfg, True)}
 
 
 def _teacher_forced(torch, tf, model, cfg, rt, prompts, forced, steps: int,
@@ -688,15 +755,20 @@ def _logits_err(got: list, want: list) -> float:
                / w.double().abs().max().item() for g, w in zip(got, want))
 
 
-def _device_profile(torch, fn) -> dict:
+def _device_profile(torch, fn, label=None) -> dict:
     """``fn`` under ``torch.profiler`` (device activity only): the device
     time by kernel name, the GEMM kernel's share of it, and the device's
     idle share between its first and its last operation (1 - the union of
-    the operations' intervals over that span)."""
+    the operations' intervals over that span).  With ``label`` (a launch
+    grid -> a name), also the GEMM kernel's time by the label of each
+    launch, the kernels matched to the recorded launches in launch order
+    (one stream), as ``gemm_by_label`` (None if the counts differ)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import introspect
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            introspect.capture_launches() as seen:
         fn()
         torch.cuda.synchronize()
     ops = [(e.time_range.start, e.time_range.end, e.name)
@@ -719,15 +791,26 @@ def _device_profile(torch, fn) -> dict:
     total = sum(by_name.values())
     gemm = sum(us for name, us in by_name.items() if GEMM_KERNEL.search(name))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:MODEL_TOP_OPS]
+    by_label = None
+    if label is not None:
+        kernels = sorted((s, e) for s, e, name in ops
+                         if GEMM_KERNEL.search(name))
+        grids = [grid for kernel, grid in seen if kernel == "gemm"]
+        if len(kernels) == len(grids):
+            by_label = {}
+            for (s, e), grid in zip(kernels, grids):
+                by_label[label(grid)] = by_label.get(label(grid), 0.0) \
+                    + (e - s) / 1e3
     return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / window, "device_ms": total / 1e3,
             "gemm_ms": gemm / 1e3, "gemm_share": gemm / total,
-            "top": [(name[:90], us / 1e3) for name, us in top]}
+            "top": [(name[:90], us / 1e3) for name, us in top],
+            "gemm_by_label": by_label}
 
 
 def _linear_host_us(torch, model, cfg, rt) -> dict:
     """The host's µs per call of a decode step's q projection, ``(4, 1,
-    4096) @ (4096, 4096)``, three ways: the routed linear (``run_op``:
+    d) @ wq``, three ways: the routed linear (``run_op``:
     decision, backend, wrapper, launch), the GEMM wrapper alone under the
     same knob, and ``torch.matmul``.  Host clock over
     :data:`MODEL_HOST_CALLS` calls issued back to back, too few to fill
@@ -756,14 +839,125 @@ def _linear_host_us(torch, model, cfg, rt) -> dict:
     return out
 
 
-def model_main(registry_dir: str) -> None:
-    """Serve llama3-8b at full width and depth from a fresh runtime holding
-    the installed ``hopper__gemm_b4`` artifact: one ``generate`` of
-    :data:`MODEL_REQUESTS` prompts (its GEMM launches and decisions), then
-    teacher-forced passes on its tokens for the times, the device profile
-    and the check against the plain version; prints one
-    ``MODEL_RESULT {json}`` line."""
-    faulthandler.dump_traceback_later(MODEL_TIMEOUT_S - 20, exit=True)
+def _moe_inputs(torch, model):
+    """Forward pre-hooks on every MoE module that append ``(layer, input)``
+    to the returned list; call the returned remover to take them off."""
+    seen: list = []
+    hooks = [blk.moe.register_forward_pre_hook(
+        lambda mod, args, i=i: seen.append((i, args[0].clone())))
+        for i, blk in enumerate(model.layers) if blk.kind == "moe"]
+    return seen, lambda: [h.remove() for h in hooks]
+
+
+def _moe_parity(torch, model, cfg, plain, rt, inputs) -> list:
+    """Each captured ``(layer, input)``: that layer's ``moe_ffn`` routed
+    (the GEMM kernel) and plain (einsum, ``torch.matmul``) on the same
+    input, as ``(layer, rows, rel err)``."""
+    from repro_torch.models import Ctx, moe_ffn
+    out = []
+    for i, x in inputs:
+        mod = model.layers[i].moe
+        got, _ = moe_ffn(mod, x, Ctx(cfg, rt), with_aux=False)
+        want, _ = moe_ffn(mod, x, Ctx(plain), with_aux=False)
+        out.append((i, x.shape[1], _rel_err(got, want)))
+    return out
+
+
+def _routing_flips(torch, model, cfg, routed, plain) -> dict:
+    """The top-k expert sets of the routed and the plain run, per captured
+    layer input and token (``routed``, ``plain``: the two runs' ``(layer,
+    input)`` lists, pass for pass).  A flip is a token whose sets differ:
+    listed with the routed run's k-th and (k+1)-th probabilities, their
+    gap over its top probability, and the token's input difference between
+    the runs (max abs over the plain row's max abs).  A flip whose inputs
+    agree within ``F32_TOL`` is the run's own rounding (``root``); one
+    whose inputs differ more follows from an earlier flip."""
+    from repro_torch.models.moe import route
+    K = cfg.top_k
+    flips, routings = [], 0
+    for n, ((i, xr), (j, xp)) in enumerate(zip(routed, plain,
+                                               strict=True)):
+        if i != j:
+            raise SystemExit(f"[moe] captures out of step: {i} and {j}")
+        mod = model.layers[i].moe
+        pr = torch.topk(route(mod, xr, K)[0], K + 1, dim=-1)
+        pp = torch.topk(route(mod, xp, K)[0], K + 1, dim=-1)
+        ids_r = pr.indices[..., :K].sort(-1).values
+        ids_p = pp.indices[..., :K].sort(-1).values
+        differ = (ids_r != ids_p).any(-1)
+        routings += differ.numel()
+        diff = ((xr - xp).abs().amax(-1)
+                / xp.abs().amax(-1).clamp_min(1e-30))
+        for b, s in differ.nonzero().tolist():
+            p = pr.values[b, s].tolist()
+            flips.append({"layer": i, "capture": n, "b": b, "s": s,
+                          "p_k": p[K - 1], "p_k1": p[K],
+                          "gap": (p[K - 1] - p[K]) / p[0],
+                          "input_diff": diff[b, s].item(),
+                          "root": diff[b, s].item() < F32_TOL})
+    return {"routings": routings, "flips": flips}
+
+
+def _expert_stack_times(torch, model, cfg, rt) -> list:
+    """The expert stacks of the main path at a decode step and at the
+    prefill: ``(E, B*C, d) @ (E, d, f)`` (gate, up) and ``(E, B*C, f) @
+    (E, f, d)`` (down), on the model's weights, cycled over 4 layers so
+    they come from HBM (738 MB a stack).  For each: the kernel through
+    ``run_op`` under the installed model's knob, the plain version (the
+    unrouted ``einsum`` on the unfolded ``(B, E, C, d)`` slab), the library
+    (``torch.bmm`` on the folded stack), the bound, the error against the
+    plain version, the knob and the copy ops on its dispatch path."""
+    from repro_torch.kernels import introspect, ops
+    from repro_torch.models.moe import capacity
+    E = cfg.n_experts
+    layers = [blk.moe for blk in model.layers if blk.kind == "moe"][:4]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for label, seq in (("decode", 1), ("prefill", MODEL_PROMPT)):
+        C = capacity(cfg, seq)
+        m = MODEL_REQUESTS * C
+        for which, k in (("gate/up", cfg.d_model), ("down", cfg.moe_d_ff)):
+            a = torch.randn((E, m, k), generator=gen, device="cuda")
+            ws = [mod.wd if which == "down" else mod.wg for mod in layers]
+            sets = [(a, w) for w in ws]
+            slab = a.reshape(E, MODEL_REQUESTS, C, k).transpose(0, 1)
+            shapes = [[E, m, k], list(ws[0].shape)]
+            kd = rt.peek("gemm", ops.dims_of("gemm", (tuple(a.shape),
+                                                      tuple(ws[0].shape))),
+                         4, "hopper").dict
+            copies = introspect.copy_op_counts(ops.run_op, "gemm", sets[0],
+                                               runtime=rt)
+            got = ops.run_op("gemm", sets[0], runtime=rt)
+            want = torch.einsum("becd,edf->becf", slab, ws[0]).transpose(
+                0, 1).reshape(E, m, -1)
+            bound_ms, bound_by = _bound("gemm", shapes, {})
+            rows.append({
+                "label": f"{label} {which} ({E},{m},{k})@{tuple(ws[0].shape)}",
+                "knob": f"{kd['bm']}x{kd['bk']}x{kd['bn']}",
+                "copies": copies, "rel_err": _rel_err(got, want),
+                "abs_err": (got - want).abs().max().item(),
+                "ms": _time_ms(torch, lambda x, w: ops.run_op(
+                    "gemm", (x, w), runtime=rt), sets),
+                "plain_ms": _time_ms(torch, lambda x, w: torch.einsum(
+                    "becd,edf->becf", x.reshape(
+                        E, MODEL_REQUESTS, C, k).transpose(0, 1), w), sets),
+                "library_ms": _time_ms(torch, torch.bmm, sets),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
+def model_main(registry_dir: str, arch: str) -> None:
+    """Serve ``arch`` (a key of :data:`MODEL_PHASES`) at full width and
+    depth from a fresh runtime holding the installed ``hopper__gemm_b4``
+    artifact: one ``generate`` of :data:`MODEL_REQUESTS` prompts (its GEMM
+    launches and decisions), then teacher-forced passes on its tokens for
+    the times and the device profiles (an MoE model's expert stacks apart
+    from its other linears), the logits against the plain version and,
+    for an MoE model, each MoE layer on one captured input, the routing
+    flips between the routed and the plain run, and its expert stacks at
+    the decode and prefill shapes; prints one ``MODEL_RESULT {json}``
+    line."""
+    faulthandler.dump_traceback_later(MODEL_PHASES[arch][4] - 20, exit=True)
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
@@ -772,12 +966,13 @@ def model_main(registry_dir: str) -> None:
     from repro_torch.core.registry import load_subroutine
     from repro_torch.kernels import introspect
     from repro_torch.launch.serve import ServeSession
+    from repro_torch.models import MoE
     from repro_torch.models import transformer as tf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rt = AdsalaRuntime()
     rt.register(load_subroutine(Path(registry_dir) / "hopper__gemm_b4.adsala"))
-    cfg = dataclasses.replace(get_config(MODEL_ARCH), use_pallas_gemm=True,
+    cfg = dataclasses.replace(get_config(arch), use_pallas_gemm=True,
                               compute_dtype="float32")
     plain = dataclasses.replace(cfg, use_pallas_gemm=False)
     max_len = MODEL_PROMPT + MODEL_NEW + 8
@@ -805,145 +1000,223 @@ def model_main(registry_dir: str) -> None:
 
     p_t = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
     forced = torch.as_tensor(tokens, dtype=torch.long, device="cuda")
+
+    def label(grid):
+        # an expert stack's grid z is the E experts, a linear's the requests
+        return "expert" if grid[2] == cfg.n_experts else "linear"
+
     with torch.inference_mode():
-        routed, prefill_ms, step_ms, host_ms = _teacher_forced(
+        _, prefill_ms, step_ms, host_ms = _teacher_forced(
             torch, tf, model, cfg, rt, p_t, forced, MODEL_NEW, max_len)
-        routed = routed[:MODEL_CHECK_STEPS + 1]
         profile = _device_profile(torch, lambda: _teacher_forced(
             torch, tf, model, cfg, rt, p_t, forced, MODEL_CHECK_STEPS,
-            max_len))
+            max_len), label)
         # the decode steps alone (their prefill before the window)
         caches = tf.init_decode_state(cfg, MODEL_REQUESTS, max_len,
                                       dtype=torch.float32, device="cuda")
         tf.prefill(model, {"tokens": p_t}, caches, cfg, runtime=rt)
         decode_profile = _device_profile(torch, lambda: [
             tf.decode_step(model, forced[:, t:t + 1], caches, cfg,
-                           runtime=rt) for t in range(MODEL_CHECK_STEPS)])
+                           runtime=rt) for t in range(MODEL_CHECK_STEPS)],
+            label)
         del caches
         host_us = _linear_host_us(torch, model, cfg, rt)
-        want, plain_prefill_ms, plain_step_ms, plain_host_ms = \
-            _teacher_forced(torch, tf, model, plain, None, p_t, forced,
-                            MODEL_NEW, max_len)
-        want = want[:MODEL_CHECK_STEPS + 1]
+        stacks = (_expert_stack_times(torch, model, cfg, rt)
+                  if cfg.n_experts else [])
+        # teacher-forced prefill + MODEL_CHECK_STEPS steps, routed and
+        # plain, every MoE layer's input captured
+        captured = {}
+        for c, r in ((cfg, rt), (plain, None)):
+            seen, remove = _moe_inputs(torch, model)
+            logits, _, _, _ = _teacher_forced(
+                torch, tf, model, c, r, p_t, forced, MODEL_CHECK_STEPS,
+                max_len)
+            remove()
+            captured[c.use_pallas_gemm] = (logits, seen)
+        want = captured[False][0]
+        err = _logits_err(captured[True][0], want)
+        parity = _moe_parity(torch, model, cfg, plain, rt, captured[True][1])
+        flips = _routing_flips(torch, model, cfg, captured[True][1],
+                               captured[False][1])
+        del captured
+        _, plain_prefill_ms, plain_step_ms, plain_host_ms = _teacher_forced(
+            torch, tf, model, plain, None, p_t, forced, MODEL_NEW, max_len)
         plain_tokens = ServeSession(cfg=plain, params=model, max_len=max_len,
                                     device="cuda").generate(
             prompts, max_new=MODEL_NEW)
-        err = _logits_err(routed, want)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # the precision the limit must reject: the same plain passes with
-        # every linear weight rounded to TF32's 10-bit mantissa, in place
-        # (the last use of the model)
+        # every weight the GEMM kernel reads (the linears, the raw expert
+        # tensors; not the routers, plain float32 matmuls in both runs)
+        # rounded to TF32's 10-bit mantissa, in place (the model's last use)
+        routers = {id(m.router) for m in model.modules()
+                   if isinstance(m, MoE)}
         for mod in model.modules():
-            if isinstance(mod, tf.Linear):
+            if isinstance(mod, tf.Linear) and id(mod) not in routers:
                 mod.w.copy_(_tf32(mod.w))
+            if isinstance(mod, MoE):
+                for w in (mod.wg, mod.wu, mod.wd):
+                    w.copy_(_tf32(w))
         rounded, _, _, _ = _teacher_forced(
             torch, tf, model, plain, None, p_t, forced, MODEL_CHECK_STEPS,
             max_len)
         tf32_err = _logits_err(rounded, want)
     print("MODEL_RESULT " + json.dumps({
         "arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
-        "d_model": cfg.d_model, "init_s": init_s, "generate_s": generate_s,
+        "d_model": cfg.d_model, "segments": cfg.segments(),
+        "init_s": init_s, "generate_s": generate_s,
         "launches": launches, "decisions": decisions,
         "tokens": tokens.tolist(), "plain_tokens": plain_tokens.tolist(),
         "prefill_ms": prefill_ms, "step_ms": step_ms, "host_ms": host_ms,
         "plain_prefill_ms": plain_prefill_ms, "plain_step_ms": plain_step_ms,
         "plain_host_ms": plain_host_ms, "host_us": host_us,
         "err": err, "tf32_err": tf32_err, "peak_gb": peak_gb,
+        "parity": parity, "flips": flips, "stacks": stacks,
         "profile": profile, "decode_profile": decode_profile,
-        "reckoning": _reckoning(cfg, MODEL_REQUESTS, MODEL_PROMPT, max_len)}),
-        flush=True)
+        "reckoning": _reckoning(cfg, MODEL_REQUESTS, MODEL_PROMPT,
+                                max_len)}), flush=True)
 
 
-def report_model(card: str, res: dict) -> None:
-    """Print the model phase's ``[model]`` lines and fail unless it served
-    the full model through the installed GEMM model's knobs, one kernel
-    launch per linear and pass, within :data:`MODEL_TOL` of the plain
-    version (and the TF32 reading above it)."""
+def report_model(card: str, arch: str, res: dict) -> None:
+    """Print a model phase's lines (``[model]`` for llama3-8b, ``[moe]``
+    for deepseek-v2-lite-16b) and fail unless it served ``arch`` at full
+    width and depth through the installed GEMM model's knobs, one launch
+    per linear and expert stack and pass, every MoE layer within
+    ``F32_TOL`` of its plain version on the same input, and the logits
+    within :data:`MODEL_TOL` of the plain version (the TF32 reading above
+    it) or apart only through routing flips that are near ties."""
+    tag, n_params, n_layers, d_model, _ = MODEL_PHASES[arch]
     rk = res["reckoning"]
-    passes = 1 + MODEL_NEW
+    expected = rk["calls_prefill"] + MODEL_NEW * rk["calls_decode"]
     steps = sorted(res["step_ms"])
-    step_med = steps[len(steps) // 2]
-    plain_med = sorted(res["plain_step_ms"])[len(steps) // 2]
-    host_med = sorted(res["host_ms"])[len(steps) // 2]
-    prof = res["profile"]
+    mid = len(steps) // 2
+    host_med = sorted(res["host_ms"])[mid]
     tokens = MODEL_REQUESTS * MODEL_PROMPT
     agree = [sum(a == b for a, b in zip(r, p))
              for r, p in zip(res["tokens"], res["plain_tokens"])]
-    print(f"[model] [{card}] {res['arch']}: {res['layers']} layers, d_model "
-          f"{res['d_model']}, {res['params']:,} parameters (float32), "
-          f"initialised on the card in {res['init_s']:.2f} s; peak "
-          f"{res['peak_gb']:.2f} GB allocated", flush=True)
-    print(f"[model] [{card}] generate: {MODEL_REQUESTS} requests x "
+    print(f"[{tag}] [{card}] {res['arch']}: {res['layers']} layers "
+          f"{res['segments']}, d_model {res['d_model']}, "
+          f"{res['params']:,} parameters (float32), initialised on the card "
+          f"in {res['init_s']:.2f} s; peak {res['peak_gb']:.2f} GB "
+          f"allocated", flush=True)
+    print(f"[{tag}] [{card}] generate: {MODEL_REQUESTS} requests x "
           f"{MODEL_PROMPT} prompt tokens, {MODEL_NEW} new (greedy) in "
-          f"{res['generate_s']:.3f} s; launches {res['launches']} "
-          f"(expected gemm {MODEL_LINEARS} x {passes} = "
-          f"{MODEL_LINEARS * passes}); decisions {res['decisions']}",
-          flush=True)
-    print(f"[model] [{card}] prefill {res['prefill_ms']:.3f} ms "
+          f"{res['generate_s']:.3f} s; launches {res['launches']} (expected "
+          f"gemm {rk['calls_prefill']} + {MODEL_NEW} x {rk['calls_decode']} "
+          f"= {expected}); decisions {res['decisions']}", flush=True)
+    print(f"[{tag}] [{card}] prefill {res['prefill_ms']:.3f} ms "
           f"({tokens / res['prefill_ms'] * 1e3:.1f} tokens/s; plain "
           f"{res['plain_prefill_ms']:.3f} ms) | decode per step median "
-          f"{step_med:.3f} ms over {len(steps)} (min {steps[0]:.3f}, max "
-          f"{steps[-1]:.3f}; plain median {plain_med:.3f} ms) | host per "
-          f"step median {host_med:.3f} ms (CUDA events between passes, "
-          f"teacher-forced on the generated tokens)", flush=True)
-    print(f"[model] [{card}] profile of one prefill + {MODEL_CHECK_STEPS} "
-          f"decode steps (torch.profiler, device activity): device window "
-          f"{prof['window_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, idle "
-          f"share {prof['idle_share']:.4f}; GEMM kernel "
-          f"{prof['gemm_ms']:.3f} ms = {prof['gemm_share']:.4f} of device "
-          f"time {prof['device_ms']:.3f} ms", flush=True)
-    for name, ms in prof["top"]:
-        print(f"[model:top] [{card}] {ms:10.3f} ms  {name}", flush=True)
-    dec = res["decode_profile"]
-    print(f"[model] [{card}] profile of {MODEL_CHECK_STEPS} decode steps "
-          f"alone: device window {dec['window_ms']:.3f} ms, busy "
-          f"{dec['busy_ms']:.3f} ms ({dec['busy_ms'] / MODEL_CHECK_STEPS:.3f}"
-          f" ms a step), idle share {dec['idle_share']:.4f}; GEMM kernel "
-          f"{dec['gemm_ms'] / MODEL_CHECK_STEPS:.3f} ms a step = "
-          f"{dec['gemm_share']:.4f} of device time", flush=True)
-    plain_host = sorted(res["plain_host_ms"])[len(steps) // 2]
-    print(f"[model:host] [{card}] host per decode step median: routed "
-          f"{host_med:.3f} ms, plain {plain_host:.3f} ms | per call at the "
-          f"q projection ({MODEL_REQUESTS},1,{res['d_model']})@"
-          f"({res['d_model']},{res['d_model']}), over "
+          f"{steps[mid]:.3f} ms over {len(steps)} (min {steps[0]:.3f}, max "
+          f"{steps[-1]:.3f}; plain median "
+          f"{sorted(res['plain_step_ms'])[mid]:.3f} ms) | host per step "
+          f"median {host_med:.3f} ms (plain "
+          f"{sorted(res['plain_host_ms'])[mid]:.3f} ms; CUDA events between "
+          f"passes, teacher-forced on the generated tokens)", flush=True)
+    for name, prof, n in (("one prefill + ", res["profile"], 1),
+                          ("", res["decode_profile"], MODEL_CHECK_STEPS)):
+        split = prof["gemm_by_label"]
+        apart = "" if not res["stacks"] else (
+            "; expert stacks {:.3f} ms, other linears {:.3f} ms".format(
+                split.get("expert", 0.0), split.get("linear", 0.0))
+            if split else "; expert stacks apart not measured")
+        print(f"[{tag}] [{card}] profile of {name}{MODEL_CHECK_STEPS} decode "
+              f"steps (torch.profiler, device activity): window "
+              f"{prof['window_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms "
+              f"({prof['busy_ms'] / n:.3f} ms a "
+              f"{'window' if n == 1 else 'step'}), idle share "
+              f"{prof['idle_share']:.4f}; GEMM kernel {prof['gemm_ms']:.3f} "
+              f"ms = {prof['gemm_share']:.4f} of device time "
+              f"{prof['device_ms']:.3f} ms{apart}", flush=True)
+    for name, ms in res["profile"]["top"]:
+        print(f"[{tag}:top] [{card}] {ms:10.3f} ms  {name}", flush=True)
+    print(f"[{tag}:host] [{card}] per call at the q projection "
+          f"({MODEL_REQUESTS},1,{res['d_model']}) @ wq, over "
           f"{MODEL_HOST_CALLS} calls: " + ", ".join(
               f"{name} {us:.2f} us" for name, us in res["host_us"].items()),
           flush=True)
-    print(f"[model:reckoning] one pass's GEMMs read {rk['weight_floats']:,} "
-          f"weight floats ({4e-9 * rk['weight_floats']:.2f} GB): a decode "
-          f"step {rk['decode_bytes_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12} "
-          f"TB/s, {rk['decode_launched_ms']:.3f} ms as launched (each of the "
-          f"{MODEL_REQUESTS} stacked items reads the shared weight); prefill "
-          f"{rk['prefill_flop'] / 1e12:.3f} TFLOP = "
-          f"{rk['prefill_ops_ms']:.3f} ms at {F32_PEAK_FLOPS / 1e12:.0f} "
-          f"TFLOP/s; KV cache {rk['kv_cache_bytes'] / 1e6:.1f} MB; "
-          f"{MODEL_LINEARS} GEMM calls a pass", flush=True)
-    print(f"[model] [{card}] teacher-forced logits, prefill + "
-          f"{MODEL_CHECK_STEPS} decode steps: routed vs plain (torch.matmul, "
-          f"TF32 off) {res['err']:.3e}, TF32-rounded weights vs plain "
-          f"{res['tf32_err']:.3e}, limit {MODEL_TOL:.0e}", flush=True)
+    for row in res["stacks"]:
+        print(f"[{tag}:stack] [{card}] {row['label']} knob {row['knob']}: "
+              f"kernel {row['ms']:.4f} ms, plain (einsum) "
+              f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); rel "
+              f"err vs plain {row['rel_err']:.2e}; copy ops {row['copies']}",
+              flush=True)
+    experts = (f", the experts {rk['expert_flop'] / 1e12:.3f} TFLOP at "
+               f"capacity {rk['capacity']}: {rk['useful_rows']:,} of "
+               f"{rk['expert_rows']:,} expert rows a layer carry a token "
+               f"({rk['useful_rows'] / rk['expert_rows']:.4f})"
+               if rk["expert_rows"] else "")
+    print(f"[{tag}:reckoning] a decode step's GEMMs read "
+          f"{rk['expert_floats']:,} expert floats and {rk['other_floats']:,} "
+          f"others ({4e-9 * (rk['expert_floats'] + rk['other_floats']):.2f} "
+          f"GB): {rk['decode_bytes_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12} "
+          f"TB/s, {rk['decode_launched_ms']:.3f} ms as launched (each "
+          f"expert once, the other weights by each of the {MODEL_REQUESTS} "
+          f"stacked items); prefill {rk['prefill_flop'] / 1e12:.3f} TFLOP "
+          f"= {rk['prefill_ops_ms']:.3f} ms at "
+          f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s{experts}; cache "
+          f"{rk['cache_bytes'] / 1e6:.1f} MB; {rk['calls_prefill']} GEMM "
+          f"calls a prefill, {rk['calls_decode']} a decode step", flush=True)
+    worst = max(res["parity"], key=lambda r: r[2], default=None)
+    if worst is not None:
+        print(f"[{tag}] [{card}] per-layer MoE, routed vs plain on the same "
+              f"captured input ({len(res['parity'])} layer passes): max rel "
+              f"err {worst[2]:.3e} (layer {worst[0]}, {worst[1]} tokens), "
+              f"limit {F32_TOL:.0e}", flush=True)
+    fl = res["flips"]
+    roots = [f for f in fl["flips"] if f["root"]]
+    if fl["routings"]:
+        print(f"[{tag}] [{card}] routing flips, routed vs plain run: "
+              f"{len(fl['flips'])} of {fl['routings']} routings "
+              f"({len(roots)} with inputs within {F32_TOL:.0e})", flush=True)
+    for f in fl["flips"][:20]:
+        print(f"[{tag}:flip] layer {f['layer']} capture {f['capture']} "
+              f"request {f['b']} token {f['s']}: p_k {f['p_k']:.9f} "
+              f"p_k+1 {f['p_k1']:.9f} gap {f['gap']:.3e} of the top, input "
+              f"diff {f['input_diff']:.3e}"
+              f"{' (root)' if f['root'] else ''}", flush=True)
+    print(f"[{tag}] [{card}] teacher-forced logits, prefill + "
+          f"{MODEL_CHECK_STEPS} decode steps: routed vs plain (torch.matmul "
+          f"and einsum, TF32 off) {res['err']:.3e}, TF32-rounded weights vs "
+          f"plain {res['tf32_err']:.3e}, limit {MODEL_TOL:.0e}", flush=True)
     for r, p, n in zip(res["tokens"], res["plain_tokens"], agree):
-        print(f"[model:tokens] routed {r}\n[model:tokens] plain  {p} "
+        print(f"[{tag}:tokens] routed {r}\n[{tag}:tokens] plain  {p} "
               f"({n}/{MODEL_NEW} agree)", flush=True)
-    print(f"[model] greedy tokens agree at {sum(agree)}/"
+    print(f"[{tag}] greedy tokens agree at {sum(agree)}/"
           f"{MODEL_REQUESTS * MODEL_NEW} positions", flush=True)
-    if res["params"] != MODEL_PARAMS or res["layers"] != 32 \
-            or res["d_model"] != 4096:
-        raise SystemExit(f"[model] not llama3-8b at full width and depth: "
+    if (res["params"], res["layers"], res["d_model"]) \
+            != (n_params, n_layers, d_model):
+        raise SystemExit(f"[{tag}] not {arch} at full width and depth: "
                          f"{res['params']} parameters")
     want = {k: 0 for k in KERNELS}
-    want["gemm"] = MODEL_LINEARS * passes
+    want["gemm"] = expected
     if res["launches"] != want:
-        raise SystemExit(f"[model] launches {res['launches']}, expected "
+        raise SystemExit(f"[{tag}] launches {res['launches']}, expected "
                          f"{want}")
     dec = res["decisions"]
     if dec["default_calls"] != 0 or dec["model_evals"] < 1 \
             or dec["eval_failures"]:
-        raise SystemExit("[model] decisions did not come from the model")
-    if not res["err"] < MODEL_TOL < res["tf32_err"]:
-        raise SystemExit(f"[model] logits {res['err']:.3e} against the "
-                         f"plain version, TF32 {res['tf32_err']:.3e}: the "
-                         f"limit {MODEL_TOL:.0e} must lie between")
+        raise SystemExit(f"[{tag}] decisions did not come from the model")
+    copied = [row["label"] for row in res["stacks"] if row["copies"]]
+    if copied or not all(row["rel_err"] < F32_TOL for row in res["stacks"]):
+        raise SystemExit(f"[{tag}] expert stacks copied on dispatch "
+                         f"({copied}) or off their plain version")
+    if worst is not None and not worst[2] < F32_TOL:
+        raise SystemExit(f"[{tag}] layer {worst[0]}: routed MoE "
+                         f"{worst[2]:.3e} from its plain version")
+    if not MODEL_TOL < res["tf32_err"]:
+        raise SystemExit(f"[{tag}] TF32-rounded weights {res['tf32_err']:.3e}"
+                         f" within the limit {MODEL_TOL:.0e}")
+    wide = [f for f in roots if not f["gap"] < NEAR_TIE]
+    if wide or (fl["flips"] and not roots):
+        raise SystemExit(f"[{tag}] routing flips not explained by near ties "
+                         f"(gap under {NEAR_TIE:.0e} of the top): "
+                         f"{wide or fl['flips'][:3]}")
+    if not res["err"] < MODEL_TOL and not roots:
+        raise SystemExit(f"[{tag}] logits {res['err']:.3e} against the plain "
+                         f"version with no routing flip, limit "
+                         f"{MODEL_TOL:.0e}")
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -1861,21 +2134,24 @@ def main(argv: list[str]) -> int:
         if proc.returncode != 0:
             raise SystemExit(f"[serve] fresh process failed "
                              f"({proc.returncode}):\n{proc.stdout[-4000:]}")
-        # 6. the model, from a fresh process too: its 32 GB of weights
-        # never meet phase 5's operands
-        t0 = time.perf_counter()
-        model_proc = subprocess.run(
-            [sys.executable, "-c",
-             f"import chip_smoke; chip_smoke.model_main("
-             f"{str(tmp / 'models')!r})"],
-            cwd=ROOT, capture_output=True, text=True,
-            timeout=MODEL_TIMEOUT_S)
-        sys.stderr.write(model_proc.stderr[-4000:])
-        if model_proc.returncode != 0:
-            raise SystemExit(f"[model] fresh process failed "
-                             f"({model_proc.returncode}):\n"
-                             f"{model_proc.stdout[-4000:]}")
-        model_s = time.perf_counter() - t0
+        # 6 and 6b. each model from a fresh process of its own, once the
+        # last has exited: their weights (32 GB, 62.83 GB) never meet each
+        # other, phase 5's operands or what this process's allocator holds
+        models = {}
+        for arch, (tag, *_, timeout) in MODEL_PHASES.items():
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            mproc = subprocess.run(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.model_main("
+                 f"{str(tmp / 'models')!r}, {arch!r})"],
+                cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+            sys.stderr.write(mproc.stderr[-4000:])
+            if mproc.returncode != 0:
+                raise SystemExit(f"[{tag}] fresh process failed "
+                                 f"({mproc.returncode}):\n"
+                                 f"{mproc.stdout[-4000:]}")
+            models[arch] = (mproc.stdout, time.perf_counter() - t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     served = json.loads(next(line for line in proc.stdout.splitlines()
@@ -1942,11 +2218,15 @@ def main(argv: list[str]) -> int:
     if svc["default_calls"] or svc["eval_failures"]:
         raise SystemExit("[service] decisions did not come from the model")
 
-    model = json.loads(next(line for line in model_proc.stdout.splitlines()
-                            if line.startswith("MODEL_RESULT "))
-                       .split(" ", 1)[1])
-    report_model(card, model)
-    print(f"[model] phase {model_s:.1f} s (a fresh process)", flush=True)
+    model_launches = {}
+    for arch, (stdout, seconds) in models.items():
+        res = json.loads(next(line for line in stdout.splitlines()
+                              if line.startswith("MODEL_RESULT "))
+                         .split(" ", 1)[1])
+        report_model(card, arch, res)
+        model_launches[arch] = res["launches"]["gemm"]
+        print(f"[{MODEL_PHASES[arch][0]}] phase {seconds:.1f} s (a fresh "
+              f"process)", flush=True)
 
     # 7. times on the main paths' shapes
     totals = time_rows(torch, card, served["rows"])
@@ -1967,9 +2247,11 @@ def main(argv: list[str]) -> int:
             "bound_by": ("operations" if 2 * t["ops_bound_ms"]
                          >= t["bound_ms"] else "bytes"),
             "library_ms": t["library_ms"]})
-    # the model path's GEMM launches (phase 6 fails unless they are these)
-    next(k for k in kernels if k["name"] == "gemm")["model_launches"] = \
-        model["launches"]["gemm"]
+    # the model paths' GEMM launches (phases 6 and 6b fail unless they are
+    # these)
+    entry = next(k for k in kernels if k["name"] == "gemm")
+    entry["model_launches"] = model_launches["llama3-8b"]
+    entry["moe_model_launches"] = model_launches["deepseek-v2-lite-16b"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

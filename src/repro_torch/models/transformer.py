@@ -1,18 +1,20 @@
-"""Model assembler of the dense transformer (the ``"attn"`` block kind of the
-reference package's ``models/transformer.py``): pre-LN GQA attention + MLP
-blocks in an ``nn.ModuleList``, with the reference's functions over it —
-``init_params``, ``forward``, ``init_decode_state``, ``prefill``,
-``decode_step`` and ``param_count`` — and :func:`from_reference`, which
-carries the reference's parameter pytree across.
+"""Model assembler of the dense and MoE families (the ``"attn"`` and
+``"moe"`` block kinds of the reference package's ``models/transformer.py``):
+pre-LN blocks in an ``nn.ModuleList``, attention (GQA, or MLA where the
+config has ``use_mla``) followed by an MLP or an MoE FFN, with the
+reference's functions over them: ``init_params``, ``forward``,
+``init_decode_state``, ``prefill``, ``decode_step`` and ``param_count``,
+and :func:`from_reference`, which carries the reference's parameter pytree
+across.
 
-Where the reference scans a segment's layers over parameters stacked on a
-leading axis, the port holds one module per layer and loops over them.
-Decode caches are one dict per layer, written in place.
+Where the reference scans each segment's layers over parameters stacked on
+a leading axis, the port holds one module per layer, the segments of
+``cfg.segments()`` in order, and loops over them.  Decode caches are one
+dict per layer, written in place.
 
-The other block kinds and families (MoE, MLA, Mamba2, RWKV6, the zamba2
-hybrid, Whisper's encoder and cross-attention, the VLM's vision
-projection) are later slices of the port: they raise
-``NotImplementedError`` rather than run something else.
+The other families (Mamba2, RWKV6, the zamba2 hybrid, Whisper's encoder
+and cross-attention, the VLM's vision projection) are later slices of the
+port: they raise ``NotImplementedError`` rather than run something else.
 """
 
 from __future__ import annotations
@@ -26,34 +28,36 @@ from repro_torch.configs.base import ModelConfig
 from .layers import (MLP, Attention, Ctx, Embedding, Linear, Norm,
                      attention, embed, mlp, rmsnorm, routed_matmul,
                      torch_dtype)
+from .mla import MLA, init_mla_cache, mla_attention
+from .moe import MoE
 
 __all__ = ["Block", "Transformer", "init_params", "forward",
            "init_decode_state", "prefill", "decode_step", "param_count",
            "from_reference"]
 
-#: what each unported family or block kind waits for (ROADMAP.md Queue 1
-#: item 8, in its order)
+#: what each unported family waits for (ROADMAP.md Queue 1 item 8, in its
+#: order)
 _UNPORTED = {
-    "moe": "the MoE block (`_expert_matmul`)",
-    "mla": "MLA attention",
     "hybrid": "the Mamba2 mixer and zamba2's shared block",
     "ssm": "the RWKV6 block",
     "audio": "Whisper's encoder and cross-attention",
     "vlm": "the VLM's vision projection",
 }
+#: the block kinds the port runs
+_KINDS = ("attn", "moe")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for a config the port cannot run yet."""
-    what = _UNPORTED.get(cfg.family) if cfg.family != "dense" else None
-    if what is None and cfg.use_mla:
-        what = _UNPORTED["mla"]
-    if what is None and any(kind != "attn" for kind, _ in cfg.segments()):
+    what = _UNPORTED.get(cfg.family)
+    if what is None and any(kind not in _KINDS
+                            for kind, _ in cfg.segments()):
         what = f"block kinds {cfg.segments()}"
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) needs {what}, not ported yet: "
-            f"ROADMAP.md Queue 1 item 8 (the dense family is ported)")
+            f"ROADMAP.md Queue 1 item 8 (the dense and moe families are "
+            f"ported)")
 
 
 def resolve_device(device) -> torch.device:
@@ -68,23 +72,38 @@ def resolve_device(device) -> torch.device:
 
 
 class Block(nn.Module):
-    """Pre-LN GQA attention + MLP (block kind ``"attn"``)."""
+    """Pre-LN attention, GQA or MLA (``cfg.use_mla``), then an MLP (block
+    kind ``"attn"``) or an MoE FFN (``"moe"``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None, gen=None) -> None:
+    def __init__(self, cfg: ModelConfig, kind: str = "attn", *, device=None,
+                 gen=None) -> None:
         super().__init__()
+        if kind not in _KINDS:
+            raise ValueError(f"no block kind {kind!r} in the port")
+        self.kind = kind
         dtype = torch_dtype(cfg.param_dtype)
         self.ln1 = Norm(cfg.d_model, dtype=dtype, device=device)
-        self.attn = Attention(cfg, device=device, gen=gen)
+        self.attn = (MLA(cfg, device=device, gen=gen) if cfg.use_mla
+                     else Attention(cfg, device=device, gen=gen))
         self.ln2 = Norm(cfg.d_model, dtype=dtype, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, mlp_type=cfg.mlp_type,
-                       dtype=dtype, device=device, gen=gen)
+        if kind == "moe":
+            self.moe = MoE(cfg, device=device, gen=gen)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, mlp_type=cfg.mlp_type,
+                           dtype=dtype, device=device, gen=gen)
 
-    def forward(self, x: torch.Tensor, ctx: Ctx, cache: dict | None = None):
-        a, cache = attention(self.attn, rmsnorm(self.ln1, x), ctx,
-                             cache=cache)
+    def forward(self, x: torch.Tensor, ctx: Ctx, cache: dict | None = None,
+                *, with_aux: bool = False):
+        """Returns ``(x, cache, aux)``: ``aux`` the MoE load-balancing loss
+        when ``with_aux`` and the block has one, else None."""
+        attend = mla_attention if isinstance(self.attn, MLA) else attention
+        a, cache = attend(self.attn, rmsnorm(self.ln1, x), ctx, cache=cache)
         x = x + a
-        x = x + mlp(self.mlp, rmsnorm(self.ln2, x), ctx)
-        return x, cache
+        h = rmsnorm(self.ln2, x)
+        if self.kind == "moe":
+            m, aux = self.moe(h, ctx, with_aux=with_aux)
+            return x + m, cache, aux
+        return x + mlp(self.mlp, h, ctx), cache, None
 
 
 class Transformer(nn.Module):
@@ -103,17 +122,24 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else
                         Linear(cfg.d_model, cfg.vocab, scale=0.02,
                                dtype=dtype, device=device, gen=gen))
-        self.layers = nn.ModuleList(Block(cfg, device=device, gen=gen)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, device=device, gen=gen)
+            for kind, repeat in cfg.segments() for _ in range(repeat))
 
     def forward(self, tokens: torch.Tensor, ctx: Ctx,
-                caches: list | None = None) -> torch.Tensor:
-        """The hidden states after the last block (before the final norm);
-        ``caches`` (one dict per layer) are written in place."""
+                caches: list | None = None, *, with_aux: bool = False):
+        """``(x, aux)``: the hidden states after the last block (before the
+        final norm) and, when ``with_aux``, the MoE load-balancing loss
+        summed over the layers (float32; zero without MoE layers), else
+        None.  ``caches`` (one dict per layer) are written in place."""
         x = embed(self.embed, tokens, ctx)
+        aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
         for i, block in enumerate(self.layers):
-            x, _ = block(x, ctx, None if caches is None else caches[i])
-        return x
+            x, _, a = block(x, ctx, None if caches is None else caches[i],
+                            with_aux=with_aux)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
 
 def init_params(seed: int, cfg: ModelConfig, *,
@@ -149,9 +175,12 @@ def from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
 
     for key, node in tree.items():
         if key == "segments":
-            (seg,) = node
-            for i in range(cfg.n_layers):
-                walk(seg, f"layers.{i}.", i)
+            # segment si's item j is the layer at the segment's offset + j
+            offset = 0
+            for seg, (_, repeat) in zip(node, cfg.segments(), strict=True):
+                for j in range(repeat):
+                    walk(seg, f"layers.{offset + j}.", j)
+                offset += repeat
         else:
             walk(node, f"{key}.")
     model.load_state_dict(
@@ -182,18 +211,23 @@ def forward(params: Transformer, batch: dict, cfg: ModelConfig, *,
     """batch: {tokens (B, S)} → (logits (B, S, V), aux).  ``runtime`` —
     the AdsalaRuntime serving the routed matmuls' knob decisions when the
     config routes (None → the process-global runtime).  ``aux`` is the
-    reference's MoE load-balancing loss, zero for the dense family."""
+    reference's MoE load-balancing loss summed over the layers, zero for
+    the dense family."""
     ctx = Ctx(cfg, runtime)
-    x = params(batch["tokens"], ctx)
-    return _logits(params, x, ctx), x.new_zeros((), dtype=torch.float32)
+    x, aux = params(batch["tokens"], ctx, with_aux=True)
+    return _logits(params, x, ctx), aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cuda") -> list:
-    """One cache per layer: ``{k, v: (batch, max_len, kv_heads, hd); len}``,
-    zeroed on ``device``."""
+    """One cache per layer, zeroed on ``device``: ``{k, v: (batch, max_len,
+    kv_heads, hd); len}``, or MLA's latent cache ``{c_kv, k_rope, len}``
+    (``models/mla.py``) where the config has ``use_mla``."""
     _check_ported(cfg)
     device = resolve_device(device)
+    if cfg.use_mla:
+        return [init_mla_cache(cfg, batch, max_len, dtype, device)
+                for _ in range(cfg.n_layers)]
     shape = (batch, max_len, cfg.kv_heads, cfg.hd())
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
@@ -205,7 +239,7 @@ def prefill(params: Transformer, batch: dict, caches: list,
     """Run the prompt through the model filling the caches (in place).
     Returns (last-token logits (B, 1, V), caches)."""
     ctx = Ctx(cfg, runtime)
-    x = params(batch["tokens"], ctx, caches)
+    x, _ = params(batch["tokens"], ctx, caches)
     return _logits(params, x[:, -1:], ctx), caches
 
 
@@ -214,5 +248,5 @@ def decode_step(params: Transformer, token: torch.Tensor, caches: list,
     """One-token step. token: (B, 1) → (logits (B, 1, V), caches), the
     caches written in place."""
     ctx = Ctx(cfg, runtime)
-    x = params(token, ctx, caches)
+    x, _ = params(token, ctx, caches)
     return _logits(params, x, ctx), caches

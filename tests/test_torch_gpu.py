@@ -9,7 +9,8 @@ shape, its unaligned-stride path equal to the aligned one bit for bit (symm,
 syrk/syr2k and trmm too), ``tri``'s rank-k output symmetric bit for bit,
 trmm's A read nowhere above its diagonal, a TRSM call launching its two
 kernels and nothing else, and the launch parameters built into the
-kernels equal to their Python mirrors.  The card's
+kernels equal to their Python mirrors; the dense and MoE smoke models
+routed on the card against their plain versions.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -668,3 +669,75 @@ def test_routed_smoke_model_on_the_card_matches_its_unrouted_run(arch):
             outs[c.use_pallas_gemm] = (last, step)
         for got, want in zip(outs[True], outs[False]):
             assert got.is_cuda and err(got, want) < TOL
+
+
+@pytest.mark.gpu
+def test_routed_moe_mla_model_on_the_card_matches_its_unrouted_run():
+    """deepseek-v2-lite's smoke model (MLA, a dense first layer, MoE layers
+    with a shared expert) on the card, routed: the GEMM kernel launched
+    once per linear and expert stack (28 a prefill, 25 a decode step), each
+    MoE layer within ``TOL`` of its plain version on the same input, the
+    logits of a prefill and a decode step within ``TOL`` of the unrouted
+    run; 3 requests, so a decode step's expert stacks have m = 3.  Once
+    warm, neither pass makes the host wait on the card."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import AdsalaRuntime
+    from repro_torch.kernels import introspect
+    from repro_torch.models import Ctx, moe_ffn
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("deepseek_v2_lite"),
+                              compute_dtype="float32", use_pallas_gemm=True)
+    plain = dataclasses.replace(cfg, use_pallas_gemm=False)
+    model = tf.init_params(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (3, 24), generator=gen, device="cuda")
+    rt = AdsalaRuntime()
+    moe_layers = [blk.moe for blk in model.layers if blk.kind == "moe"]
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.append((mod, args[0].clone())))
+        for m in moe_layers]
+
+    def err(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    with torch.inference_mode():
+        outs, launches = {}, []
+        for c in (cfg, plain):
+            caches = tf.init_decode_state(c, 3, 32, dtype=torch.float32)
+            introspect.reset_launches()
+            last, caches = tf.prefill(model, {"tokens": toks}, caches, c,
+                                      runtime=rt)
+            torch.cuda.synchronize()
+            launches.append(introspect.launch_counts()["gemm"])
+            step, _ = tf.decode_step(model, toks[:, :1], caches, c,
+                                     runtime=rt)
+            torch.cuda.synchronize()
+            launches.append(introspect.launch_counts()["gemm"] - launches[-1])
+            outs[c.use_pallas_gemm] = (last, step)
+        for h in hooks:
+            h.remove()
+        assert launches == [28, 25, 0, 0]
+        for got, want in zip(outs[True], outs[False]):
+            assert got.is_cuda and err(got, want) < TOL
+        routed_inputs = inputs[:2 * len(moe_layers)]
+        assert {tuple(x.shape) for _, x in routed_inputs} == {
+            (3, 24, cfg.d_model), (3, 1, cfg.d_model)}
+        for mod, x in routed_inputs:
+            got, _ = moe_ffn(mod, x, Ctx(cfg, rt), with_aux=False)
+            want, _ = moe_ffn(mod, x, Ctx(plain), with_aux=False)
+            assert err(got, want) < TOL
+        # warm: the same passes again with every synchronising call an error
+        caches = tf.init_decode_state(cfg, 3, 32, dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, caches = tf.prefill(model, {"tokens": toks}, caches, cfg,
+                                   runtime=rt)
+            tf.decode_step(model, toks[:, :1], caches, cfg, runtime=rt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()

@@ -61,6 +61,7 @@ def test_the_scan_covers_the_serving_package():
             "serving/faults.py", "kernels/trmm.py", "kernels/introspect.py",
             "kernels/padded_ref.py", "configs/base.py",
             "models/layers.py", "models/transformer.py",
+            "models/moe.py", "models/mla.py",
             "launch/serve.py"} <= scanned
 
 

@@ -50,7 +50,8 @@ def _margins(model, cfg, prompts, tokens) -> np.ndarray:
     return ((top2[..., 0] - top2[..., 1]) / lg.abs().amax()).numpy()
 
 
-@pytest.mark.parametrize("arch", ("llama3_8b", "granite_20b"))
+@pytest.mark.parametrize("arch", ("llama3_8b", "granite_20b",
+                                  "granite_moe_3b", "deepseek_v2_lite"))
 def test_greedy_tokens_match_reference_session(arch):
     rcfg = _routed(rconfigs.get_smoke_config, arch)
     pcfg = _routed(pconfigs.get_smoke_config, arch)
@@ -121,6 +122,24 @@ def test_main_serves_the_routed_smoke_model_on_the_cpu(capsys):
     text = capsys.readouterr().out
     assert "llama3-smoke on cpu" in text
     assert "model_evals 0 default_calls 110" in text   # 22 x (1 + 4) passes
+
+
+@pytest.mark.parametrize("arch,name,calls", [
+    # 3 GQA blocks x (4 + 3 expert stacks) + the head, every pass
+    ("granite-moe-3b-a800m", "granite-moe-smoke", 22 * 5),
+    # prefill: MLA's 4 linears a layer, the dense MLP's 3, the MoE layers'
+    # 3 stacks and 3 shared linears, the head; decode: MLA's 3
+    ("deepseek-v2-lite-16b", "deepseek-v2-lite-smoke", 28 + 25 * 4),
+], ids=["granite_moe_3b", "deepseek_v2_lite"])
+def test_main_serves_the_moe_smoke_models_on_the_cpu(arch, name, calls,
+                                                      capsys):
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--requests", "2", "--prompt-len", "8",
+                      "--max-new", "4"])
+    assert out.shape == (2, 4) and out.dtype == np.int32
+    text = capsys.readouterr().out
+    assert f"{name} on cpu" in text
+    assert f"model_evals 0 default_calls {calls}" in text
 
 
 def test_main_takes_knobs_from_installed_artifacts(tmp_path, capsys):
