@@ -80,10 +80,16 @@ calls, and fails (non-zero exit) if any phase fails:
    ``ServeSession.generate`` (one prefill and 32 decode steps).  It fails
    unless that generate launches the GEMM kernel 225 x 33 = 7,425 times
    (7 linears a block and the LM head, every pass) and nothing else,
-   every decision comes from the installed model, and the logits of a
-   teacher-forced prefill and 4 decode steps lie within ``MODEL_TOL`` of
-   the plain version (the unrouted config: ``torch.matmul``, TF32 off)
-   while TF32-rounded weights do not.  It prints the prefill's time and
+   every decision comes from the installed model, every layer of a
+   teacher-forced prefill and 4 decode steps, routed and plain on its
+   captured input and a copy of its cache, lies within ``F32_TOL`` of
+   its plain version (TF32-rounded weights above it), and the logits of
+   those passes lie within ``MODEL_TOL`` of the plain version (the
+   unrouted config: ``torch.matmul``, TF32 off) while TF32-rounded
+   weights do not.  The logits may stand further apart only where the
+   plain model's own float32 noise floor (the same passes with every
+   weight the GEMM reads one ulp up) lies above ``MODEL_TOL``: there the
+   end-to-end comparison cannot judge the kernel, and the layers do.  It prints the prefill's time and
    tokens/s, the median decode step, the host's time per step, the device
    profile of one prefill and 4 decode steps (the GEMM kernel's share,
    the top operations, the device's idle share), the greedy tokens of the
@@ -111,6 +117,24 @@ calls, and fails (non-zero exit) if any phase fails:
    GEMM time of the expert stacks apart from the other linears, and the
    expert stacks at the decode and prefill shapes against their plain
    version, ``torch.bmm`` and the bound;
+6c. the hybrid model: a fourth fresh process serves zamba2-1.2b at full
+   width and depth (38 Mamba2 blocks, 36 of them in 6 ``zamba_super``
+   blocks that each end in the one shared attention + MLP block;
+   1,220,805,504 float32 parameters) the same requests.  It fails unless
+   the generate launches the GEMM kernel 125 + 32 x 125 = 4,125 times
+   (each Mamba2 block's in_proj and out_proj, each super's in_proj and
+   the shared block's 7 linears, the LM head) and nothing else, every
+   decision comes from the installed model, and the layers and logits are
+   held as in phase 6.  Its ``[ssm]`` line reads the chunked prefill against the same
+   prompt fed token by token through ``decode_step`` (the reference's -30
+   clamp of the running log-decay; printed, not gated);
+6d. the SSM model: a fifth fresh process serves rwkv6-1.6b at full width
+   and depth (24 RWKV6 layers, 1,615,497,216 float32 parameters) the same
+   way: 193 + 32 x 193 = 6,369 GEMM launches (8 linears a layer, the LM
+   head; the LoRA products stay plain), and its ``[ssm]`` line.  Its
+   noise floor lies far above ``MODEL_TOL``: past the clamp a head's
+   output is rank one, ``c * v``, and the per-head norm's ``1e-5`` meets
+   a ``c`` near zero, so float32 rounding grows about twofold a layer;
 7. times (CUDA events) of every served call: the kernel under the tuned and
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
@@ -210,15 +234,20 @@ SERVICE_WINDOWS = 5
 SERVE_TIMEOUT_S = 600
 
 #: the model phases, each serving one model at full width and depth,
-#: routed, float32, in a fresh process of its own (both do not fit the
-#: card together): arch -> (the tag of its lines, parameters, layers,
-#: d_model, seconds its process may take).  Phase 6: llama3-8b
+#: routed, float32, in a fresh process of its own (the first two do not
+#: fit the card together): arch -> (the tag of its lines, parameters,
+#: layers, d_model, seconds its process may take).  Phase 6: llama3-8b
 #: (src/repro_torch/configs/llama3_8b.py); phase 6b: deepseek-v2-lite-16b
 #: (configs/deepseek_v2_lite.py: MLA, a dense first layer, 26 MoE layers
-#: of 64 experts top-6 and 2 shared)
+#: of 64 experts top-6 and 2 shared); phase 6c: zamba2-1.2b
+#: (configs/zamba2_1p2b.py: 6 zamba_super blocks of 6 Mamba2 blocks and
+#: the one shared attention block, 2 Mamba2 blocks); phase 6d: rwkv6-1.6b
+#: (configs/rwkv6_1p6b.py: 24 RWKV6 layers)
 MODEL_PHASES = {
     "llama3-8b": ("model", 8_030_261_248, 32, 4096, 300),
     "deepseek-v2-lite-16b": ("moe", 15_706_484_224, 27, 2048, 420),
+    "zamba2-1.2b": ("zamba2", 1_220_805_504, 38, 2048, 300),
+    "rwkv6-1.6b": ("rwkv6", 1_615_497_216, 24, 2048, 300),
 }
 #: requests, prompt and new tokens of each model's generate, greedy
 MODEL_REQUESTS, MODEL_PROMPT, MODEL_NEW = 4, 128, 32
@@ -237,6 +266,9 @@ MODEL_HOST_CALLS = 50
 #: the routed run's k-th and (k+1)-th expert probabilities differ by less
 #: than this share of its top probability
 NEAR_TIE = 1e-5
+#: profiles of the same calls :func:`_device_ms` takes before it fails
+#: for want of device time
+PROFILE_ATTEMPTS = 3
 #: the GEMM kernel's name in a profile (csrc/gemm.cu's ``gemm_kernel``)
 GEMM_KERNEL = re.compile(r"(^|[\s:])gemm_kernel<")
 
@@ -388,19 +420,23 @@ def _device_ms(torch, fn, sets, iters: int) -> float:
     the card, over ``iters`` calls cycling through ``sets`` after a warmup,
     from ``torch.profiler``: for work shorter than the host time of its
     call, which CUDA events around back-to-back calls measure instead.
-    Fails if the profiler records no device time."""
+    Fails if the profiler records no device time in
+    :data:`PROFILE_ATTEMPTS` profiles of those calls in a row (on the
+    card a profile has come back empty once)."""
     from torch.profiler import ProfilerActivity, profile
     for ops in sets:
         fn(*ops)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages())
-    if not us > 0:
-        raise SystemExit("[times] torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages())
+        if us > 0:
+            return us / 1e3 / iters
+    raise SystemExit(f"[times] torch.profiler recorded no device time in "
+                     f"{PROFILE_ATTEMPTS} profiles")
 
 
 def kernel_of(op: str, knob: dict) -> str:
@@ -659,51 +695,80 @@ def serve_service(torch, rt) -> dict:
 # -- phases 6 and 6b, each in a fresh process -------------------------------
 
 def _gemm_calls(cfg, decode: bool) -> int:
-    """GEMM launches of one pass from the config: per block its attention's
-    linears (GQA q, k, v, o; MLA wq, wkv_a, wkv_b, wo, and at decode no
-    wkv_b, which the absorbed form reads in its einsums), then the MLP's
-    3 (SwiGLU) or 2, or the MoE's 3 expert stacks and its shared experts'
-    3 linears; and the LM head."""
+    """GEMM launches of one pass from the config, by block kind: an
+    attention block's linears (GQA q, k, v, o; MLA wq, wkv_a, wkv_b, wo,
+    and at decode no wkv_b, which the absorbed form reads in its einsums),
+    then the MLP's 3 (SwiGLU) or 2, or the MoE's 3 expert stacks and its
+    shared experts' 3 linears; a Mamba2 block's in_proj and out_proj; a
+    zamba_super's Mamba2 blocks, its in_proj and the shared attention
+    block's linears; an RWKV6 layer's 8 (wr, wk, wv, wg, wo, cm_wk, cm_wr,
+    cm_wv); and the LM head."""
     attn = 3 if decode and cfg.use_mla else 4
     mlp = 3 if cfg.mlp_type == "swiglu" else 2
-    moe = 3 + (3 if cfg.n_shared_experts else 0)
-    return sum(repeat * (attn + (moe if kind == "moe" else mlp))
-               for kind, repeat in cfg.segments()) + 1
+    per = {"attn": attn + mlp,
+           "moe": attn + 3 + (3 if cfg.n_shared_experts else 0),
+           "mamba2": 2, "rwkv6": 8,
+           "zamba_super": 2 * cfg.shared_attn_every + 1 + attn + mlp}
+    return sum(repeat * per[kind] for kind, repeat in cfg.segments()) + 1
 
 
 def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
     """A model phase's bounds from the config alone, before any run: the
-    weight floats a decode step's GEMMs read (the experts apart), once and
-    as launched (an expert stack reads each expert once; every other
-    weight is read by each of the ``batch`` stacked items), at the HBM
-    rate; the prefill's GEMM operations at the f32 peak (MLA's cached
-    prefill expands the whole cache of ``max_len`` through ``wkv_b``; the
-    experts run every capacity row) and the share of the expert rows that
-    carry a token; the f32 KV (or latent) cache; the GEMM calls a pass."""
+    weight floats a decode step's GEMMs read (the experts apart; zamba2's
+    shared block once a zamba_super that reads it), once and as launched
+    (an expert stack reads each expert once; every other weight is read
+    by each of the ``batch`` stacked items), at the HBM rate; the
+    prefill's GEMM operations at the f32 peak (MLA's cached prefill
+    expands the whole cache of ``max_len`` through ``wkv_b``; the experts
+    run every capacity row) and the share of the expert rows that carry a
+    token; the f32 decode state by part (KV or latent caches, Mamba2's
+    ``ssm`` and ``conv``, RWKV6's ``S`` and token shifts); the GEMM calls
+    a pass."""
+    from repro_torch.models.mamba2 import _dims
     from repro_torch.models.moe import capacity
-    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    d, V = cfg.d_model, cfg.vocab
     if cfg.use_mla:
         h, nope, rp = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
         attn = (d * (cfg.kv_lora + rp) + d * h * (nope + rp)
                 + h * cfg.v_head_dim * d)
         wkv_b = cfg.kv_lora * h * (nope + cfg.v_head_dim)
-        cache = L * batch * max_len * (cfg.kv_lora + rp) * 4
+        kv = batch * max_len * (cfg.kv_lora + rp) * 4
     else:
         hd = cfg.hd()
         attn = d * (cfg.n_heads + 2 * cfg.kv_heads) * hd \
             + cfg.n_heads * hd * d
         wkv_b = 0
-        cache = 2 * L * batch * max_len * cfg.kv_heads * hd * 4
-    n_moe = sum(r for k, r in cfg.segments() if k == "moe")
+        kv = 2 * batch * max_len * cfg.kv_heads * hd * 4
     f, E = cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
     mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff
+    d_inner, n_heads, conv_dim = _dims(cfg)
+    mamba = d * (2 * d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+                 + n_heads) + d_inner * d
+    k = cfg.shared_attn_every
+    floats = {"attn": attn + mlp,
+              "moe": attn + 3 * d * cfg.n_shared_experts * f,
+              "mamba2": mamba, "zamba_super": k * mamba + 2 * d * d + attn
+              + mlp, "rwkv6": 6 * d * d + 2 * d * cfg.d_ff}
+    ssm = batch * n_heads * cfg.ssm_headdim * cfg.ssm_state * 4
+    conv = batch * (cfg.conv_width - 1) * conv_dim * 4
+    wkv = batch * d * cfg.rwkv_head_dim * 4
+    state = {"kv": 0, "ssm": 0, "conv": 0, "wkv": 0, "shift": 0}
+    parts = {"attn": {"kv": kv}, "moe": {"kv": kv},
+             "mamba2": {"ssm": ssm, "conv": conv},
+             "zamba_super": {"ssm": k * ssm, "conv": k * conv, "kv": kv},
+             "rwkv6": {"wkv": wkv, "shift": 2 * batch * d * 4}}
+    body = n_attn = n_moe = 0
+    for kind, repeat in cfg.segments():
+        body += repeat * floats[kind]
+        n_attn += repeat * (kind in ("attn", "moe"))
+        n_moe += repeat * (kind == "moe")
+        for part, nbytes in parts[kind].items():
+            state[part] += repeat * nbytes
     experts = n_moe * E * 3 * d * f
-    shared = n_moe * 3 * d * cfg.n_shared_experts * f
-    body = L * attn + (L - n_moe) * mlp + shared
     C = capacity(cfg, prompt) if n_moe else 0
     rows = E * batch * C
     expert_flop = 2.0 * n_moe * rows * 3 * d * f
-    flop = 2.0 * (batch * prompt * body + batch * max_len * L * wkv_b
+    flop = 2.0 * (batch * prompt * body + batch * max_len * n_attn * wkv_b
                   + batch * d * V) + expert_flop
     return {"expert_floats": experts, "other_floats": body + d * V,
             "decode_bytes_ms": 4.0 * (experts + body + d * V)
@@ -714,7 +779,7 @@ def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
             "prefill_ops_ms": flop / F32_PEAK_FLOPS * 1e3,
             "expert_flop": expert_flop, "capacity": C, "expert_rows": rows,
             "useful_rows": batch * prompt * cfg.top_k if n_moe else 0,
-            "cache_bytes": cache,
+            "state_bytes": state,
             "calls_prefill": _gemm_calls(cfg, False),
             "calls_decode": _gemm_calls(cfg, True)}
 
@@ -808,34 +873,130 @@ def _device_profile(torch, fn, label=None) -> dict:
             "gemm_by_label": by_label}
 
 
-def _linear_host_us(torch, model, cfg, rt) -> dict:
-    """The host's µs per call of a decode step's q projection, ``(4, 1,
-    d) @ wq``, three ways: the routed linear (``run_op``:
-    decision, backend, wrapper, launch), the GEMM wrapper alone under the
-    same knob, and ``torch.matmul``.  Host clock over
+def _linear_host_us(torch, model, cfg, rt) -> tuple[str, dict]:
+    """The first linear of the first layer (an attention block's ``wq``,
+    Mamba2's ``in_proj``, RWKV6's ``wr``) and the host's µs per call of it
+    at a decode step, ``(4, 1, d_in) @ w``, three ways: the routed linear
+    (``run_op``: decision, backend, wrapper, launch), the GEMM wrapper
+    alone under the same knob, and ``torch.matmul``.  Host clock over
     :data:`MODEL_HOST_CALLS` calls issued back to back, too few to fill
     the launch queue, after one call each."""
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import ops
-    from repro_torch.models.layers import Ctx, routed_matmul
-    w = model.layers[0].attn.wq.w
-    x = torch.randn(MODEL_REQUESTS, 1, cfg.d_model, device="cuda")
+    from repro_torch.models.layers import Ctx, Linear, routed_matmul
+    name, lin = next((n, m) for n, m in model.layers[0].named_modules()
+                     if isinstance(m, Linear))
+    w = lin.w
+    x = torch.randn(MODEL_REQUESTS, 1, w.shape[0], device="cuda")
     ctx = Ctx(cfg, rt)
     kd = rt.peek("gemm", ops.dims_of("gemm", (tuple(x.shape),
                                               tuple(w.shape))),
                  4, "hopper").dict
     out = {}
-    for name, fn in (("routed linear", lambda: routed_matmul(x, w, ctx)),
-                     ("gemm wrapper", lambda: G.gemm(
-                         x, w, bm=kd["bm"], bk=kd["bk"], bn=kd["bn"])),
-                     ("torch.matmul", lambda: torch.matmul(x, w))):
+    for how, fn in (("routed linear", lambda: routed_matmul(x, w, ctx)),
+                    ("gemm wrapper", lambda: G.gemm(
+                        x, w, bm=kd["bm"], bk=kd["bk"], bn=kd["bn"])),
+                    ("torch.matmul", lambda: torch.matmul(x, w))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(MODEL_HOST_CALLS):
             fn()
-        out[name] = 1e6 * (time.perf_counter() - t0) / MODEL_HOST_CALLS
+        out[how] = 1e6 * (time.perf_counter() - t0) / MODEL_HOST_CALLS
         torch.cuda.synchronize()
+    return f"layers.0.{name} ({MODEL_REQUESTS},1,{w.shape[0]}) @ " \
+        f"{tuple(w.shape)}", out
+
+
+def _scan_gap(torch, tf, model, cfg, rt, prompts, max_len: int) -> dict:
+    """The chunked prefill of ``prompts`` against the same prompt fed one
+    token at a time through ``decode_step`` (the exact one-token
+    recurrence) from a fresh state: the last position's logits and each
+    layer's carried recurrent state (Mamba2's ``ssm``, RWKV6's ``S``), as
+    max |chunked - sequential| over max |sequential|.  The reference's
+    chunked scans clamp the running log-decay at -30, so at a chunk of
+    128 the two part; this reads by how much on the card."""
+    def states(caches):
+        out = []
+        for c in caches:
+            for one in (c["mamba"] if "mamba" in c else [c]):
+                out.append(one["ssm"] if "ssm" in one else one["S"])
+        return out
+
+    runs = []
+    for sequential in (False, True):
+        caches = tf.init_decode_state(cfg, prompts.shape[0], max_len,
+                                      dtype=torch.float32, device="cuda")
+        if sequential:
+            for t in range(prompts.shape[1]):
+                last, _ = tf.decode_step(model, prompts[:, t:t + 1], caches,
+                                         cfg, runtime=rt)
+        else:
+            last, _ = tf.prefill(model, {"tokens": prompts}, caches, cfg,
+                                 runtime=rt)
+        runs.append((last, states(caches)))
+    (chunked, got), (seq, want) = runs
+    gaps = [_rel_err(g, w) for g, w in zip(got, want, strict=True)]
+    chunk = (min(cfg.ssm_chunk, prompts.shape[1]) if cfg.family == "hybrid"
+             else min(cfg.rwkv_chunk, prompts.shape[1]))
+    return {"chunk": chunk, "logits": _rel_err(chunked, seq),
+            "argmax_agree": int((chunked.argmax(-1) == seq.argmax(-1))
+                                .sum().item()),
+            "state_max": max(gaps), "state_min": min(gaps),
+            "state_first": gaps[0], "state_last": gaps[-1],
+            "states": len(gaps)}
+
+
+def _clone(node):
+    """A copy of a decode cache: its tensors cloned, its dicts and lists
+    rebuilt, anything else (a length) kept."""
+    if isinstance(node, dict):
+        return {k: _clone(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_clone(v) for v in node]
+    return node.clone() if hasattr(node, "clone") else node
+
+
+def _layer_inputs(torch, model):
+    """Forward pre-hooks on every layer that append ``(layer, input, a
+    copy of its cache as the layer found it, its keyword arguments)`` to
+    the returned list; call the returned remover to take them off."""
+    seen: list = []
+
+    def grab(i, args, kwargs):
+        seen.append((i, args[0].clone(),
+                     _clone(args[2] if len(args) > 2 else None), kwargs))
+
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args, kwargs, i=i: grab(i, args, kwargs),
+        with_kwargs=True) for i, blk in enumerate(model.layers)]
+    return seen, lambda: [h.remove() for h in hooks]
+
+
+def _layer_outputs(model, c, rt, inputs) -> list:
+    """Each captured ``(layer, input, cache, kwargs)`` run through its layer
+    under config ``c`` from a copy of the captured cache: the outputs."""
+    from repro_torch.models import Ctx
+    outs = []
+    for i, x, cache, kwargs in inputs:
+        out = model.layers[i](x, Ctx(c, rt), _clone(cache), **kwargs)
+        outs.append(out[0] if isinstance(out, tuple) else out)
+    return outs
+
+
+def _gemm_weights(model) -> list:
+    """The weights the GEMM kernel reads: every linear's (not the MoE
+    routers', plain float32 matmuls in the routed run too) and the raw
+    expert tensors."""
+    from repro_torch.models import MoE
+    from repro_torch.models.layers import Linear
+    routers = {id(m.router) for m in model.modules() if isinstance(m, MoE)}
+    out = []
+    for mod in model.modules():
+        if isinstance(mod, Linear) and id(mod) not in routers:
+            out.append(mod.w)
+        if isinstance(mod, MoE):
+            out += [mod.wg, mod.wu, mod.wd]
     return out
 
 
@@ -952,11 +1113,13 @@ def model_main(registry_dir: str, arch: str) -> None:
     artifact: one ``generate`` of :data:`MODEL_REQUESTS` prompts (its GEMM
     launches and decisions), then teacher-forced passes on its tokens for
     the times and the device profiles (an MoE model's expert stacks apart
-    from its other linears), the logits against the plain version and,
-    for an MoE model, each MoE layer on one captured input, the routing
-    flips between the routed and the plain run, and its expert stacks at
-    the decode and prefill shapes; prints one ``MODEL_RESULT {json}``
-    line."""
+    from its other linears), the logits against the plain version, every
+    layer on its captured input and cache, the plain model's float32
+    noise floor and, for an MoE model, each MoE layer on one captured
+    input, the routing flips between the routed and the plain run, and
+    its expert stacks at the decode and prefill shapes; for a recurrent
+    model the chunked prefill against the token-by-token recurrence;
+    prints one ``MODEL_RESULT {json}`` line."""
     faulthandler.dump_traceback_later(MODEL_PHASES[arch][4] - 20, exit=True)
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -966,7 +1129,6 @@ def model_main(registry_dir: str, arch: str) -> None:
     from repro_torch.core.registry import load_subroutine
     from repro_torch.kernels import introspect
     from repro_torch.launch.serve import ServeSession
-    from repro_torch.models import MoE
     from repro_torch.models import transformer as tf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1024,43 +1186,64 @@ def model_main(registry_dir: str, arch: str) -> None:
         stacks = (_expert_stack_times(torch, model, cfg, rt)
                   if cfg.n_experts else [])
         # teacher-forced prefill + MODEL_CHECK_STEPS steps, routed and
-        # plain, every MoE layer's input captured
+        # plain, every MoE layer's input captured; in the routed run every
+        # layer's input and cache too
         captured = {}
+        layer_in, remove_layers = _layer_inputs(torch, model)
         for c, r in ((cfg, rt), (plain, None)):
             seen, remove = _moe_inputs(torch, model)
             logits, _, _, _ = _teacher_forced(
                 torch, tf, model, c, r, p_t, forced, MODEL_CHECK_STEPS,
                 max_len)
             remove()
+            remove_layers()         # the routed run only: a no-op after it
             captured[c.use_pallas_gemm] = (logits, seen)
         want = captured[False][0]
         err = _logits_err(captured[True][0], want)
-        parity = _moe_parity(torch, model, cfg, plain, rt, captured[True][1])
-        flips = _routing_flips(torch, model, cfg, captured[True][1],
-                               captured[False][1])
+        # every layer routed and plain on the same captured input and cache
+        layer_want = _layer_outputs(model, plain, None, layer_in)
+        layer_err = [(i, x.shape[1], _rel_err(got, w)) for (i, x, _, _), got, w
+                     in zip(layer_in, _layer_outputs(model, cfg, rt, layer_in),
+                            layer_want, strict=True)]
+        parity, flips = [], {"routings": 0, "flips": []}
+        if cfg.n_experts:
+            parity = _moe_parity(torch, model, cfg, plain, rt,
+                                 captured[True][1])
+            flips = _routing_flips(torch, model, cfg, captured[True][1],
+                                   captured[False][1])
         del captured
+        # the recurrent families: the chunked scan against the recurrence
+        ssm = (_scan_gap(torch, tf, model, cfg, rt, p_t, max_len)
+               if cfg.family in ("hybrid", "ssm") else None)
         _, plain_prefill_ms, plain_step_ms, plain_host_ms = _teacher_forced(
             torch, tf, model, plain, None, p_t, forced, MODEL_NEW, max_len)
         plain_tokens = ServeSession(cfg=plain, params=model, max_len=max_len,
                                     device="cuda").generate(
             prompts, max_new=MODEL_NEW)
+        # the model's own float32 noise floor: the same plain passes with
+        # every weight the GEMM kernel reads one ulp up, then back
+        weights = _gemm_weights(model)
+        for sign in (1.0, -1.0):
+            for w in weights:
+                w.copy_(torch.nextafter(w, w.new_tensor(sign * math.inf)))
+            if sign > 0:
+                nudged, _, _, _ = _teacher_forced(
+                    torch, tf, model, plain, None, p_t, forced,
+                    MODEL_CHECK_STEPS, max_len)
+        floor = _logits_err(nudged, want)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        # the precision the limit must reject: the same plain passes with
-        # every weight the GEMM kernel reads (the linears, the raw expert
-        # tensors; not the routers, plain float32 matmuls in both runs)
-        # rounded to TF32's 10-bit mantissa, in place (the model's last use)
-        routers = {id(m.router) for m in model.modules()
-                   if isinstance(m, MoE)}
-        for mod in model.modules():
-            if isinstance(mod, tf.Linear) and id(mod) not in routers:
-                mod.w.copy_(_tf32(mod.w))
-            if isinstance(mod, MoE):
-                for w in (mod.wg, mod.wu, mod.wd):
-                    w.copy_(_tf32(w))
+        # the precision the limits must reject: the same plain passes, and
+        # each layer's, with those weights rounded to TF32's 10-bit
+        # mantissa, in place (the model's last use)
+        for w in weights:
+            w.copy_(_tf32(w))
         rounded, _, _, _ = _teacher_forced(
             torch, tf, model, plain, None, p_t, forced, MODEL_CHECK_STEPS,
             max_len)
         tf32_err = _logits_err(rounded, want)
+        layer_tf32 = max(_rel_err(got, w) for got, w in zip(
+            _layer_outputs(model, plain, None, layer_in), layer_want,
+            strict=True))
     print("MODEL_RESULT " + json.dumps({
         "arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
         "d_model": cfg.d_model, "segments": cfg.segments(),
@@ -1070,21 +1253,24 @@ def model_main(registry_dir: str, arch: str) -> None:
         "prefill_ms": prefill_ms, "step_ms": step_ms, "host_ms": host_ms,
         "plain_prefill_ms": plain_prefill_ms, "plain_step_ms": plain_step_ms,
         "plain_host_ms": plain_host_ms, "host_us": host_us,
-        "err": err, "tf32_err": tf32_err, "peak_gb": peak_gb,
-        "parity": parity, "flips": flips, "stacks": stacks,
+        "err": err, "tf32_err": tf32_err, "floor": floor,
+        "layer_err": layer_err, "layer_tf32": layer_tf32, "peak_gb": peak_gb,
+        "parity": parity, "flips": flips, "stacks": stacks, "ssm": ssm,
         "profile": profile, "decode_profile": decode_profile,
         "reckoning": _reckoning(cfg, MODEL_REQUESTS, MODEL_PROMPT,
                                 max_len)}), flush=True)
 
 
 def report_model(card: str, arch: str, res: dict) -> None:
-    """Print a model phase's lines (``[model]`` for llama3-8b, ``[moe]``
-    for deepseek-v2-lite-16b) and fail unless it served ``arch`` at full
-    width and depth through the installed GEMM model's knobs, one launch
-    per linear and expert stack and pass, every MoE layer within
-    ``F32_TOL`` of its plain version on the same input, and the logits
-    within :data:`MODEL_TOL` of the plain version (the TF32 reading above
-    it) or apart only through routing flips that are near ties."""
+    """Print a model phase's lines (the tag of :data:`MODEL_PHASES`) and
+    fail unless it served ``arch`` at full width and depth through the
+    installed GEMM model's knobs, one launch per linear and expert stack
+    and pass, every layer and every MoE layer within ``F32_TOL`` of its
+    plain version on the same input (the layers' TF32 reading above it),
+    and the logits within :data:`MODEL_TOL` of the plain version (the TF32
+    reading above it) or apart only through routing flips that are near
+    ties, or where the plain model's own float32 noise floor lies above
+    that limit."""
     tag, n_params, n_layers, d_model, _ = MODEL_PHASES[arch]
     rk = res["reckoning"]
     expected = rk["calls_prefill"] + MODEL_NEW * rk["calls_decode"]
@@ -1130,10 +1316,10 @@ def report_model(card: str, arch: str, res: dict) -> None:
               f"{prof['device_ms']:.3f} ms{apart}", flush=True)
     for name, ms in res["profile"]["top"]:
         print(f"[{tag}:top] [{card}] {ms:10.3f} ms  {name}", flush=True)
-    print(f"[{tag}:host] [{card}] per call at the q projection "
-          f"({MODEL_REQUESTS},1,{res['d_model']}) @ wq, over "
+    at, host_us = res["host_us"]
+    print(f"[{tag}:host] [{card}] per call at {at}, over "
           f"{MODEL_HOST_CALLS} calls: " + ", ".join(
-              f"{name} {us:.2f} us" for name, us in res["host_us"].items()),
+              f"{how} {us:.2f} us" for how, us in host_us.items()),
           flush=True)
     for row in res["stacks"]:
         print(f"[{tag}:stack] [{card}] {row['label']} knob {row['knob']}: "
@@ -1155,9 +1341,11 @@ def report_model(card: str, arch: str, res: dict) -> None:
           f"expert once, the other weights by each of the {MODEL_REQUESTS} "
           f"stacked items); prefill {rk['prefill_flop'] / 1e12:.3f} TFLOP "
           f"= {rk['prefill_ops_ms']:.3f} ms at "
-          f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s{experts}; cache "
-          f"{rk['cache_bytes'] / 1e6:.1f} MB; {rk['calls_prefill']} GEMM "
-          f"calls a prefill, {rk['calls_decode']} a decode step", flush=True)
+          f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s{experts}; decode state "
+          + " + ".join(f"{part} {nbytes / 1e6:.1f} MB" for part, nbytes
+                       in rk["state_bytes"].items() if nbytes)
+          + f"; {rk['calls_prefill']} GEMM calls a prefill, "
+          f"{rk['calls_decode']} a decode step", flush=True)
     worst = max(res["parity"], key=lambda r: r[2], default=None)
     if worst is not None:
         print(f"[{tag}] [{card}] per-layer MoE, routed vs plain on the same "
@@ -1176,10 +1364,31 @@ def report_model(card: str, arch: str, res: dict) -> None:
               f"p_k+1 {f['p_k1']:.9f} gap {f['gap']:.3e} of the top, input "
               f"diff {f['input_diff']:.3e}"
               f"{' (root)' if f['root'] else ''}", flush=True)
+    gap = res["ssm"]
+    if gap is not None:
+        print(f"[ssm] [{card}] {res['arch']}: the chunked prefill (chunk "
+              f"length {gap['chunk']}) against the same {MODEL_PROMPT} "
+              f"tokens fed one at a time through decode_step: "
+              f"last-position logits rel "
+              f"gap {gap['logits']:.3e} (argmax agrees for "
+              f"{gap['argmax_agree']}/{MODEL_REQUESTS} requests); carried "
+              f"state rel gap over {gap['states']} layers max "
+              f"{gap['state_max']:.3e}, min {gap['state_min']:.3e}, first "
+              f"{gap['state_first']:.3e}, last {gap['state_last']:.3e} (the "
+              f"reference's -30 clamp of the running log-decay; not gated)",
+              flush=True)
     print(f"[{tag}] [{card}] teacher-forced logits, prefill + "
           f"{MODEL_CHECK_STEPS} decode steps: routed vs plain (torch.matmul "
           f"and einsum, TF32 off) {res['err']:.3e}, TF32-rounded weights vs "
-          f"plain {res['tf32_err']:.3e}, limit {MODEL_TOL:.0e}", flush=True)
+          f"plain {res['tf32_err']:.3e}, limit {MODEL_TOL:.0e}; the plain "
+          f"model's own float32 noise floor (every GEMM weight one ulp up) "
+          f"{res['floor']:.3e}", flush=True)
+    layer = max(res["layer_err"], key=lambda r: r[2])
+    print(f"[{tag}] [{card}] every layer routed vs plain on the same "
+          f"captured input and cache ({len(res['layer_err'])} layer passes): "
+          f"max rel err {layer[2]:.3e} (layer {layer[0]}, {layer[1]} "
+          f"tokens), TF32-rounded weights {res['layer_tf32']:.3e}, limit "
+          f"{F32_TOL:.0e}", flush=True)
     for r, p, n in zip(res["tokens"], res["plain_tokens"], agree):
         print(f"[{tag}:tokens] routed {r}\n[{tag}:tokens] plain  {p} "
               f"({n}/{MODEL_NEW} agree)", flush=True)
@@ -1208,15 +1417,24 @@ def report_model(card: str, arch: str, res: dict) -> None:
     if not MODEL_TOL < res["tf32_err"]:
         raise SystemExit(f"[{tag}] TF32-rounded weights {res['tf32_err']:.3e}"
                          f" within the limit {MODEL_TOL:.0e}")
+    if not layer[2] < F32_TOL or not F32_TOL < res["layer_tf32"]:
+        raise SystemExit(f"[{tag}] layer {layer[0]}: routed {layer[2]:.3e} "
+                         f"from its plain version on the same input, TF32 "
+                         f"{res['layer_tf32']:.3e}, limit {F32_TOL:.0e}")
     wide = [f for f in roots if not f["gap"] < NEAR_TIE]
     if wide or (fl["flips"] and not roots):
         raise SystemExit(f"[{tag}] routing flips not explained by near ties "
                          f"(gap under {NEAR_TIE:.0e} of the top): "
                          f"{wide or fl['flips'][:3]}")
-    if not res["err"] < MODEL_TOL and not roots:
+    # apart by more than the limit: only through near-tie routing flips,
+    # or where the model's own float32 noise floor lies above the limit
+    # (then the end-to-end comparison cannot judge the kernel, and every
+    # layer on its captured input, held above, does)
+    if not res["err"] < MODEL_TOL and not roots \
+            and not MODEL_TOL <= res["floor"]:
         raise SystemExit(f"[{tag}] logits {res['err']:.3e} against the plain "
-                         f"version with no routing flip, limit "
-                         f"{MODEL_TOL:.0e}")
+                         f"version with no routing flip and a noise floor "
+                         f"{res['floor']:.3e}, limit {MODEL_TOL:.0e}")
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -2134,9 +2352,10 @@ def main(argv: list[str]) -> int:
         if proc.returncode != 0:
             raise SystemExit(f"[serve] fresh process failed "
                              f"({proc.returncode}):\n{proc.stdout[-4000:]}")
-        # 6 and 6b. each model from a fresh process of its own, once the
-        # last has exited: their weights (32 GB, 62.83 GB) never meet each
-        # other, phase 5's operands or what this process's allocator holds
+        # 6 to 6d. each model from a fresh process of its own, once the
+        # last has exited: their weights (32 GB, 62.83 GB, 4.88 GB, 6.46 GB)
+        # never meet each other, phase 5's operands or what this process's
+        # allocator holds
         models = {}
         for arch, (tag, *_, timeout) in MODEL_PHASES.items():
             torch.cuda.empty_cache()
@@ -2247,11 +2466,13 @@ def main(argv: list[str]) -> int:
             "bound_by": ("operations" if 2 * t["ops_bound_ms"]
                          >= t["bound_ms"] else "bytes"),
             "library_ms": t["library_ms"]})
-    # the model paths' GEMM launches (phases 6 and 6b fail unless they are
+    # the model paths' GEMM launches (phases 6 to 6d fail unless they are
     # these)
     entry = next(k for k in kernels if k["name"] == "gemm")
     entry["model_launches"] = model_launches["llama3-8b"]
     entry["moe_model_launches"] = model_launches["deepseek-v2-lite-16b"]
+    entry["zamba2_model_launches"] = model_launches["zamba2-1.2b"]
+    entry["rwkv6_model_launches"] = model_launches["rwkv6-1.6b"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,15 @@ decode (the reference package's ``launch/serve.py``).
 
 ``main`` serves the *routed* model (``use_pallas_gemm=True``, float32
 compute, as the reference's routed paths run it): every dense matmul —
-QKV or MLA's projections, the output projection, the MLP and the LM head
-— is one ``run_op`` GEMM, and so is each of an MoE layer's three expert
-matmuls over all its experts; on the card each launches the hand-written
-Hopper kernel under the knob the runtime picks.  The dense and MoE
-families serve (``--arch llama3-8b``, ``granite-moe-3b-a800m``,
-``deepseek-v2-lite-16b``, ...).  ``--models DIR`` loads the installed artifacts of
+QKV or MLA's projections, the output projection, the MLP, Mamba2's and
+RWKV6's projections, zamba2's shared-block input projection and the LM
+head — is one ``run_op`` GEMM, and so is each of an MoE layer's three
+expert matmuls over all its experts; on the card each launches the
+hand-written Hopper kernel under the knob the runtime picks.  The dense,
+MoE, hybrid and SSM families serve (``--arch llama3-8b``,
+``granite-moe-3b-a800m``, ``deepseek-v2-lite-16b``, ``zamba2-1.2b``,
+``rwkv6-1.6b``, ...); the recurrent ones carry their O(1) state a layer
+from the prefill into the decode steps.  ``--models DIR`` loads the installed artifacts of
 ``DIR`` (``repro_torch.launch.calibrate --out X`` writes them to
 ``X/models``) so the knobs come from the learned model; without it every
 decision is the default knob.  ``--device`` defaults to the card.

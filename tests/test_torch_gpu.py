@@ -9,8 +9,8 @@ shape, its unaligned-stride path equal to the aligned one bit for bit (symm,
 syrk/syr2k and trmm too), ``tri``'s rank-k output symmetric bit for bit,
 trmm's A read nowhere above its diagonal, a TRSM call launching its two
 kernels and nothing else, and the launch parameters built into the
-kernels equal to their Python mirrors; the dense and MoE smoke models
-routed on the card against their plain versions.  The card's
+kernels equal to their Python mirrors; the dense, MoE, zamba2 and rwkv6
+smoke models routed on the card against their plain versions.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -729,6 +729,83 @@ def test_routed_moe_mla_model_on_the_card_matches_its_unrouted_run():
         for mod, x in routed_inputs:
             got, _ = moe_ffn(mod, x, Ctx(cfg, rt), with_aux=False)
             want, _ = moe_ffn(mod, x, Ctx(plain), with_aux=False)
+            assert err(got, want) < TOL
+        # warm: the same passes again with every synchronising call an error
+        caches = tf.init_decode_state(cfg, 3, 32, dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, caches = tf.prefill(model, {"tokens": toks}, caches, cfg,
+                                   runtime=rt)
+            tf.decode_step(model, toks[:, :1], caches, cfg, runtime=rt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,per_pass", [("zamba2_1p2b", 27),
+                                           ("rwkv6_1p6b", 25)])
+def test_routed_recurrent_smoke_model_on_the_card_matches_its_unrouted_run(
+        arch, per_pass):
+    """The zamba2 (Mamba2 blocks and the shared attention block) and rwkv6
+    smoke models on the card, routed: the GEMM kernel launched once per
+    linear a pass (zamba2 27, rwkv6 25; the LoRA products, convolutions and
+    scans stay plain), the logits of a forward, a prefill of two chunks
+    and 3 decode steps within ``TOL`` of the unrouted run on the same
+    weights, the recurrent states too.  Once warm, neither pass makes the
+    host wait on the card."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import AdsalaRuntime
+    from repro_torch.kernels import introspect
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                              use_pallas_gemm=True)
+    plain = dataclasses.replace(cfg, use_pallas_gemm=False)
+    model = tf.init_params(0, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    toks = torch.randint(0, cfg.vocab, (3, 24), generator=gen, device="cuda")
+    rt = AdsalaRuntime()
+
+    def err(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    def leaves(node):
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, list):
+            return [t for child in node for t in leaves(child)]
+        return [node] if isinstance(node, torch.Tensor) else []
+
+    with torch.inference_mode():
+        introspect.reset_launches()
+        got, _ = tf.forward(model, {"tokens": toks}, cfg, runtime=rt)
+        torch.cuda.synchronize()
+        assert introspect.launch_counts()["gemm"] == per_pass
+        want, _ = tf.forward(model, {"tokens": toks}, plain)
+        assert err(got, want) < TOL
+        outs, states = {}, {}
+        for c in (cfg, plain):
+            caches = tf.init_decode_state(c, 3, 32, dtype=torch.float32)
+            introspect.reset_launches()
+            last, caches = tf.prefill(model, {"tokens": toks}, caches, c,
+                                      runtime=rt)
+            passes = [last]
+            for t in range(3):
+                step, _ = tf.decode_step(model, toks[:, t:t + 1], caches, c,
+                                         runtime=rt)
+                passes.append(step)
+            torch.cuda.synchronize()
+            assert introspect.launch_counts()["gemm"] == (
+                4 * per_pass if c.use_pallas_gemm else 0)
+            outs[c.use_pallas_gemm] = passes
+            states[c.use_pallas_gemm] = leaves(caches)
+        for got, want in zip(outs[True], outs[False]):
+            assert got.is_cuda and err(got, want) < TOL
+        for got, want in zip(states[True], states[False]):
             assert err(got, want) < TOL
         # warm: the same passes again with every synchronising call an error
         caches = tf.init_decode_state(cfg, 3, 32, dtype=torch.float32)

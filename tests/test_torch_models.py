@@ -39,7 +39,7 @@ TOL = 1e-5
 
 #: the dense family: GQA, QKV bias, GELU with GQA, MQA (kv_heads=1)
 DENSE = ("llama3_8b", "qwen15_4b", "starcoder2_15b", "granite_20b")
-UNPORTED = ("zamba2_1p2b", "rwkv6_1p6b", "whisper_medium", "internvl2_76b")
+UNPORTED = ("whisper_medium", "internvl2_76b")
 B, S = 2, 16
 
 

@@ -51,7 +51,8 @@ def _margins(model, cfg, prompts, tokens) -> np.ndarray:
 
 
 @pytest.mark.parametrize("arch", ("llama3_8b", "granite_20b",
-                                  "granite_moe_3b", "deepseek_v2_lite"))
+                                  "granite_moe_3b", "deepseek_v2_lite",
+                                  "zamba2_1p2b", "rwkv6_1p6b"))
 def test_greedy_tokens_match_reference_session(arch):
     rcfg = _routed(rconfigs.get_smoke_config, arch)
     pcfg = _routed(pconfigs.get_smoke_config, arch)
@@ -133,6 +134,24 @@ def test_main_serves_the_routed_smoke_model_on_the_cpu(capsys):
 ], ids=["granite_moe_3b", "deepseek_v2_lite"])
 def test_main_serves_the_moe_smoke_models_on_the_cpu(arch, name, calls,
                                                       capsys):
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--requests", "2", "--prompt-len", "8",
+                      "--max-new", "4"])
+    assert out.shape == (2, 4) and out.dtype == np.int32
+    text = capsys.readouterr().out
+    assert f"{name} on cpu" in text
+    assert f"model_evals 0 default_calls {calls}" in text
+
+
+@pytest.mark.parametrize("arch,name,calls", [
+    # 2 supers x (2 mamba blocks x 2 + in_proj + 4 attention + 3 MLP), the
+    # tail mamba block's 2 and the head, every pass
+    ("zamba2-1.2b", "zamba2-smoke", 27 * 5),
+    # 3 RWKV6 layers x 8 linears and the head, every pass
+    ("rwkv6-1.6b", "rwkv6-smoke", 25 * 5),
+], ids=["zamba2_1p2b", "rwkv6_1p6b"])
+def test_main_serves_the_recurrent_smoke_models_on_the_cpu(arch, name, calls,
+                                                           capsys):
     out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                       "--requests", "2", "--prompt-len", "8",
                       "--max-new", "4"])
