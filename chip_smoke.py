@@ -144,6 +144,29 @@ calls, and fails (non-zero exit) if any phase fails:
    their rounding with them, so float32 rounding grows about twofold a
    layer.  Both recurrent phases print that floor again with the clamp
    out of reach;
+6e. the audio model: a sixth fresh process serves whisper-medium at full
+   width and depth (24 ``"enc"`` blocks, bidirectional, and 24
+   ``"dec_cross"`` blocks, causal self-attention with a KV cache and
+   cross-attention to the encoder's output, no RoPE, sinusoid positions;
+   810,987,520 float32 parameters) the same requests, each with stub frame
+   embeddings (1,500 frames).  The session runs the encoder once and
+   decodes token t at its true position 128 + t.  It fails unless the
+   generate launches the GEMM kernel 144 + 241 + 32 x 241 = 8,097 times
+   (the encoder's 6 linears a block once; 10 a decoder block, the
+   cross-attention's K and V projected from the encoder's output at every
+   pass, and the LM head) and nothing else; the calls, layers (the
+   encoder's blocks too, on their captured inputs), head and logits are
+   held as in phase 6.  It prints the cross K and V projections' device
+   time a decode step against the step's GEMM time, and the encoder's
+   device time alone (its GEMM apart);
+6f. the VLM: a seventh fresh process serves internvl2-76b at full width
+   and a cut depth (16 of its 80 layers: the 80 are 282.48 GB of float32
+   weights; the 16 with the embedding, head and vision projection
+   15,858,933,760 parameters, 63.44 GB) the same requests, each with 256
+   stub patch embeddings that the vision projection, one GEMM launch,
+   puts ahead of the prompt.  It fails unless the generate launches the
+   GEMM kernel 114 + 32 x 113 = 3,730 times and nothing else; the calls,
+   layers, head and logits are held as in phase 6;
 7. times (CUDA events) of every served call: the kernel under the tuned and
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
@@ -242,22 +265,33 @@ SERVICE_WINDOWS = 5
 #: seconds the fresh serving process may take
 SERVE_TIMEOUT_S = 600
 
-#: the model phases, each serving one model at full width and depth,
-#: routed, float32, in a fresh process of its own (the first two do not
-#: fit the card together): arch -> (the tag of its lines, parameters,
-#: layers, d_model, seconds its process may take).  Phase 6: llama3-8b
+#: the model phases, each serving one model at full width, routed,
+#: float32, in a fresh process of its own (the first two do not fit the
+#: card together): arch -> (the tag of its lines, parameters, layers
+#: served, d_model, seconds its process may take).  Phase 6: llama3-8b
 #: (src/repro_torch/configs/llama3_8b.py); phase 6b: deepseek-v2-lite-16b
 #: (configs/deepseek_v2_lite.py: MLA, a dense first layer, 26 MoE layers
 #: of 64 experts top-6 and 2 shared); phase 6c: zamba2-1.2b
 #: (configs/zamba2_1p2b.py: 6 zamba_super blocks of 6 Mamba2 blocks and
 #: the one shared attention block, 2 Mamba2 blocks); phase 6d: rwkv6-1.6b
-#: (configs/rwkv6_1p6b.py: 24 RWKV6 layers)
+#: (configs/rwkv6_1p6b.py: 24 RWKV6 layers); phase 6e: whisper-medium
+#: (configs/whisper_medium.py: 24 encoder and 24 decoder layers); phase
+#: 6f: internvl2-76b (configs/internvl2_76b.py) at the depth of
+#: MODEL_CUTS
 MODEL_PHASES = {
     "llama3-8b": ("model", 8_030_261_248, 32, 4096, 300),
     "deepseek-v2-lite-16b": ("moe", 15_706_484_224, 27, 2048, 420),
     "zamba2-1.2b": ("zamba2", 1_220_805_504, 38, 2048, 300),
     "rwkv6-1.6b": ("rwkv6", 1_615_497_216, 24, 2048, 300),
+    "whisper-medium": ("whisper", 810_987_520, 24, 1024, 300),
+    "internvl2-76b": ("vlm", 15_858_933_760, 16, 8192, 480),
 }
+#: the models served at a cut depth, arch -> layers: internvl2-76b's 80
+#: layers are 282.48 GB of float32 weights; 16 of them (3.42 GB each) with
+#: the embedding, the LM head and the vision projection (8.67 GB) leave
+#: room on the 85.5 GB card for the checks' temporaries (the TF32 rounding
+#: of the (8192, 128256) head takes two 4.2 GB ones)
+MODEL_CUTS = {"internvl2-76b": 16}
 #: requests, prompt and new tokens of each model's generate, greedy
 MODEL_REQUESTS, MODEL_PROMPT, MODEL_NEW = 4, 128, 32
 #: decode steps after the prefill whose logits are held to the plain version
@@ -709,7 +743,7 @@ def serve_service(torch, rt) -> dict:
             "eval_failures": after.eval_failures - before.eval_failures}
 
 
-# -- phases 6 and 6b, each in a fresh process -------------------------------
+# -- phases 6 to 6f, each in a fresh process --------------------------------
 
 def _gemm_calls(cfg, decode: bool) -> int:
     """GEMM launches of one pass from the config, by block kind: an
@@ -719,14 +753,26 @@ def _gemm_calls(cfg, decode: bool) -> int:
     shared experts' 3 linears; a Mamba2 block's in_proj and out_proj; a
     zamba_super's Mamba2 blocks, its in_proj and the shared attention
     block's linears; an RWKV6 layer's 8 (wr, wk, wv, wg, wo, cm_wk, cm_wr,
-    cm_wv); and the LM head."""
+    cm_wv); a ``"dec_cross"`` block's self- and cross-attention's 4 each
+    and its MLP's; the LM head; and at the prefill the VLM's vision
+    projection.  Whisper's encoder is :func:`_encoder_calls`."""
     attn = 3 if decode and cfg.use_mla else 4
     mlp = 3 if cfg.mlp_type == "swiglu" else 2
     per = {"attn": attn + mlp,
            "moe": attn + 3 + (3 if cfg.n_shared_experts else 0),
            "mamba2": 2, "rwkv6": 8,
-           "zamba_super": 2 * cfg.shared_attn_every + 1 + attn + mlp}
-    return sum(repeat * per[kind] for kind, repeat in cfg.segments()) + 1
+           "zamba_super": 2 * cfg.shared_attn_every + 1 + attn + mlp,
+           "dec_cross": 2 * attn + mlp}
+    vision = cfg.family == "vlm" and not decode
+    return sum(repeat * per[kind] for kind, repeat in cfg.segments()) + 1 \
+        + vision
+
+
+def _encoder_calls(cfg) -> int:
+    """GEMM launches of one run of Whisper's encoder: an ``"enc"`` block's
+    q, k, v, o and its MLP's; none for the other families."""
+    mlp = 3 if cfg.mlp_type == "swiglu" else 2
+    return cfg.n_enc_layers * (4 + mlp)
 
 
 def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
@@ -737,10 +783,13 @@ def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
     by each of the ``batch`` stacked items), at the HBM rate; the
     prefill's GEMM operations at the f32 peak (MLA's cached prefill
     expands the whole cache of ``max_len`` through ``wkv_b``; the experts
-    run every capacity row) and the share of the expert rows that carry a
-    token; the f32 decode state by part (KV or latent caches, Mamba2's
-    ``ssm`` and ``conv``, RWKV6's ``S`` and token shifts); the GEMM calls
-    a pass."""
+    run every capacity row; Whisper's encoder and every pass's cross K and
+    V projections of its ``enc_seq`` frames; the VLM's vision projection
+    and its vision tokens through the layers) and the share of the expert
+    rows that carry a token; a decode step's GEMM operations (Whisper's
+    cross K and V apart); the f32 decode state by part (KV or latent
+    caches, Mamba2's ``ssm`` and ``conv``, RWKV6's ``S`` and token
+    shifts); the GEMM calls a pass and of the encoder."""
     from repro_torch.models.mamba2 import _dims
     from repro_torch.models.moe import capacity
     d, V = cfg.d_model, cfg.vocab
@@ -762,10 +811,14 @@ def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
     mamba = d * (2 * d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
                  + n_heads) + d_inner * d
     k = cfg.shared_attn_every
+    # a dec_cross block's cross K and V weights, which read the encoder's
+    # frames rather than the tokens
+    xkv = 2 * d * cfg.kv_heads * cfg.hd()
     floats = {"attn": attn + mlp,
               "moe": attn + 3 * d * cfg.n_shared_experts * f,
               "mamba2": mamba, "zamba_super": k * mamba + 2 * d * d + attn
-              + mlp, "rwkv6": 6 * d * d + 2 * d * cfg.d_ff}
+              + mlp, "rwkv6": 6 * d * d + 2 * d * cfg.d_ff,
+              "dec_cross": 2 * attn + mlp}
     ssm = batch * n_heads * cfg.ssm_headdim * cfg.ssm_state * 4
     conv = batch * (cfg.conv_width - 1) * conv_dim * 4
     wkv = batch * d * cfg.rwkv_head_dim * 4
@@ -773,55 +826,89 @@ def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
     parts = {"attn": {"kv": kv}, "moe": {"kv": kv},
              "mamba2": {"ssm": ssm, "conv": conv},
              "zamba_super": {"ssm": k * ssm, "conv": k * conv, "kv": kv},
-             "rwkv6": {"wkv": wkv, "shift": 2 * batch * d * 4}}
-    body = n_attn = n_moe = 0
+             "rwkv6": {"wkv": wkv, "shift": 2 * batch * d * 4},
+             "dec_cross": {"kv": kv}}
+    body = n_attn = n_moe = n_cross = 0
     for kind, repeat in cfg.segments():
         body += repeat * floats[kind]
         n_attn += repeat * (kind in ("attn", "moe"))
         n_moe += repeat * (kind == "moe")
+        n_cross += repeat * (kind == "dec_cross")
         for part, nbytes in parts[kind].items():
             state[part] += repeat * nbytes
     experts = n_moe * E * 3 * d * f
     C = capacity(cfg, prompt) if n_moe else 0
     rows = E * batch * C
     expert_flop = 2.0 * n_moe * rows * 3 * d * f
-    flop = 2.0 * (batch * prompt * body + batch * max_len * n_attn * wkv_b
-                  + batch * d * V) + expert_flop
+    per_token = body - n_cross * xkv
+    cross_flop = 2.0 * batch * cfg.enc_seq * n_cross * xkv
+    encoder_flop = 2.0 * batch * cfg.enc_seq * cfg.n_enc_layers * (attn
+                                                                   + mlp)
+    seq = prompt + cfg.vision_tokens
+    flop = 2.0 * (batch * seq * per_token + batch * max_len * n_attn * wkv_b
+                  + batch * d * V + batch * cfg.vision_tokens * d * d) \
+        + expert_flop + cross_flop + encoder_flop
+    decode_flop = 2.0 * (batch * (per_token + d * V) + n_moe * E * batch
+                         * (capacity(cfg, 1) if n_moe else 0) * 3 * d * f) \
+        + cross_flop
     return {"expert_floats": experts, "other_floats": body + d * V,
             "decode_bytes_ms": 4.0 * (experts + body + d * V)
             / HBM_BYTES_PER_S * 1e3,
             "decode_launched_ms": 4.0 * (experts + batch * (body + d * V))
             / HBM_BYTES_PER_S * 1e3,
+            "decode_flop": decode_flop,
+            "decode_ops_ms": decode_flop / F32_PEAK_FLOPS * 1e3,
+            "cross_flop": cross_flop, "encoder_flop": encoder_flop,
             "prefill_flop": flop,
             "prefill_ops_ms": flop / F32_PEAK_FLOPS * 1e3,
             "expert_flop": expert_flop, "capacity": C, "expert_rows": rows,
             "useful_rows": batch * prompt * cfg.top_k if n_moe else 0,
             "state_bytes": state,
             "calls_prefill": _gemm_calls(cfg, False),
-            "calls_decode": _gemm_calls(cfg, True)}
+            "calls_decode": _gemm_calls(cfg, True),
+            "calls_encoder": _encoder_calls(cfg)}
+
+
+def _prefill(tf, model, cfg, rt, prompts, extra: dict, caches):
+    """The prefill of ``prompts`` with the family's stub inputs ``extra``
+    (tensors), as ``ServeSession.generate`` runs it: Whisper's encoder runs
+    here once and its output is returned for the decode steps (None for
+    the other families).  Returns (last-token logits, encoder output)."""
+    from repro_torch.models import Ctx
+    enc_out = None
+    batch = {"tokens": prompts}
+    if cfg.family == "audio":
+        enc_out = tf._run_encoder(model, extra["frames"], Ctx(cfg, rt))
+    else:
+        batch.update(extra)
+    last, _ = tf.prefill(model, batch, caches, cfg, runtime=rt,
+                         enc_out=enc_out)
+    return last, enc_out
 
 
 def _teacher_forced(torch, tf, model, cfg, rt, prompts, forced, steps: int,
-                    max_len: int):
-    """Prefill ``prompts``, then ``steps`` decode steps fed ``forced``
-    (teacher-forced), the host never waiting on the card.  Returns the
-    logits of every pass, the prefill's ms and each step's ms (CUDA events
-    between consecutive passes), and each step's host ms (the time its
-    ``decode_step`` call takes to return)."""
+                    max_len: int, extra: dict):
+    """Prefill ``prompts`` (with the family's stub inputs ``extra``; the
+    prefill's time includes Whisper's encoder), then ``steps`` decode
+    steps fed ``forced`` (teacher-forced) at their true positions, the
+    host never waiting on the card.  Returns the logits of every pass, the
+    prefill's ms and each step's ms (CUDA events between consecutive
+    passes), and each step's host ms (the time its ``decode_step`` call
+    takes to return)."""
     caches = tf.init_decode_state(cfg, prompts.shape[0], max_len,
                                   dtype=torch.float32, device="cuda")
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
     host = []
     torch.cuda.synchronize()
     events[0].record()
-    last, caches = tf.prefill(model, {"tokens": prompts}, caches, cfg,
-                              runtime=rt)
+    last, enc_out = _prefill(tf, model, cfg, rt, prompts, extra, caches)
     events[1].record()
     logits = [last]
     for t in range(steps):
         h0 = time.perf_counter()
         last, caches = tf.decode_step(model, forced[:, t:t + 1], caches, cfg,
-                                      runtime=rt)
+                                      runtime=rt, enc_out=enc_out,
+                                      pos=prompts.shape[1] + t)
         host.append(1e3 * (time.perf_counter() - h0))
         events[t + 2].record()
         logits.append(last)
@@ -974,35 +1061,47 @@ def _clone(node):
     return node.clone() if hasattr(node, "clone") else node
 
 
+def _hooked_layers(model) -> list:
+    """``(name, module)`` of every layer the checks replay: the decoder's
+    ``layers.i`` and Whisper's encoder blocks ``encoder.blocks.j``."""
+    out = [(f"layers.{i}", blk) for i, blk in enumerate(model.layers)]
+    if model.encoder is not None:
+        out += [(f"encoder.blocks.{j}", blk)
+                for j, blk in enumerate(model.encoder.blocks)]
+    return out
+
+
 def _layer_inputs(torch, model):
-    """Forward pre-hooks on every layer that append ``(layer, input, a
-    copy of its cache as the layer found it, its keyword arguments)`` to
-    the first returned list, and a forward hook on the model that appends
-    the last position of its final hidden state (what the final norm and
-    the LM head read) to the second; call the returned remover to take
-    them off."""
+    """Forward pre-hooks on every layer of :func:`_hooked_layers` that
+    append ``(layer name, input, a copy of its cache as the layer found
+    it, its keyword arguments)`` to the first returned list, and a forward
+    hook on the model that appends the last position of its final hidden
+    state (what the final norm and the LM head read) to the second; call
+    the returned remover to take them off."""
     seen: list = []
     finals: list = []
 
-    def grab(i, args, kwargs):
-        seen.append((i, args[0].clone(),
+    def grab(name, args, kwargs):
+        seen.append((name, args[0].clone(),
                      _clone(args[2] if len(args) > 2 else None), kwargs))
 
     hooks = [blk.register_forward_pre_hook(
-        lambda mod, args, kwargs, i=i: grab(i, args, kwargs),
-        with_kwargs=True) for i, blk in enumerate(model.layers)]
+        lambda mod, args, kwargs, name=name: grab(name, args, kwargs),
+        with_kwargs=True) for name, blk in _hooked_layers(model)]
     hooks.append(model.register_forward_hook(
         lambda mod, args, out: finals.append(out[0][:, -1:].clone())))
     return seen, finals, lambda: [h.remove() for h in hooks]
 
 
 def _layer_outputs(model, c, rt, inputs) -> list:
-    """Each captured ``(layer, input, cache, kwargs)`` run through its layer
-    under config ``c`` from a copy of the captured cache: the outputs."""
+    """Each captured ``(layer name, input, cache, kwargs)`` run through its
+    layer under config ``c`` from a copy of the captured cache: the
+    outputs."""
     from repro_torch.models import Ctx
     outs = []
-    for i, x, cache, kwargs in inputs:
-        out = model.layers[i](x, Ctx(c, rt), _clone(cache), **kwargs)
+    for name, x, cache, kwargs in inputs:
+        out = model.get_submodule(name)(x, Ctx(c, rt), _clone(cache),
+                                        **kwargs)
         outs.append(out[0] if isinstance(out, tuple) else out)
     return outs
 
@@ -1176,30 +1275,36 @@ def model_main(registry_dir: str, arch: str) -> None:
     from repro_torch.core.registry import load_subroutine
     from repro_torch.kernels import introspect
     from repro_torch.kernels import ops as kops
-    from repro_torch.launch.serve import ServeSession
+    from repro_torch.launch.serve import ServeSession, stub_inputs
+    from repro_torch.models import Ctx
     from repro_torch.models import transformer as tf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rt = AdsalaRuntime()
     rt.register(load_subroutine(Path(registry_dir) / "hopper__gemm_b4.adsala"))
-    cfg = dataclasses.replace(get_config(arch), use_pallas_gemm=True,
-                              compute_dtype="float32")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, use_pallas_gemm=True,
+                              compute_dtype="float32",
+                              n_layers=MODEL_CUTS.get(arch, full.n_layers))
     plain = dataclasses.replace(cfg, use_pallas_gemm=False)
-    max_len = MODEL_PROMPT + MODEL_NEW + 8
+    # the VLM's vision tokens take cache positions ahead of the prompt
+    max_len = MODEL_PROMPT + MODEL_NEW + 8 + cfg.vision_tokens
     t0 = time.perf_counter()
     model = tf.init_params(SEED, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = tf.param_count(model)
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (MODEL_REQUESTS, MODEL_PROMPT), dtype=np.int32)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (MODEL_REQUESTS, MODEL_PROMPT),
+                           dtype=np.int32)
+    stub = stub_inputs(cfg, MODEL_REQUESTS, rng)
     sess = ServeSession(cfg=cfg, params=model, max_len=max_len, runtime=rt,
                         device="cuda")
 
     # the main path: counts and decisions from 0 just before, read after
     introspect.reset_launches()
     t0 = time.perf_counter()
-    tokens = sess.generate(prompts, max_new=MODEL_NEW)
+    tokens = sess.generate(prompts, max_new=MODEL_NEW, **stub)
     generate_s = time.perf_counter() - t0
     launches = introspect.launch_counts()
     stats = rt.stats.for_backend("hopper")
@@ -1210,26 +1315,38 @@ def model_main(registry_dir: str, arch: str) -> None:
 
     p_t = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
     forced = torch.as_tensor(tokens, dtype=torch.long, device="cuda")
+    extra = {k: torch.as_tensor(v, device="cuda") for k, v in stub.items()}
 
     def label(grid):
-        # an expert stack's grid z is the E experts, a linear's the requests
-        return "expert" if grid[2] == cfg.n_experts else "linear"
+        # an expert stack's grid z is the E experts, a linear's the
+        # requests; at a decode step only Whisper's cross K and V, which
+        # project the encoder's frames, span more than one row tile
+        if cfg.n_experts and grid[2] == cfg.n_experts:
+            return "expert"
+        return "cross K/V" if cfg.family == "audio" and grid[1] > 1 \
+            else "linear"
 
     with torch.inference_mode():
         _, prefill_ms, step_ms, host_ms = _teacher_forced(
-            torch, tf, model, cfg, rt, p_t, forced, MODEL_NEW, max_len)
+            torch, tf, model, cfg, rt, p_t, forced, MODEL_NEW, max_len,
+            extra)
         profile = _device_profile(torch, lambda: _teacher_forced(
             torch, tf, model, cfg, rt, p_t, forced, MODEL_CHECK_STEPS,
-            max_len), label)
+            max_len, extra), label)
         # the decode steps alone (their prefill before the window)
         caches = tf.init_decode_state(cfg, MODEL_REQUESTS, max_len,
                                       dtype=torch.float32, device="cuda")
-        tf.prefill(model, {"tokens": p_t}, caches, cfg, runtime=rt)
+        _, enc_out = _prefill(tf, model, cfg, rt, p_t, extra, caches)
         decode_profile = _device_profile(torch, lambda: [
             tf.decode_step(model, forced[:, t:t + 1], caches, cfg,
-                           runtime=rt) for t in range(MODEL_CHECK_STEPS)],
-            label)
-        del caches
+                           runtime=rt, enc_out=enc_out,
+                           pos=MODEL_PROMPT + t)
+            for t in range(MODEL_CHECK_STEPS)], label)
+        del caches, enc_out
+        # Whisper's encoder alone, as the session runs it once a generate
+        encoder_profile = (_device_profile(torch, lambda: tf._run_encoder(
+            model, extra["frames"], Ctx(cfg, rt)))
+            if cfg.family == "audio" else None)
         host_us = _linear_host_us(torch, model, cfg, rt)
         stacks = (_expert_stack_times(torch, model, cfg, rt)
                   if cfg.n_experts else [])
@@ -1240,7 +1357,7 @@ def model_main(registry_dir: str, arch: str) -> None:
         # such as rwkv6 parts from it as its knobs do)
         plain_tokens = ServeSession(cfg=plain, params=model, max_len=max_len,
                                     device="cuda").generate(
-            prompts, max_new=MODEL_NEW)
+            prompts, max_new=MODEL_NEW, **stub)
         check = torch.as_tensor(plain_tokens, dtype=torch.long,
                                 device="cuda")
         # every MoE layer's input captured in both; in the routed run every
@@ -1264,7 +1381,7 @@ def model_main(registry_dir: str, arch: str) -> None:
             with mock.patch.object(kops, "run_op", checked):
                 logits, _, _, _ = _teacher_forced(
                     torch, tf, model, c, r, p_t, check, MODEL_CHECK_STEPS,
-                    max_len)
+                    max_len, extra)
             remove()
             captured[c.use_pallas_gemm] = (logits, seen)
         remove_layers()
@@ -1288,11 +1405,12 @@ def model_main(registry_dir: str, arch: str) -> None:
         ssm = (_scan_gap(torch, tf, model, cfg, rt, p_t, max_len)
                if cfg.family in ("hybrid", "ssm") else None)
         _, plain_prefill_ms, plain_step_ms, plain_host_ms = _teacher_forced(
-            torch, tf, model, plain, None, p_t, forced, MODEL_NEW, max_len)
+            torch, tf, model, plain, None, p_t, forced, MODEL_NEW, max_len,
+            extra)
 
         def plain_logits():
             return _teacher_forced(torch, tf, model, plain, None, p_t, check,
-                                   MODEL_CHECK_STEPS, max_len)[0]
+                                   MODEL_CHECK_STEPS, max_len, extra)[0]
 
         def plain_pieces():
             return (plain_logits(),
@@ -1322,7 +1440,6 @@ def model_main(registry_dir: str, arch: str) -> None:
                     mock.patch.object(rwkv6, "CUM_FLOOR", -math.inf):
                 free_floor = _logits_err(
                     _one_ulp(torch, weights, plain_logits), plain_logits())
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # the precision the limits must reject: the same plain passes, and
         # each layer's and the head's, with those weights rounded to TF32's
         # 10-bit mantissa, in place (the model's last use)
@@ -1333,8 +1450,11 @@ def model_main(registry_dir: str, arch: str) -> None:
         layer_tf32 = max(_rel_err(got, w) for got, w in zip(
             layer_rounded, layer_want, strict=True))
         head_tf32 = _logits_err(head_rounded, head_want)
+        # the process's peak, the checks' temporaries included
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print("MODEL_RESULT " + json.dumps({
         "arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+        "full_layers": full.n_layers, "enc_seq": cfg.enc_seq,
         "d_model": cfg.d_model, "segments": cfg.segments(),
         "init_s": init_s, "generate_s": generate_s,
         "launches": launches, "decisions": decisions,
@@ -1350,6 +1470,7 @@ def model_main(registry_dir: str, arch: str) -> None:
         "head_tf32": head_tf32, "head_floor": head_floor, "peak_gb": peak_gb,
         "parity": parity, "flips": flips, "stacks": stacks, "ssm": ssm,
         "profile": profile, "decode_profile": decode_profile,
+        "encoder_profile": encoder_profile,
         "reckoning": _reckoning(cfg, MODEL_REQUESTS, MODEL_PROMPT,
                                 max_len)}), flush=True)
 
@@ -1364,27 +1485,36 @@ def report_model(card: str, arch: str, res: dict) -> None:
     and the logits within :data:`MODEL_TOL` of the plain version (the TF32
     reading above it), or :data:`FLOOR_FACTOR` times the plain model's own
     float32 noise floor where that floor lies above the limit, or apart
-    only through routing flips that are near ties."""
+    only through routing flips that are near ties.  A model of
+    :data:`MODEL_CUTS` is held to its cut depth, which the lines name."""
     tag, n_params, n_layers, d_model, _ = MODEL_PHASES[arch]
     rk = res["reckoning"]
-    expected = rk["calls_prefill"] + MODEL_NEW * rk["calls_decode"]
+    expected = (rk["calls_encoder"] + rk["calls_prefill"]
+                + MODEL_NEW * rk["calls_decode"])
+    encoder = (f"{rk['calls_encoder']} (the encoder, once) + "
+               if rk["calls_encoder"] else "")
+    depth = ("full width and depth" if arch not in MODEL_CUTS else
+             f"full width and a cut depth, {MODEL_CUTS[arch]} of its "
+             f"{res['full_layers']} layers")
     steps = sorted(res["step_ms"])
     mid = len(steps) // 2
     host_med = sorted(res["host_ms"])[mid]
     tokens = MODEL_REQUESTS * MODEL_PROMPT
     agree = [sum(a == b for a, b in zip(r, p))
              for r, p in zip(res["tokens"], res["plain_tokens"])]
-    print(f"[{tag}] [{card}] {res['arch']}: {res['layers']} layers "
-          f"{res['segments']}, d_model {res['d_model']}, "
+    print(f"[{tag}] [{card}] {res['arch']} at {depth}: {res['layers']} "
+          f"layers {res['segments']}, d_model {res['d_model']}, "
           f"{res['params']:,} parameters (float32), initialised on the card "
           f"in {res['init_s']:.2f} s; peak {res['peak_gb']:.2f} GB "
           f"allocated", flush=True)
     print(f"[{tag}] [{card}] generate: {MODEL_REQUESTS} requests x "
           f"{MODEL_PROMPT} prompt tokens, {MODEL_NEW} new (greedy) in "
           f"{res['generate_s']:.3f} s; launches {res['launches']} (expected "
-          f"gemm {rk['calls_prefill']} + {MODEL_NEW} x {rk['calls_decode']} "
-          f"= {expected}); decisions {res['decisions']}", flush=True)
-    print(f"[{tag}] [{card}] prefill {res['prefill_ms']:.3f} ms "
+          f"gemm {encoder}{rk['calls_prefill']} + {MODEL_NEW} x "
+          f"{rk['calls_decode']} = {expected}); decisions "
+          f"{res['decisions']}", flush=True)
+    print(f"[{tag}] [{card}] prefill{' (the encoder included)' * bool(encoder)}"
+          f" {res['prefill_ms']:.3f} ms "
           f"({tokens / res['prefill_ms'] * 1e3:.1f} tokens/s; plain "
           f"{res['plain_prefill_ms']:.3f} ms) | decode per step median "
           f"{steps[mid]:.3f} ms over {len(steps)} (min {steps[0]:.3f}, max "
@@ -1408,6 +1538,29 @@ def report_model(card: str, arch: str, res: dict) -> None:
               f"{prof['idle_share']:.4f}; GEMM kernel {prof['gemm_ms']:.3f} "
               f"ms = {prof['gemm_share']:.4f} of device time "
               f"{prof['device_ms']:.3f} ms{apart}", flush=True)
+    cross = (res["decode_profile"]["gemm_by_label"] or {}) if encoder else {}
+    if encoder:
+        per_step = {k: ms / MODEL_CHECK_STEPS for k, ms in cross.items()}
+        print(f"[{tag}:cross] [{card}] a decode step's cross-attention K and "
+              f"V projections of the encoder's {MODEL_REQUESTS} x "
+              f"{res['enc_seq']} frames (recomputed every step, as the "
+              f"reference does): " + (
+                  f"{per_step.get('cross K/V', 0.0):.3f} ms of the step's GEMM "
+                  f"{sum(per_step.values()):.3f} ms (device time, "
+                  f"{MODEL_CHECK_STEPS} steps alone); their operations "
+                  f"{rk['cross_flop'] / 1e12:.3f} TFLOP = "
+                  f"{rk['cross_flop'] / F32_PEAK_FLOPS * 1e3:.3f} ms at "
+                  f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s" if cross else
+                  "not measured (launches and profiled kernels differ)"),
+              flush=True)
+        enc = res["encoder_profile"]
+        print(f"[{tag}:encoder] [{card}] the encoder alone ({rk['calls_encoder']}"
+              f" GEMM launches, once a generate): busy {enc['busy_ms']:.3f} "
+              f"ms of a {enc['window_ms']:.3f} ms window; GEMM kernel "
+              f"{enc['gemm_ms']:.3f} ms = {enc['gemm_share']:.4f} of device "
+              f"time; its GEMM operations {rk['encoder_flop'] / 1e12:.3f} "
+              f"TFLOP = {rk['encoder_flop'] / F32_PEAK_FLOPS * 1e3:.3f} ms at "
+              f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
     for name, ms in res["profile"]["top"]:
         print(f"[{tag}:top] [{card}] {ms:10.3f} ms  {name}", flush=True)
     at, host_us = res["host_us"]
@@ -1433,13 +1586,17 @@ def report_model(card: str, arch: str, res: dict) -> None:
           f"GB): {rk['decode_bytes_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12} "
           f"TB/s, {rk['decode_launched_ms']:.3f} ms as launched (each "
           f"expert once, the other weights by each of the {MODEL_REQUESTS} "
-          f"stacked items); prefill {rk['prefill_flop'] / 1e12:.3f} TFLOP "
+          f"stacked items), its operations {rk['decode_flop'] / 1e12:.3f} "
+          f"TFLOP = {rk['decode_ops_ms']:.3f} ms; prefill "
+          f"{rk['prefill_flop'] / 1e12:.3f} TFLOP "
           f"= {rk['prefill_ops_ms']:.3f} ms at "
           f"{F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s{experts}; decode state "
           + " + ".join(f"{part} {nbytes / 1e6:.1f} MB" for part, nbytes
                        in rk["state_bytes"].items() if nbytes)
           + f"; {rk['calls_prefill']} GEMM calls a prefill, "
-          f"{rk['calls_decode']} a decode step", flush=True)
+          f"{rk['calls_decode']} a decode step"
+          + (f", {rk['calls_encoder']} the encoder's" if encoder else ""),
+          flush=True)
     worst = max(res["parity"], key=lambda r: r[2], default=None)
     if worst is not None:
         print(f"[{tag}] [{card}] per-layer MoE, routed vs plain on the same "
@@ -1506,8 +1663,9 @@ def report_model(card: str, arch: str, res: dict) -> None:
           f"{MODEL_REQUESTS * MODEL_NEW} positions", flush=True)
     if (res["params"], res["layers"], res["d_model"]) \
             != (n_params, n_layers, d_model):
-        raise SystemExit(f"[{tag}] not {arch} at full width and depth: "
-                         f"{res['params']} parameters")
+        raise SystemExit(f"[{tag}] not {arch} at {depth}: "
+                         f"{res['params']} parameters, {res['layers']} "
+                         f"layers")
     want = {k: 0 for k in KERNELS}
     want["gemm"] = expected
     if res["launches"] != want:
@@ -2472,10 +2630,10 @@ def main(argv: list[str]) -> int:
         if proc.returncode != 0:
             raise SystemExit(f"[serve] fresh process failed "
                              f"({proc.returncode}):\n{proc.stdout[-4000:]}")
-        # 6 to 6d. each model from a fresh process of its own, once the
-        # last has exited: their weights (32 GB, 62.83 GB, 4.88 GB, 6.46 GB)
-        # never meet each other, phase 5's operands or what this process's
-        # allocator holds
+        # 6 to 6f. each model from a fresh process of its own, once the
+        # last has exited: their weights (32 GB, 62.83 GB, 4.88 GB, 6.46 GB,
+        # 3.24 GB, 63.44 GB) never meet each other, phase 5's operands or
+        # what this process's allocator holds
         models = {}
         for arch, (tag, *_, timeout) in MODEL_PHASES.items():
             torch.cuda.empty_cache()
@@ -2586,13 +2744,15 @@ def main(argv: list[str]) -> int:
             "bound_by": ("operations" if 2 * t["ops_bound_ms"]
                          >= t["bound_ms"] else "bytes"),
             "library_ms": t["library_ms"]})
-    # the model paths' GEMM launches (phases 6 to 6d fail unless they are
+    # the model paths' GEMM launches (phases 6 to 6f fail unless they are
     # these)
     entry = next(k for k in kernels if k["name"] == "gemm")
     entry["model_launches"] = model_launches["llama3-8b"]
     entry["moe_model_launches"] = model_launches["deepseek-v2-lite-16b"]
     entry["zamba2_model_launches"] = model_launches["zamba2-1.2b"]
     entry["rwkv6_model_launches"] = model_launches["rwkv6-1.6b"]
+    entry["whisper_model_launches"] = model_launches["whisper-medium"]
+    entry["vlm_model_launches"] = model_launches["internvl2-76b"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,15 @@ compute, as the reference's routed paths run it): every dense matmul —
 QKV or MLA's projections, the output projection, the MLP, Mamba2's and
 RWKV6's projections, zamba2's shared-block input projection and the LM
 head — is one ``run_op`` GEMM, and so is each of an MoE layer's three
-expert matmuls over all its experts; on the card each launches the
-hand-written Hopper kernel under the knob the runtime picks.  The dense,
-MoE, hybrid and SSM families serve (``--arch llama3-8b``,
-``granite-moe-3b-a800m``, ``deepseek-v2-lite-16b``, ``zamba2-1.2b``,
-``rwkv6-1.6b``, ...); the recurrent ones carry their O(1) state a layer
-from the prefill into the decode steps.  ``--models DIR`` loads the installed artifacts of
+expert matmuls over all its experts, and so are Whisper's encoder and
+cross-attention linears and the VLM's vision projection; on the card each
+launches the hand-written Hopper kernel under the knob the runtime picks.
+Every family serves (``--arch llama3-8b``, ``granite-moe-3b-a800m``,
+``deepseek-v2-lite-16b``, ``zamba2-1.2b``, ``rwkv6-1.6b``,
+``whisper-medium``, ``internvl2-76b``, ...); the recurrent ones carry their
+O(1) state a layer from the prefill into the decode steps.  Whisper's
+requests carry stub frame embeddings and the VLM's stub patch embeddings,
+drawn like the prompts from ``numpy.random.default_rng(0)``.  ``--models DIR`` loads the installed artifacts of
 ``DIR`` (``repro_torch.launch.calibrate --out X`` writes them to
 ``X/models``) so the knobs come from the learned model; without it every
 decision is the default knob.  ``--device`` defaults to the card.
@@ -39,10 +42,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import AdsalaRuntime, ModelRegistry
 from repro_torch.models import (decode_step, init_decode_state, init_params,
                                 prefill)
-from repro_torch.models.layers import torch_dtype
-from repro_torch.models.transformer import resolve_device
+from repro_torch.models.layers import Ctx, torch_dtype
+from repro_torch.models.transformer import _run_encoder, resolve_device
 
-__all__ = ["ServeSession", "main"]
+__all__ = ["ServeSession", "main", "stub_inputs"]
 
 
 @dataclasses.dataclass
@@ -62,28 +65,45 @@ class ServeSession:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, *, max_new: int = 32,
-                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+                 temperature: float = 0.0, seed: int = 0,
+                 frames: np.ndarray | None = None,
+                 vision: np.ndarray | None = None) -> np.ndarray:
         """prompts: (B, S_prompt) int → (B, max_new) int32.  Greedy at
         ``temperature`` 0, else sampled with a ``torch.Generator`` seeded
-        with ``seed``."""
+        with ``seed``.  Whisper takes ``frames`` (B, enc_seq, d): the
+        encoder runs once, and every decode step reads its output at the
+        token's true position ``S_prompt + t``.  The VLM takes ``vision``
+        (B, vision_tokens, d), which the prefill puts ahead of the prompt
+        (``max_len`` must hold both)."""
         cfg = self.cfg
-        B = prompts.shape[0]
+        B, S = prompts.shape
         caches = init_decode_state(cfg, B, self.max_len,
                                    dtype=torch_dtype(cfg.compute_dtype),
                                    device=self.device)
-        tokens = torch.as_tensor(np.asarray(prompts, dtype=np.int64),
-                                 device=self.device)
-        logits, caches = prefill(self.params, {"tokens": tokens}, caches,
-                                 cfg, runtime=self.runtime)
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts, dtype=np.int64),
+                                           device=self.device)}
+        enc_out = None
+        if cfg.family == "audio":
+            enc_out = _run_encoder(self.params, self._floats(frames),
+                                   Ctx(cfg, self.runtime))
+        if cfg.family == "vlm":
+            batch["vision"] = self._floats(vision)
+        logits, caches = prefill(self.params, batch, caches, cfg,
+                                 runtime=self.runtime, enc_out=enc_out)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = []
         tok = self._sample(logits[:, -1], temperature, gen)
-        for _ in range(max_new):
+        for t in range(max_new):
             out.append(tok)
             logits, caches = decode_step(self.params, tok, caches, cfg,
-                                         runtime=self.runtime)
+                                         runtime=self.runtime,
+                                         enc_out=enc_out, pos=S + t)
             tok = self._sample(logits[:, -1], temperature, gen)
         return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+
+    def _floats(self, x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                               device=self.device)
 
     @staticmethod
     def _sample(logits: torch.Tensor, temperature: float,
@@ -92,6 +112,22 @@ class ServeSession:
             return logits.argmax(-1, keepdim=True)
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen)
+
+
+def stub_inputs(cfg: ModelConfig, requests: int,
+                rng: np.random.Generator) -> dict:
+    """The stub inputs of ``requests`` requests for ``generate``, standard
+    normal float32 from ``rng`` (as the reference's ``main`` draws them
+    after the prompts): Whisper's ``frames`` (requests, enc_seq, d), the
+    VLM's ``vision`` (requests, vision_tokens, d); none for the other
+    families."""
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+            (requests, cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"vision": rng.standard_normal(
+            (requests, cfg.vision_tokens, cfg.d_model)).astype(np.float32)}
+    return {}
 
 
 def main(argv=None):
@@ -117,8 +153,10 @@ def main(argv=None):
         print(f"[serve] loaded {loaded} {cfg.gemm_backend} artifacts from "
               f"{args.models}")
     params = init_params(0, cfg, device=args.device)
+    # the VLM's vision tokens take cache positions ahead of the prompt
     sess = ServeSession(cfg=cfg, params=params,
-                        max_len=args.prompt_len + args.max_new + 8,
+                        max_len=(args.prompt_len + args.max_new + 8
+                                 + cfg.vision_tokens),
                         runtime=runtime, device=args.device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab,
@@ -126,7 +164,8 @@ def main(argv=None):
                            dtype=np.int32)
     t0 = time.perf_counter()
     out = sess.generate(prompts, max_new=args.max_new,
-                        temperature=args.temperature)
+                        temperature=args.temperature,
+                        **stub_inputs(cfg, args.requests, rng))
     dt = time.perf_counter() - t0
     toks = args.requests * args.max_new
     stats = runtime.stats.for_backend(cfg.gemm_backend)

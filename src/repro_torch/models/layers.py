@@ -311,26 +311,35 @@ def _dense_decode_attention(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
-              cache: dict | None = None):
-    """Causal GQA self-attention with RoPE (the reference's, as its
-    ``"attn"`` blocks call it).  ``cache`` (decode): {k, v: (B, T, KH, D);
-    len: int}, written in place at ``len`` (the reference's functional
-    update) and returned alongside the output."""
+              kv_x: torch.Tensor | None = None, causal: bool = True,
+              positions: torch.Tensor | None = None,
+              cache: dict | None = None, use_rope: bool = True):
+    """GQA attention (the reference's): self-attention on ``x``, or
+    cross-attention with K and V projected from ``kv_x`` (whose length may
+    differ from the query's), causal or not, with RoPE at ``positions``
+    (default: the cache's length onwards, or 0 onwards) unless
+    ``use_rope`` is False.  ``cache`` (decode): {k, v: (B, T, KH, D); len:
+    int}, written in place at ``len`` (the reference's functional update)
+    and returned alongside the output; a call with ``kv_x`` has none."""
     cfg = ctx.cfg
     B, S, _ = x.shape
     hd = cfg.hd()
+    kv_in = x if kv_x is None else kv_x
+    T = kv_in.shape[1]
     q = linear(p.wq, x, ctx).reshape(B, S, cfg.n_heads, hd)
-    k = linear(p.wk, x, ctx).reshape(B, S, cfg.kv_heads, hd)
-    v = linear(p.wv, x, ctx).reshape(B, S, cfg.kv_heads, hd)
+    k = linear(p.wk, kv_in, ctx).reshape(B, T, cfg.kv_heads, hd)
+    v = linear(p.wv, kv_in, ctx).reshape(B, T, cfg.kv_heads, hd)
     if cache is not None:
         start = cache["len"]
         ck, cv = cache["k"], cache["v"]
         if start + S > ck.shape[1]:
             raise ValueError(f"the cache holds {ck.shape[1]} positions; "
                              f"{start} are taken and {S} more do not fit")
-        positions = start + torch.arange(S, device=x.device)[None, :]
-        q = rope(q, positions, theta=cfg.rope_theta)
-        k = rope(k, positions, theta=cfg.rope_theta)
+        if use_rope:
+            if positions is None:
+                positions = start + torch.arange(S, device=x.device)[None, :]
+            q = rope(q, positions, theta=cfg.rope_theta)
+            k = rope(k, positions, theta=cfg.rope_theta)
         ck[:, start:start + S] = k
         cv[:, start:start + S] = v
         cache["len"] = start + S
@@ -340,15 +349,18 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
         else:
             valid = torch.full((B,), start + S, device=x.device)
             out = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                  causal=True, q_offset=start,
+                                  causal=causal, q_offset=start,
                                   q_chunk=min(cfg.attn_q_chunk, S),
                                   k_chunk=cfg.attn_k_chunk,
                                   kv_valid_len=valid)
     else:
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-        q = rope(q, positions, theta=cfg.rope_theta)
-        k = rope(k, positions, theta=cfg.rope_theta)
-        out = flash_attention(q, k, v, causal=True,
+        if use_rope:
+            if positions is None:
+                positions = torch.arange(S, device=x.device)[None, :].expand(
+                    B, S)
+            q = rope(q, positions, theta=cfg.rope_theta)
+            k = rope(k, positions, theta=cfg.rope_theta)
+        out = flash_attention(q, k, v, causal=causal,
                               q_chunk=cfg.attn_q_chunk,
                               k_chunk=cfg.attn_k_chunk,
                               causal_skip=cfg.causal_skip)

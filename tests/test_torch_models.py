@@ -39,7 +39,6 @@ TOL = 1e-5
 
 #: the dense family: GQA, QKV bias, GELU with GQA, MQA (kv_heads=1)
 DENSE = ("llama3_8b", "qwen15_4b", "starcoder2_15b", "granite_20b")
-UNPORTED = ("whisper_medium", "internvl2_76b")
 B, S = 2, 16
 
 
@@ -350,15 +349,6 @@ def test_init_scales_follow_the_reference():
     again = ptf.init_params(3, cfg, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
                                                  again.parameters()))
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_family_raises(arch):
-    cfg = pconfigs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ptf.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ptf.init_decode_state(cfg, 1, 8, device="cpu")
 
 
 def test_cuda_without_a_card_raises():
