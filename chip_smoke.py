@@ -46,7 +46,14 @@ calls, and fails (non-zero exit) if any phase fails:
    launching fewer blocks than ``tri``;
 4. install: ``repro_torch.launch.calibrate`` times the kernels on the card
    and persists ``hopper__{gemm,symm,syrk,syr2k,trmm,trsm}_b4.adsala`` into
-   a temporary registry;
+   a temporary registry; then the prewarm: every model phase's decision
+   keys harvested on the meta device at that phase's shapes
+   (``roofline/harvest.py``), the GEMM knob space pruned by the H100
+   oracle at them (a reading), the oracle's Spearman rank correlation with
+   the install's labels per op (a reading), the registry's decision cache
+   prewarmed with every key, and ``scripts/torch_prewarm_model.py --timer
+   wallclock`` for llama3-8b into a registry of its own, which must exit
+   0;
 5. serve: a fresh process loads those artifacts into a new
    ``AdsalaRuntime`` and calls ``run_op``: the GEMMs of the llama3-8b
    linears (d_model 4096, 8 KV heads x 128, d_ff 14336) at 8 and 2048
@@ -71,7 +78,24 @@ calls, and fails (non-zero exit) if any phase fails:
    ``F32_TOL`` of the plain version of its request, the recorded launches
    equal to the buckets executed, mean batch above 1, no failure;
    requests/s through the service against one ``run_op`` per request, in
-   windows alternated with the service's, as median, min and max;
+   windows alternated with the service's, as median, min and max.  Then
+   the retune phase on a copy of the registry: the same traffic through a
+   ``BlasService`` with a ``Retuner`` of the default ``RetuneConfig`` (the
+   reference's thresholds; each served point anchors its drift signal on
+   its first 3 samples), ``step()`` after each window, 12 windows after
+   the cold one that may read no drift, each op's probes printed against
+   the install's own timer and the installed model; the served GEMM knob's
+   time x 4 fed as telemetry, which one ``step()`` must detect, refit,
+   save under the next artifact version and swap, the decisions after it
+   equal to a fresh runtime loading the saved artifact and the new knob's
+   kernel within ``F32_TOL`` of its plain version; the drift readings
+   under a co-tenant matmul.  Then the fleet phase: a ``FleetService`` of
+   2 executor processes on the card (spawned) over the artifacts in this
+   host's fingerprint sub-registry, the same traffic, every result equal
+   to the in-process ``run_op`` bit for bit, every executor's resolution
+   naming this card, a warm join with no model evaluation, an executor
+   SIGKILLed and respawned with no future lost, and requests/s of the
+   fleet, the in-process service and one ``run_op`` each, alternated;
 6. model: another fresh process loads the installed ``hopper__gemm_b4``
    artifact into a new ``AdsalaRuntime``, builds llama3-8b at full width
    and depth (32 layers, 8,030,261,248 float32 parameters) on the card
@@ -80,7 +104,10 @@ calls, and fails (non-zero exit) if any phase fails:
    ``ServeSession.generate`` (one prefill and 32 decode steps).  It fails
    unless that generate launches the GEMM kernel 225 x 33 = 7,425 times
    (7 linears a block and the LM head, every pass) and nothing else,
-   every decision comes from the installed model, and, over a prefill
+   every decision comes from the prewarmed cache (no model evaluation,
+   no default, every call a cache hit, the keys asked for equal to the
+   harvested ones, each cached knob the installed model's own argmin
+   decided afresh), and, over a prefill
    and 4 decode steps teacher-forced on the plain model's greedy tokens,
    every GEMM call of the routed run lies within ``F32_TOL`` of
    ``torch.matmul`` on its operands (TF32-rounded operands above it),
@@ -200,6 +227,7 @@ prints no result line.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import faulthandler
 import itertools
@@ -210,6 +238,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -264,6 +293,29 @@ SERVICE_MAX_BATCH, SERVICE_WORKERS = 8, 2
 SERVICE_WINDOWS = 5
 #: seconds the fresh serving process may take
 SERVE_TIMEOUT_S = 600
+#: the prewarm phase: the oracle's dominance band for the pruned-space
+#: reading, and scripts/torch_prewarm_model.py's install of llama3-8b's
+#: harvested keys, timed on the card, with the seconds it may take
+PREWARM_SLACK = 0.15
+PREWARM_ARGS = ("--arch", "llama3-8b", "--batch", "4", "--seq", "128",
+                "--max-new", "32", "--timer", "wallclock", "--n-samples",
+                "32", "--tune-trials", "1", "--candidates",
+                "LinearRegression,DecisionTree")
+PREWARM_TIMEOUT_S = 240
+#: the retune phase: windows of phase 5's traffic after the cold one, a
+#: step() after each and none of them may read drift (a window gives each
+#: op one sample: the default retuner's 3 anchoring samples, then its
+#: min_samples 8, and one to spare), the drift fed as telemetry (the
+#: reference retune_bench's DRIFT_MULT), and the co-tenant's windows and
+#: matmul edge
+RETUNE_WINDOWS = 12
+DRIFT_MULT = 4.0
+COTENANT_WINDOWS = 3
+COTENANT_SHAPE = 8192
+#: the fleet phase: executor processes, and rounds of alternated windows
+#: (fleet, in-process service, one run_op per request)
+FLEET_PROCESSES = 2
+FLEET_ROUNDS = 3
 
 #: the model phases, each serving one model at full width, routed,
 #: float32, in a fresh process of its own (the first two do not fit the
@@ -542,10 +594,13 @@ def plain_of(op: str, knob: dict):
 
 # -- phase 5, in a fresh process --------------------------------------------
 
-def serve_main(registry_dir: str) -> None:
+def serve_main(registry_dir: str, retune_dir: str, fleet_dir: str) -> None:
     """Load the installed artifacts into a new runtime and serve the main
-    paths' calls, then the same runtime behind a ``BlasService``; prints
-    one ``SERVE_RESULT {json}`` line."""
+    paths' calls, then the same runtime behind a ``BlasService``, then the
+    retune phase (:func:`retune_phase`, on the copy of the registry in
+    ``retune_dir``) and the fleet phase (:func:`fleet_phase`, the
+    artifacts copied into the sub-registry of this host's fingerprint
+    under ``fleet_dir``); prints one ``SERVE_RESULT {json}`` line."""
     # a stuck phase prints every thread's stack before the parent's
     # timeout kills this process
     faulthandler.dump_traceback_later(SERVE_TIMEOUT_S - 20, exit=True)
@@ -623,12 +678,25 @@ def serve_main(registry_dir: str) -> None:
                              f"bit for bit")
     launches = introspect.launch_counts()
     service = serve_service(torch, rt)
+    t0 = time.perf_counter()
+    traffic_gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    traffic = [service_requests(torch, traffic_gen)
+               for _ in range(SERVICE_THREADS)]
+    retune = retune_phase(torch, traffic, retune_dir)
+    retune["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sub = ModelRegistry(fleet_dir).for_fingerprint(create=True)
+    for path in Path(registry_dir).glob("hopper__*.adsala"):
+        shutil.copy(path, sub.root / path.name)
+    fleet = fleet_phase(torch, rt, traffic, fleet_dir)
+    fleet["phase_s"] = time.perf_counter() - t0
+    fleet["slug"] = sub.root.name
     print("SERVE_RESULT " + json.dumps({
         "rows": rows, "served": served, "launches": launches,
         "model_evals": stats.model_evals,
         "default_calls": stats.default_calls,
         "eval_failures": stats.eval_failures, "calls": stats.calls,
-        "service": service}), flush=True)
+        "service": service, "retune": retune, "fleet": fleet}), flush=True)
 
 
 def service_requests(torch, gen) -> list[tuple[str, tuple]]:
@@ -741,6 +809,545 @@ def serve_service(torch, rt) -> dict:
             "model_evals": after.model_evals - before.model_evals,
             "default_calls": after.default_calls - before.default_calls,
             "eval_failures": after.eval_failures - before.eval_failures}
+
+
+# -- the prewarm phase (after phase 4) ---------------------------------------
+
+def harvest_models() -> dict:
+    """Every model phase's decision keys, harvested on the meta device at
+    that phase's shapes (:data:`MODEL_REQUESTS` x :data:`MODEL_PROMPT`
+    tokens, :data:`MODEL_NEW` new, the depth of :data:`MODEL_CUTS`):
+    arch -> sorted keys, each ``[backend, op, dtype_bytes, dims]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import harvest_decision_keys
+    out = {}
+    for arch in MODEL_PHASES:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=MODEL_CUTS.get(
+            arch, full.n_layers))
+        keys = harvest_decision_keys(cfg, batch_size=MODEL_REQUESTS,
+                                     seq_len=MODEL_PROMPT, max_new=MODEL_NEW)
+        out[arch] = sorted([be, op, db, list(dims)]
+                           for be, op, db, dims in keys)
+    return out
+
+
+def _spearman(a, b) -> float:
+    """Spearman's rank correlation of two 1-D arrays (ranks by argsort;
+    the timings have no exact ties)."""
+    import numpy as np
+    ra = np.argsort(np.argsort(a)).astype(np.float64)
+    rb = np.argsort(np.argsort(b)).astype(np.float64)
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def oracle_readings(out_dir: Path) -> dict:
+    """Per op, the H100 oracle against phase 4's measured labels
+    (``datasets/hopper__{op}_s.npz``): Spearman's rank correlation over
+    every (dims, knob) label, and the dims at which the oracle's argmin is
+    the measured best.  A reading, not a gate."""
+    import numpy as np
+    from repro_torch.core.oracle import oracle_time
+    res = {}
+    for path in sorted((out_dir / "datasets").glob("hopper__*_s.npz")):
+        op = path.stem.split("__", 1)[1].rsplit("_", 1)[0]
+        data = np.load(path)
+        knobs = json.loads(str(data["knobs"]))
+        times = data["times"]
+        pred = np.array([[oracle_time(op, tuple(d), k) for k in knobs]
+                         for d in data["dims"]])
+        res[op] = {"rho": _spearman(times.ravel(), pred.ravel()),
+                   "argmin_agree": int((times.argmin(1)
+                                        == pred.argmin(1)).sum()),
+                   "dims": int(times.shape[0]), "knobs": len(knobs)}
+    return res
+
+
+def prewarm_phase(card: str, out_dir: Path) -> dict:
+    """Harvest every model phase's keys, print the key counts, the pruned
+    against the full GEMM knob space and the oracle's readings, prewarm
+    the decision cache of phase 4's registry with every harvested key
+    (the model phases load it), and run ``scripts/torch_prewarm_model.py
+    --timer wallclock`` for llama3-8b into a registry of its own; fails
+    unless that script exits 0.  Writes ``harvest.json`` beside the
+    registry; returns arch -> keys."""
+    from repro_torch.core import AdsalaRuntime, ModelRegistry
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import prune_dominated_candidates
+    t0 = time.perf_counter()
+    harvested = harvest_models()
+    space = ops.knob_space_for("gemm")
+    for arch, keys in harvested.items():
+        pruned = prune_dominated_candidates(
+            "gemm", space, [tuple(k[3]) for k in keys],
+            slack=PREWARM_SLACK)
+        print(f"[prewarm] {arch}: {len(keys)} decision keys harvested on "
+              f"the meta device ({MODEL_REQUESTS} x {MODEL_PROMPT} prompt "
+              f"tokens, {MODEL_NEW} new); gemm knob space pruned by the "
+              f"oracle {len(space)} -> {len(pruned)} (slack "
+              f"{PREWARM_SLACK})", flush=True)
+    for op, r in oracle_readings(out_dir).items():
+        print(f"[prewarm:oracle] [{card}] {op}: Spearman rank correlation "
+              f"of the H100 oracle with phase 4's measured labels "
+              f"{r['rho']:.4f} over {r['dims']} dims x {r['knobs']} knobs; "
+              f"oracle argmin = measured best at {r['argmin_agree']}/"
+              f"{r['dims']} dims", flush=True)
+    reg = ModelRegistry(out_dir / "models")
+    rt = AdsalaRuntime()
+    reg.load_into(rt, backend="hopper")
+    keys = sorted({tuple([k[0], k[1], k[2], tuple(k[3])])
+                   for ks in harvested.values() for k in ks})
+    rt.select_many([(op, dims, db, be) for be, op, db, dims in keys],
+                   record_hits=False)
+    path = reg.save_decision_cache(rt)
+    print(f"[prewarm] {len(keys)} distinct keys of the six models decided "
+          f"by the installed model ({rt.stats.model_evals} model evals) and "
+          f"saved to {path.name}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    (out_dir / "harvest.json").write_text(json.dumps(harvested))
+    t0 = time.perf_counter()
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_prewarm_"))
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_prewarm_model.py"),
+             "--registry", str(scratch), *PREWARM_ARGS],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=PREWARM_TIMEOUT_S)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[prewarm]"):
+            print(f"[prewarm:script] {line}", flush=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"[prewarm] scripts/torch_prewarm_model.py exited "
+                         f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                         f"{proc.stderr[-3000:]}")
+    print(f"[prewarm] scripts/torch_prewarm_model.py {' '.join(PREWARM_ARGS)}"
+          f": exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return harvested
+
+
+# -- the retune phase (in phase 5's process) --------------------------------
+
+def _service_windows(svc, pool, traffic, windows: int,
+                     after=None) -> tuple[list, list, list]:
+    """Run ``windows`` windows of ``traffic`` (one list of requests per
+    client thread) through ``svc``; returns each window's results, what
+    ``after()``, run after each window has drained, returned, and each
+    window's seconds (submit to the last result, host clock)."""
+    results, returned, seconds = [], [], []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        futures = list(pool.map(
+            lambda reqs: [svc.submit(op, xs) for op, xs in reqs], traffic))
+        results.append([f.result(timeout=300) for part in futures
+                        for f in part])
+        seconds.append(time.perf_counter() - t0)
+        if not svc.drain(timeout=60):
+            raise SystemExit("[retune] requests still in flight")
+        if after is not None:
+            got = after()
+            if isinstance(got, list):
+                returned.extend(got)
+    return results, returned, seconds
+
+
+def retune_phase(torch, traffic, retune_dir: str,
+                 device: str = "cuda") -> dict:
+    """On a copy of phase 4's registry (its install datasets attached to
+    the artifacts): phase 5's traffic through ``BlasService(retuner=...)``
+    with the default :class:`RetuneConfig`, ``step()`` after each of
+    :data:`RETUNE_WINDOWS` windows after the cold one (no drift may be
+    detected in any); then the served GEMM knob's measured time x
+    :data:`DRIFT_MULT` fed as telemetry (detected in one ``step()``, refit,
+    saved under the next artifact version, swapped), the decisions after
+    the swap against a fresh runtime loading the new artifact, the newly
+    served knob's kernel through ``run_op`` against its plain version;
+    last, the drift readings under a co-tenant (a second stream looping a
+    large ``torch.matmul``).  ``device="cpu"`` rehearses it on the plain
+    versions."""
+    import numpy as np
+    from repro_torch.backends import resolve_backend
+    from repro_torch.core import AdsalaRuntime, ModelRegistry, TimingDataset
+    from repro_torch.core.registry import load_subroutine
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BlasService, Retuner, ServeConfig
+
+    root = Path(retune_dir)
+    reg = ModelRegistry(root / "models")
+    rt = AdsalaRuntime()
+    reg.load_into(rt, backend="hopper")
+    for op in ops.HOPPER_OPS:
+        sub = rt.subroutine(op, 4, "hopper")
+        data = np.load(root / "datasets" / f"hopper__{op}_s.npz")
+        sub.dataset = TimingDataset(op=op, dims=data["dims"],
+                                    times=data["times"],
+                                    knob_space=sub.knob_space, dtype_bytes=4)
+    ret = Retuner(rt, registry=reg)
+    cfg = ServeConfig(max_batch=SERVICE_MAX_BATCH, linger_ms=2.0,
+                      workers=SERVICE_WORKERS)
+    flat = [r for part in traffic for r in part]
+    be = resolve_backend("hopper", device=device)
+
+    def reading(op):
+        """The served bucket of ``op``: its key, knob, the installed
+        model's prediction and the install's own timer at those dims."""
+        key = next(k for k in rt.stats.buckets if k[1] == op)
+        knob = rt.peek(op, key[3], 4, "hopper") or rt.select(
+            op, key[3], 4, backend="hopper")
+        sub = rt.subroutine(op, 4, "hopper")
+        pred = float(rt.predictor(op, 4, "hopper").predict_times(key[3])[
+            sub.knob_space.index(knob)])
+        return key, knob, pred, be.timer_fn(op)(key[3], knob)
+
+    t0 = time.perf_counter()
+    with BlasService(runtime=rt, config=cfg, retuner=ret,
+                     device=device) as svc, \
+            concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+        _service_windows(svc, pool, traffic, 1)   # cold decisions
+        ret.baseline()
+        events0 = ret.stats.drift_events
+        st0 = dataclasses.replace(svc.stats)
+        buckets0 = {k: (b.exec_seconds, b.exec_items)
+                    for k, b in rt.stats.buckets.items()}
+        _, swapped, window_s = _service_windows(
+            svc, pool, traffic, RETUNE_WINDOWS, after=ret.step)
+        st = svc.stats
+    steady_s = time.perf_counter() - t0
+    per_op = {}
+    for op in ops.HOPPER_OPS:
+        ewma, n = ret.drift(op, 4, "hopper")
+        key, knob, pred, label = reading(op)
+        b = rt.stats.buckets[key]
+        secs0, items0 = buckets0.get(key, (0.0, 0))
+        probes = b.exec_items - items0
+        anchor = ret.anchors(op, 4, "hopper").get(
+            (key[3], rt.subroutine(op, 4, "hopper").knob_space.index(knob)))
+        per_op[op] = {"ewma": ewma, "samples": n, "batches": b.batches,
+                      "mean_batch": b.mean_batch, "probes": probes,
+                      "probe_ms": 1e3 * (b.exec_seconds - secs0)
+                      / max(1, probes), "label_ms": 1e3 * label,
+                      "predicted_ms": 1e3 * pred, "anchor": anchor,
+                      "knob": knob.dict, "dims": list(key[3])}
+    done = st.completed - st0.completed
+    steady = {"drift_events": ret.stats.drift_events - events0,
+              "swapped": [list(k) for k in swapped],
+              "samples": ret.stats.samples, "skipped": ret.stats.skipped,
+              "min_samples": ret.config.min_samples,
+              "per_op": per_op, "seconds": steady_s,
+              "rates": [len(flat) / dt for dt in window_s],
+              "bucket_ms_per_request": 1e3 * (st.exec_sum - st0.exec_sum)
+              / max(1, done)}
+
+    # drift: the served GEMM knob's measured time x DRIFT_MULT, fed as
+    # telemetry through the record_batch seam the service feeds
+    g = per_op["gemm"]
+    dims = tuple(g["dims"])
+    old_sub = rt.subroutine("gemm", 4, "hopper")
+    old_version = int(old_sub.artifact_version)
+    old_knob = rt.peek("gemm", dims, 4, "hopper")
+    measured = DRIFT_MULT * g["probe_ms"] / 1e3
+    rt.record_batch("gemm", dims, 4, "hopper", SERVICE_MAX_BATCH,
+                    exec_seconds=measured, exec_items=1)
+    t0 = time.perf_counter()
+    events0, swaps0 = ret.stats.drift_events, rt.stats.swaps
+    swapped = ret.step()
+    refit_s = time.perf_counter() - t0
+    new_sub = rt.subroutine("gemm", 4, "hopper")
+    probe = sorted({tuple(k[3]) for k in rt.stats.buckets if k[1] == "gemm"}
+                   | {dims})
+    fresh = AdsalaRuntime()
+    fresh.register(load_subroutine(root / "models" / "hopper__gemm_b4.adsala"))
+    live = [rt.select("gemm", d, 4, backend="hopper").dict for d in probe]
+    loaded = [fresh.select("gemm", d, 4, backend="hopper").dict
+              for d in probe]
+    new_knob = rt.peek("gemm", dims, 4, "hopper")
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    a = torch.randn(dims[0], dims[1], generator=gen, device=device)
+    w = torch.randn(dims[1], dims[2], generator=gen, device=device)
+    out = ops.run_op("gemm", (a, w), runtime=rt, device=device)
+    drift = {"detected": ret.stats.drift_events - events0,
+             "swapped": [list(k) for k in swapped], "refit_s": refit_s,
+             "old_version": old_version,
+             "new_version": int(new_sub.artifact_version),
+             "file_version": int(fresh.subroutine(
+                 "gemm", 4, "hopper").artifact_version),
+             "swaps": rt.stats.swaps - swaps0, "old_knob": old_knob.dict,
+             "new_knob": new_knob.dict, "model": new_sub.model_name,
+             "probe": [list(d) for d in probe],
+             "equal_to_fresh": live == loaded, "live": live,
+             "rel_err": _rel_err(out, plain_of("gemm", new_knob.dict)(a, w))}
+
+    # co-tenancy: a second stream loops a large torch.matmul while phase
+    # 5's traffic runs; the drift readings of a fresh retuner (observe
+    # only) anchored on windows without it
+    co = Retuner(rt)
+    stop = threading.Event()
+    edge = COTENANT_SHAPE if device == "cuda" else 256
+    x = torch.randn(edge, edge, generator=gen, device=device)
+    loops = [0]
+
+    def cotenant():
+        stream = (torch.cuda.Stream() if device == "cuda"
+                  else contextlib.nullcontext())
+        with (torch.cuda.stream(stream) if device == "cuda" else stream):
+            while not stop.is_set():
+                torch.matmul(x, x)
+                if device == "cuda":
+                    stream.synchronize()
+                loops[0] += 1
+
+    with BlasService(runtime=rt, config=cfg, retuner=co,
+                     device=device) as svc, \
+            concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+        _service_windows(svc, pool, traffic, 1)   # cold decisions
+        co.baseline()
+        # the anchors form on clean windows; the co-tenant comes after
+        _service_windows(svc, pool, traffic, co.config.anchor_samples,
+                         after=co.observe)
+        thread = threading.Thread(target=cotenant, daemon=True)
+        thread.start()
+        try:
+            _service_windows(svc, pool, traffic, COTENANT_WINDOWS,
+                             after=co.observe)
+        finally:
+            stop.set()
+            thread.join(timeout=60)
+    cotenancy = {op: co.drift(op, 4, "hopper") for op in ops.HOPPER_OPS}
+    del x
+    return {"steady": steady, "drift": drift, "cotenancy": cotenancy,
+            "cotenant_loops": loops[0], "requests": len(flat)}
+
+
+# -- the fleet phase (in phase 5's process) ---------------------------------
+
+def fleet_phase(torch, rt, traffic, fleet_dir: str,
+                device: str = "cuda") -> dict:
+    """A ``FleetService`` of :data:`FLEET_PROCESSES` executor processes on
+    the card (spawned), over phase 4's artifacts in the sub-registry of
+    this host's fingerprint: phase 5's traffic, every result against the
+    in-process ``run_op`` bit for bit; the executors' fingerprint
+    resolution; a warm join (a third executor after the traffic) and its
+    model evals on the same traffic; an executor SIGKILLed before a window
+    (respawned, its bucket requeued, no future lost); then requests/s of
+    the fleet, the in-process service and one ``run_op`` per request in
+    alternated windows, the mean batch, and the device memory an executor
+    takes as it starts (the card's free memory before and after).
+    ``device="cpu"`` rehearses it on the plain versions.
+    """
+    import os
+    import signal
+
+    from repro_torch.core import ModelRegistry
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (BlasService, FleetConfig, FleetService,
+                                     ServeConfig)
+
+    flat = [r for part in traffic for r in part]
+    cfg = ServeConfig(max_batch=SERVICE_MAX_BATCH, linger_ms=2.0,
+                      workers=SERVICE_WORKERS)
+    def free_mb():
+        return (torch.cuda.mem_get_info()[0] / 2 ** 20 if device == "cuda"
+                else 0.0)
+
+    t0 = time.perf_counter()
+    free0 = free_mb()
+    fleet = FleetService(fleet=FleetConfig(processes=FLEET_PROCESSES,
+                                           registry_root=fleet_dir),
+                         config=cfg, device=device)
+    start_s = time.perf_counter() - t0
+    start_mb = (free0 - free_mb()) / FLEET_PROCESSES
+    try:
+        with concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+            def window(svc):
+                futures = list(pool.map(
+                    lambda reqs: [svc.submit(op, xs) for op, xs in reqs],
+                    traffic))
+                return [f.result(timeout=300) for part in futures
+                        for f in part]
+
+            outs = window(fleet)
+            want = [ops.run_op(op, xs, runtime=rt, device=device).cpu()
+                    for op, xs in flat]
+            unequal = [i for i, (got, w) in enumerate(zip(outs, want))
+                       if not torch.equal(got, w)]
+            first = fleet.fleet_stats()
+            free0 = free_mb()
+            info = fleet.add_member()               # the warm join
+            join_mb = free0 - free_mb()
+            evals0 = {d["member"]: d["model_evals"]
+                      for d in fleet.fleet_stats()}
+            for _ in range(2):
+                window(fleet)
+            joined = next(d for d in fleet.fleet_stats()
+                          if d["member"] == info["member"])
+            # SIGKILL one executor, then a window: respawn + requeue
+            victim = fleet._executors[0]
+            os.kill(victim.proc.pid, signal.SIGKILL)
+            victim.proc.join(timeout=10)
+            st0 = dataclasses.replace(fleet.stats)
+            outs = window(fleet)
+            st1 = fleet.stats
+            killed = {"respawns": st1.worker_respawns - st0.worker_respawns,
+                      "completed": st1.completed - st0.completed,
+                      "failed": st1.failed - st0.failed,
+                      "requests": len(flat),
+                      "equal": all(torch.equal(g, w)
+                                   for g, w in zip(outs, want))}
+            # requests/s, alternated windows: fleet, in-process, single
+            rates = {"fleet": [], "service": [], "single": []}
+            fst0 = dataclasses.replace(fleet.stats)
+            with BlasService(runtime=rt, config=cfg, device=device) as svc:
+                window(svc)
+                for _ in range(FLEET_ROUNDS):
+                    for name, run in (
+                            ("fleet", lambda: window(fleet)),
+                            ("service", lambda: window(svc)),
+                            ("single", lambda: [
+                                ops.run_op(op, xs, runtime=rt, device=device)
+                                for op, xs in flat])):
+                        t1 = time.perf_counter()
+                        run()
+                        if device == "cuda":
+                            torch.cuda.synchronize()
+                        rates[name].append(len(flat)
+                                           / (time.perf_counter() - t1))
+            fst = fleet.stats
+            stats = fleet.fleet_stats()
+    finally:
+        fleet.close()
+    card = (torch.cuda.get_device_name(0).lower() if device == "cuda"
+            else "")
+    return {"start_s": start_s, "unequal": unequal, "requests": len(flat),
+            "start_mb": start_mb, "join_mb": join_mb,
+            "first": first, "joined": joined, "join_info": info,
+            "join_evals_before": evals0.get(info["member"]),
+            "killed": killed, "rates": rates,
+            "mean_batch": (fst.completed - fst0.completed)
+            / max(1, fst.batches - fst0.batches),
+            "executors": [{"member": d.get("member"), "pid": d.get("pid"),
+                           "alive": d.get("alive"),
+                           "model_evals": d.get("model_evals"),
+                           "resolution": d.get("resolution"),
+                           "device_name": d.get("device_name")}
+                          for d in stats],
+            "names_card": all(card in str(d["resolution"].get("gpu", ""))
+                              and d["resolution"].get("mode") == "exact"
+                              for d in stats if d.get("alive"))}
+
+
+def report_retune(card: str, res: dict) -> None:
+    """Print the retune phase's lines and fail unless steady traffic read
+    no drift in any window after the cold one (every op read at least
+    ``min_samples`` times past its anchor), the drift
+    fed as telemetry was detected in one ``step()``, refit, saved under
+    the next artifact version and swapped, the decisions after the swap
+    equal a fresh runtime's loading the saved artifact, and the newly
+    served knob's kernel agrees with its plain version."""
+    st = res["steady"]
+    rates = sorted(st["rates"])
+    print(f"[retune] [{card}] phase 5's traffic through "
+          f"BlasService(retuner=Retuner(...)) with the default RetuneConfig, "
+          f"step() after each of {RETUNE_WINDOWS} windows after the cold "
+          f"one, {res['requests']} requests a window: {st['drift_events']} "
+          f"drift events, swapped {st['swapped']} ({st['seconds']:.1f} s, "
+          f"{st['samples']} samples); {rates[len(rates) // 2]} requests/s "
+          f"(median; windows {st['rates']}); a request's share of its "
+          f"bucket's span {st['bucket_ms_per_request']:.4f} ms", flush=True)
+    for op, r in st["per_op"].items():
+        print(f"[retune:{op}] [{card}] dims {tuple(r['dims'])} knob "
+              f"{_knob_str(op, r['knob'])}: {r['batches']} buckets, mean "
+              f"batch {r['mean_batch']:.3f}, {r['probes']} probes; a probe "
+              f"(the first item alone, its kernels) {r['probe_ms']:.4f} ms, "
+              f"the install's timer {r['label_ms']:.4f} ms "
+              f"({r['probe_ms'] / r['label_ms']:.3f}x), the installed model "
+              f"{r['predicted_ms']:.4f} ms; anchor (measured/predicted) "
+              f"{r['anchor']}; EWMA {r['ewma']} over {r['samples']} samples",
+              flush=True)
+    dr = res["drift"]
+    print(f"[retune:drift] [{card}] the served gemm knob "
+          f"{_knob_str('gemm', dr['old_knob'])}'s time x {DRIFT_MULT:g} fed "
+          f"as telemetry: {dr['detected']} drift event(s) in one step(), "
+          f"swapped {dr['swapped']}, refit ({dr['model']}) in "
+          f"{dr['refit_s']:.2f} s; artifact version {dr['old_version']} -> "
+          f"{dr['new_version']} (on disk {dr['file_version']}), swaps "
+          f"{dr['swaps']}; served knob now {_knob_str('gemm', dr['new_knob'])}"
+          f"; decisions at {len(dr['probe'])} dims equal to a fresh runtime "
+          f"loading the saved artifact: {dr['equal_to_fresh']}; the new "
+          f"knob's kernel via run_op vs plain rel err {dr['rel_err']:.2e}",
+          flush=True)
+    print(f"[retune:cotenant] [{card}] EWMA with a second stream looping a "
+          f"{COTENANT_SHAPE}^3 torch.matmul ({res['cotenant_loops']} loops, "
+          f"{COTENANT_WINDOWS} windows after the anchors formed on clean "
+          f"ones; observe only, a reading): " + ", ".join(
+              f"{op} {e if e is None else round(e, 4)} ({n})"
+              for op, (e, n) in res["cotenancy"].items())
+          + f"; phase {res['phase_s']:.1f} s", flush=True)
+    if st["drift_events"] or st["swapped"] or any(
+            r["samples"] < st["min_samples"] for r in st["per_op"].values()):
+        raise SystemExit("[retune] steady traffic read as drift (or gave "
+                         "too few samples to read)")
+    if dr["detected"] < 1 or dr["swapped"] != [["hopper", "gemm", 4]] \
+            or dr["new_version"] != dr["old_version"] + 1 \
+            or dr["file_version"] != dr["new_version"] or dr["swaps"] != 1:
+        raise SystemExit("[retune] drift not detected, refit, versioned and "
+                         "swapped in one step()")
+    if not dr["equal_to_fresh"] or not dr["rel_err"] < F32_TOL:
+        raise SystemExit("[retune] decisions after the swap differ from a "
+                         "fresh load, or the new knob's kernel from its "
+                         "plain version")
+
+
+def report_fleet(card: str, res: dict) -> None:
+    """Print the fleet phase's lines and fail unless every result equals
+    the in-process ``run_op`` bit for bit, the warm join paid no model
+    eval, the killed executor was respawned with no future lost, and
+    every executor resolved the sub-registry of this card."""
+    rates = {k: sorted(v) for k, v in res["rates"].items()}
+    med = {k: v[len(v) // 2] for k, v in rates.items()}
+    first = res["first"]
+    print(f"[fleet] [{card}] {FLEET_PROCESSES} executor processes "
+          f"(spawn) started in {res['start_s']:.1f} s, {res['start_mb']:.0f} "
+          f"MiB of device memory each, its CUDA context (the card's free "
+          f"memory before and after; the joining one {res['join_mb']:.0f} "
+          f"MiB); "
+          f"{res['requests']} "
+          f"requests of phase 5's traffic: {len(res['unequal'])} results "
+          f"differ from the in-process run_op; executors' model evals "
+          f"{[d['model_evals'] for d in first]}", flush=True)
+    for ex in res["executors"]:
+        print(f"[fleet:executor] [{card}] {ex['member']} pid {ex['pid']} on "
+              f"{ex['device_name']}: resolution {ex['resolution']}; model "
+              f"evals {ex['model_evals']}", flush=True)
+    info, joined = res["join_info"], res["joined"]
+    print(f"[fleet:join] [{card}] warm join: {info['warm_started']} "
+          f"decisions warm-started, {info['loaded']} artifacts loaded; then "
+          f"2 windows: model evals {joined['model_evals']}, cache hits "
+          f"{joined['cache_hits']} of {joined['calls']} calls", flush=True)
+    k = res["killed"]
+    print(f"[fleet:kill] [{card}] one executor SIGKILLed, then a window: "
+          f"{k['respawns']} respawn(s), {k['completed']} of {k['requests']} "
+          f"completed, {k['failed']} failed, results bit-equal {k['equal']}",
+          flush=True)
+    print(f"[fleet:rate] [{card}] requests/s (host clock, {FLEET_ROUNDS} "
+          f"alternated windows each, median [min, max]): fleet "
+          f"{med['fleet']:.1f} {[round(r, 1) for r in rates['fleet']]}, "
+          f"in-process service {med['service']:.1f} "
+          f"{[round(r, 1) for r in rates['service']]}, one run_op each "
+          f"{med['single']:.1f} {[round(r, 1) for r in rates['single']]}; "
+          f"fleet / single {med['fleet'] / med['single']:.3f}x, service / "
+          f"single {med['service'] / med['single']:.3f}x; fleet mean batch "
+          f"{res['mean_batch']:.3f}; phase {res['phase_s']:.1f} s",
+          flush=True)
+    if res["unequal"] or not k["equal"]:
+        raise SystemExit("[fleet] results differ from the in-process run_op")
+    if joined["model_evals"] != 0 or info["warm_started"] < 1:
+        raise SystemExit("[fleet] the warm join paid model evals")
+    if k["respawns"] < 1 or k["completed"] != k["requests"] or k["failed"]:
+        raise SystemExit("[fleet] the killed executor lost futures")
+    if not res["names_card"]:
+        raise SystemExit("[fleet] an executor resolved artifacts not "
+                         "calibrated on this card")
 
 
 # -- phases 6 to 6f, each in a fresh process --------------------------------
@@ -1271,7 +1878,7 @@ def model_main(registry_dir: str, arch: str) -> None:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import AdsalaRuntime
+    from repro_torch.core import AdsalaRuntime, ModelRegistry
     from repro_torch.core.registry import load_subroutine
     from repro_torch.kernels import introspect
     from repro_torch.kernels import ops as kops
@@ -1281,7 +1888,12 @@ def model_main(registry_dir: str, arch: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rt = AdsalaRuntime()
-    rt.register(load_subroutine(Path(registry_dir) / "hopper__gemm_b4.adsala"))
+    artifact = Path(registry_dir) / "hopper__gemm_b4.adsala"
+    rt.register(load_subroutine(artifact))
+    # the prewarm phase's decision cache, and the keys it harvested
+    warm_started = ModelRegistry(registry_dir).load_decision_cache(rt)
+    harvested = {(be, op, db, tuple(dims)) for be, op, db, dims in json.loads(
+        (Path(registry_dir).parent / "harvest.json").read_text())[arch]}
     full = get_config(arch)
     cfg = dataclasses.replace(full, use_pallas_gemm=True,
                               compute_dtype="float32",
@@ -1301,17 +1913,40 @@ def model_main(registry_dir: str, arch: str) -> None:
     sess = ServeSession(cfg=cfg, params=model, max_len=max_len, runtime=rt,
                         device="cuda")
 
-    # the main path: counts and decisions from 0 just before, read after
+    # the main path: counts and decisions from 0 just before, read after;
+    # the keys the generate asks for are recorded on the way
+    requested = set()
+    select = rt.select_or_default
+
+    def recording(op, dims, dtype_bytes, default, *, backend="hopper"):
+        requested.add((backend, op, int(dtype_bytes),
+                       tuple(int(d) for d in dims)))
+        return select(op, dims, dtype_bytes, default, backend=backend)
+
+    rt.select_or_default = recording
     introspect.reset_launches()
     t0 = time.perf_counter()
     tokens = sess.generate(prompts, max_new=MODEL_NEW, **stub)
     generate_s = time.perf_counter() - t0
     launches = introspect.launch_counts()
+    del rt.select_or_default
     stats = rt.stats.for_backend("hopper")
+    # every prewarmed decision against the installed model's own argmin
+    # for its key, decided afresh here
+    fresh = AdsalaRuntime()
+    fresh.register(load_subroutine(artifact))
+    mismatch = [list(k) for k in sorted(harvested)
+                if rt.peek(k[1], k[3], k[2], k[0])
+                != fresh.select(k[1], k[3], k[2], backend=k[0])]
     decisions = {"model_evals": stats.model_evals,
                  "default_calls": stats.default_calls,
                  "calls": stats.calls, "cache_hits": stats.cache_hits,
-                 "eval_failures": rt.stats.eval_failures}
+                 "eval_failures": rt.stats.eval_failures,
+                 "warm_started": warm_started,
+                 "requested": len(requested), "harvested": len(harvested),
+                 "keys_equal": requested == harvested,
+                 "argmin_mismatch": mismatch,
+                 "fresh_model_evals": fresh.stats.model_evals}
 
     p_t = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
     forced = torch.as_tensor(tokens, dtype=torch.long, device="cuda")
@@ -1672,9 +2307,23 @@ def report_model(card: str, arch: str, res: dict) -> None:
         raise SystemExit(f"[{tag}] launches {res['launches']}, expected "
                          f"{want}")
     dec = res["decisions"]
-    if dec["default_calls"] != 0 or dec["model_evals"] < 1 \
-            or dec["eval_failures"]:
-        raise SystemExit(f"[{tag}] decisions did not come from the model")
+    print(f"[{tag}:prewarm] the first generate from the prewarmed decision "
+          f"cache ({dec['warm_started']} entries loaded): {dec['calls']} "
+          f"calls, {dec['cache_hits']} cache hits, {dec['model_evals']} model "
+          f"evals, {dec['default_calls']} default calls; {dec['requested']} "
+          f"keys asked for, {dec['harvested']} harvested, equal "
+          f"{dec['keys_equal']}; prewarmed decisions off the installed "
+          f"model's argmin: {len(dec['argmin_mismatch'])} of "
+          f"{dec['fresh_model_evals']}", flush=True)
+    # a decision must come from the installed model, not a default: with
+    # the prewarmed cache every one is a cache hit of the model's argmin
+    if dec["default_calls"] != 0 or dec["model_evals"] != 0 \
+            or dec["eval_failures"] or dec["cache_hits"] != dec["calls"] \
+            or not dec["keys_equal"] or dec["argmin_mismatch"] \
+            or dec["fresh_model_evals"] != dec["harvested"]:
+        raise SystemExit(f"[{tag}] the first generate did not serve the "
+                         f"installed model's decisions from the prewarmed "
+                         f"cache: {dec}")
     copied = [row["label"] for row in res["stacks"] if row["copies"]]
     if copied or not all(row["rel_err"] < F32_TOL for row in res["stacks"]):
         raise SystemExit(f"[{tag}] expert stacks copied on dispatch "
@@ -2620,10 +3269,16 @@ def main(argv: list[str]) -> int:
                       f"ideal {row['ideal_mean_speedup']:.3f}, normalized "
                       f"rmse {row['normalized_rmse']:.3f}, eval "
                       f"{row['eval_time_us']:.1f} us")
+        # the prewarm: every model phase's keys, the decision cache
+        prewarm_phase(card, tmp)
+        # the retune phase's copy of the registry and the install datasets
+        for part in ("models", "datasets"):
+            shutil.copytree(tmp / part, tmp / "retune" / part)
         proc = subprocess.run(
             [sys.executable, "-c",
              f"import chip_smoke; chip_smoke.serve_main("
-             f"{str(tmp / 'models')!r})"],
+             f"{str(tmp / 'models')!r}, {str(tmp / 'retune')!r}, "
+             f"{str(tmp / 'fleet')!r})"],
             cwd=ROOT, capture_output=True, text=True,
             timeout=SERVE_TIMEOUT_S)
         sys.stderr.write(proc.stderr[-4000:])
@@ -2714,6 +3369,8 @@ def main(argv: list[str]) -> int:
         raise SystemExit("[service] launches differ from the buckets")
     if svc["default_calls"] or svc["eval_failures"]:
         raise SystemExit("[service] decisions did not come from the model")
+    report_retune(card, served["retune"])
+    report_fleet(card, served["fleet"])
 
     model_launches = {}
     for arch, (stdout, seconds) in models.items():

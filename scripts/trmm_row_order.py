@@ -97,7 +97,7 @@ def main(argv: list[str]) -> int:
         rc = fns[order](bm, bn, a.data_ptr(), b.data_ptr(), out.data_ptr(),
                         m, n, batch or 1, sab, a.stride(-2), sbb,
                         b.stride(-2), sob, out.stride(-2), 1.0, 1, int(vec),
-                        stream, _build.launch_grid())
+                        stream, None, None, _build.launch_grid())
         if rc != 0:
             raise SystemExit(f"{order} {bm}x{bn}: CUDA error {rc}")
 

@@ -35,7 +35,8 @@ from .tuner import SCHEMA_VERSION, TunedSubroutine
 
 __all__ = ["pack_state", "unpack_state", "save_subroutine",
            "load_subroutine", "subroutine_from_state", "ModelRegistry",
-           "host_fingerprint", "fingerprint_slug", "fingerprint_distance"]
+           "host_fingerprint", "fingerprint_slug", "fingerprint_distance",
+           "gpu_key"]
 
 #: backend assumed for an artifact whose state or filename names none
 _LEGACY_BACKEND = "hopper"
@@ -149,6 +150,8 @@ def subroutine_from_state(state: dict, *,
     if "fast_knn_coreset" in state:
         sub.fast_knn_coreset = np.asarray(state["fast_knn_coreset"],
                                           dtype=np.int64)
+    if "timer" in state:
+        sub.timer = str(state["timer"])
     # registry-stamped artifact generation (absent on artifacts persisted
     # before versioning, or never saved through a ModelRegistry → 0)
     sub.artifact_version = int(state.get("artifact_version", 0))
@@ -202,38 +205,76 @@ def _probe_cache_line() -> int:
     return size if size > 0 else 64
 
 
+def _probe_gpu() -> dict:
+    """The first CUDA card's name, compute capability, SM count and memory
+    (``torch.cuda.get_device_properties``); empty on a host without one.
+    Probing initialises CUDA in the calling process."""
+    import torch
+    if not torch.cuda.is_available():
+        return {}
+    props = torch.cuda.get_device_properties(0)
+    return {"name": str(props.name),
+            "capability": f"{props.major}.{props.minor}",
+            "sms": int(props.multi_processor_count),
+            "memory_mb": int(props.total_memory) // (1 << 20)}
+
+
+def gpu_key(fp: dict) -> str:
+    """The card a fingerprint names, as one normalised string (empty for a
+    host without a card, and for fingerprints written before the card was
+    recorded)."""
+    gpu = fp.get("gpu") or {}
+    if not gpu:
+        return ""
+    return "|".join(str(gpu.get(k, "")).strip().lower()
+                    for k in ("name", "capability", "sms", "memory_mb"))
+
+
 def host_fingerprint() -> dict:
     """Architecture fingerprint of *this* host, from cheap platform probes.
 
     Keys: ``cpu_model`` (string, may be empty), ``machine`` (ISA, e.g.
     ``x86_64``/``aarch64``), ``cores`` (``os.cpu_count()``), ``cache_line``
-    (bytes).  Stable across processes on one host; JSON-safe."""
+    (bytes) and ``gpu``: the first CUDA card's ``name``, ``capability``,
+    ``sms`` and ``memory_mb``, or an empty dict on a host without one.
+    Stable across processes on one host; JSON-safe."""
     return {
         "cpu_model": _probe_cpu_model(),
         "machine": platform.machine() or "",
         "cores": int(os.cpu_count() or 1),
         "cache_line": _probe_cache_line(),
+        "gpu": _probe_gpu(),
     }
 
 
 def fingerprint_slug(fp: dict) -> str:
     """Deterministic directory-safe slug for a fingerprint: a normalised
     ``{machine}-{cores}c-{cache_line}l-{model hash}`` so two processes on
-    identical hardware always resolve the same sub-registry."""
+    identical hardware always resolve the same sub-registry, followed by
+    ``-g{card hash}`` where the fingerprint names a card (a fingerprint
+    without one keeps the reference package's slug)."""
     model = str(fp.get("cpu_model", "")).lower()
     digest = hashlib.sha256(model.encode("utf-8")).hexdigest()[:8]
     machine = re.sub(r"[^a-z0-9]+", "", str(fp.get("machine", "")).lower()) \
         or "unknown"
-    return (f"{machine}-{int(fp.get('cores', 0) or 0)}c-"
+    slug = (f"{machine}-{int(fp.get('cores', 0) or 0)}c-"
             f"{int(fp.get('cache_line', 0) or 0)}l-{digest}")
+    card = gpu_key(fp)
+    if card:
+        slug += "-g" + hashlib.sha256(card.encode("utf-8")).hexdigest()[:8]
+    return slug
 
 
 def fingerprint_distance(a: dict, b: dict) -> float:
     """Deterministic dissimilarity score between two fingerprints (0 for an
     exact match).  Weighted so the facts that change which knob wins
-    dominate: a different CPU model outweighs everything else, a different
-    ISA is next, then |log2| of the core-count ratio (8→16 cores is as far
-    as 16→32), then cache-line mismatch as a tie-breaker."""
+    dominate: a different card (or a card against none) is infinitely
+    far, so no resolution crosses it; then a different CPU model outweighs
+    everything else, a different ISA is next, then |log2| of the
+    core-count ratio (8→16 cores is as far as 16→32), then cache-line
+    mismatch as a tie-breaker."""
+    if gpu_key(a) != gpu_key(b):
+        return math.inf
     score = 0.0
     if str(a.get("cpu_model", "")).lower() != \
             str(b.get("cpu_model", "")).lower():
@@ -526,12 +567,15 @@ class ModelRegistry:
         Resolution order (recorded in :attr:`last_fingerprint_resolution`):
 
         1. **exact** — a calibrated sub-registry whose slug matches ``fp``;
-        2. **nearest** — the calibrated sub-registry minimising
-           :func:`fingerprint_distance` (ties broken by slug) — an unseen
-           host borrows the closest architecture's models rather than
-           starting knob-blind;
-        3. **flat** — no ``arch/`` entries at all: the registry root
-           itself (the single-architecture layout every prior PR used).
+        2. **nearest** — among the calibrated sub-registries of the *same
+           card* as ``fp`` (or, for a host without one, among those
+           without one), the one minimising :func:`fingerprint_distance`
+           (ties broken by slug) — an unseen host borrows the closest
+           architecture's models rather than starting knob-blind, but never
+           a model timed on another card or on none;
+        3. **flat** — no such sub-registry: the registry root itself (the
+           single-architecture layout every prior PR used), as when
+           ``arch/`` holds nothing at all.
         """
         fp = dict(fp or host_fingerprint())
         slug = fingerprint_slug(fp)
@@ -539,17 +583,21 @@ class ModelRegistry:
         for cand_slug, _cand_fp in known:
             if cand_slug == slug:
                 self.last_fingerprint_resolution = {
-                    "mode": "exact", "slug": slug, "distance": 0.0}
+                    "mode": "exact", "slug": slug, "distance": 0.0,
+                    "gpu": gpu_key(fp)}
                 return ModelRegistry(self.root / self.ARCH_DIR / slug,
                                      faults=self._faults)
-        if known:
-            best_slug, _best_fp, best_d = min(
-                ((s, f, fingerprint_distance(fp, f)) for s, f in known),
-                key=lambda t: (t[2], t[0]))
+        same_card = [(s, f, fingerprint_distance(fp, f)) for s, f in known
+                     if gpu_key(f) == gpu_key(fp)]
+        if same_card:
+            best_slug, _best_fp, best_d = min(same_card,
+                                              key=lambda t: (t[2], t[0]))
             self.last_fingerprint_resolution = {
-                "mode": "nearest", "slug": best_slug, "distance": best_d}
+                "mode": "nearest", "slug": best_slug, "distance": best_d,
+                "gpu": gpu_key(fp)}
             return ModelRegistry(self.root / self.ARCH_DIR / best_slug,
                                  faults=self._faults)
         self.last_fingerprint_resolution = {
-            "mode": "flat", "slug": "", "distance": 0.0}
+            "mode": "flat", "slug": "", "distance": 0.0, "gpu": gpu_key(fp),
+            "skipped": len(known)}
         return self

@@ -2,9 +2,16 @@
 
 Times a zero-argument callable: warmup calls, then the median of
 ``repeats`` timed calls.  Work on a CUDA device is timed with a pair of
-``torch.cuda.Event``s on the current stream around each call, read after
-the end event has completed, so the time is the card's and not the time
-the host took to enqueue.  Work on the CPU is timed on the host clock (CPU
+``torch.cuda.Event``s on the current stream, read after the end event has
+completed, so the time is the card's and not the time the host took to
+enqueue.  Where the callable launches the port's kernels, the events are
+those of ``kernels/introspect.py::launch_window``, which each launcher
+records around its own launch, so the host's work ahead of the launch
+(the wrapper's checks and argument conversion), which an idle stream
+would otherwise count as device time, stays out of the label — the same
+quantity the serving layer's bucket telemetry measures.  A
+callable that launches none of them is timed between events recorded
+around the call.  Work on the CPU is timed on the host clock (CPU
 tensors compute synchronously).  Exceptions raised by the callable
 propagate: a calibration that cannot run must not record a time.
 """
@@ -30,15 +37,19 @@ def time_callable(fn: Callable[[], object], *,
         with torch.cuda.device(device):
             for _ in range(warmup):
                 fn()
+            from repro_torch.kernels.introspect import launch_window
             stream = torch.cuda.current_stream()
             for _ in range(max(repeats, 1)):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
-                start.record(stream)
-                fn()
-                end.record(stream)
+                with launch_window() as window:
+                    start.record(stream)
+                    fn()
+                    end.record(stream)
                 end.synchronize()
-                times.append(start.elapsed_time(end) / 1e3)
+                kernels = window.seconds()
+                times.append(kernels if kernels is not None
+                             else start.elapsed_time(end) / 1e3)
         return float(np.median(times))
     if device.type != "cpu":
         raise ValueError(f"no timer for device {device}")

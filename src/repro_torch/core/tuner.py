@@ -65,6 +65,10 @@ class TunedSubroutine:
     #: opt-in KNN coreset (optional, persisted): indices into the fitted
     #: KNN's training set for the inexact-but-faster compiled lookup
     fast_knn_coreset: np.ndarray | None = None
+    #: what timed the install's labels (optional, persisted), e.g.
+    #: ``"oracle"`` for a rehearsal against ``core/oracle.py`` that never
+    #: ran on a card, or ``"wallclock NVIDIA H100 80GB HBM3"``
+    timer: str | None = None
 
     # -- runtime decision --------------------------------------------------
     def predict_times(self, dims: tuple[int, ...]) -> np.ndarray:
@@ -130,6 +134,8 @@ class TunedSubroutine:
         if self.fast_knn_coreset is not None:
             state["fast_knn_coreset"] = np.asarray(self.fast_knn_coreset,
                                                    dtype=np.int64)
+        if self.timer is not None:
+            state["timer"] = str(self.timer)
         return state
 
 

@@ -219,13 +219,15 @@ extern "C" int repro_gemm_f32(int bm, int bk, int bn, const void* a,
                               long long ldb, long long sCb, long long ldc,
                               long long sOb, long long ldo, float alpha,
                               float beta, int has_c, int vec, int slices,
-                              int slice_len, void* stream, int* launched) {
+                              int slice_len, void* stream, void* ev_start,
+                              void* ev_end, int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                static_cast<float*>(ws), static_cast<int*>(tickets),
                m, n, k, batch, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
                alpha, beta, has_c, vec, slices, slice_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TimedLaunch timed(ev_start, ev_end, s);
 #define REPRO_GEMM_LAUNCH(BM, BK, BN) \
   if (bm == BM && bk == BK && bn == BN) \
     return int(launch<BM, BK, BN>(p, s, launched));

@@ -85,12 +85,14 @@ extern "C" int repro_rank_k_packed_f32(int bm, int bk, const void* a,
                                        long long ldc, long long sOb,
                                        long long ldo, float alpha, float beta,
                                        int two, int has_c, int vec,
-                                       void* stream, int* launched) {
+                                       void* stream, void* ev_start,
+                                       void* ev_end, int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                n, k, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
                alpha, beta, two, has_c, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TimedLaunch timed(ev_start, ev_end, s);
 #define REPRO_RANK_K_LAUNCH(BM, BK) \
   if (bm == BM && bk == BK)           \
     return int(launch<BM, BK>(p, batch, s, launched));

@@ -165,12 +165,14 @@ extern "C" int repro_symm_f32(int bm, int bn, const void* a, const void* b,
                               long long ldb, long long sCb, long long ldc,
                               long long sOb, long long ldo, float alpha,
                               float beta, int has_c, int vec, void* stream,
+                              void* ev_start, void* ev_end,
                               int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(o),
                m, n, batch, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
                alpha, beta, has_c, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TimedLaunch timed(ev_start, ev_end, s);
 #define REPRO_SYMM_LAUNCH(BM, BN) \
   if (bm == BM && bn == BN) return int(launch<BM, BN>(p, s, launched));
   REPRO_SYMM_TILES(REPRO_SYMM_LAUNCH)

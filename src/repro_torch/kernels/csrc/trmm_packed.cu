@@ -73,11 +73,13 @@ extern "C" int repro_trmm_packed_f32(int bm, int bn, const void* a,
                                      long long sBb, long long ldb,
                                      long long sOb, long long ldo,
                                      float alpha, int vec, void* stream,
+                                     void* ev_start, void* ev_end,
                                      int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<float*>(o), m, n, batch, sAb, lda, sBb, ldb, sOb,
                ldo, alpha, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TimedLaunch timed(ev_start, ev_end, s);
 #define REPRO_TRMM_LAUNCH(BM, BN) \
   if (bm == BM && bn == BN) return int(launch<BM, BN>(p, s, launched));
   REPRO_TRMM_TILES(REPRO_TRMM_LAUNCH)

@@ -314,8 +314,10 @@ cudaError_t launch(const Args& p, cudaStream_t stream, int* launched) {
 // synchronise.
 extern "C" int repro_trsm_inv_f32(int bm, const void* a, void* inv, int m,
                                   int batch, long long sAb, long long lda,
-                                  void* stream, int* launched) {
+                                  void* stream, void* ev_start, void* ev_end,
+                                  int* launched) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TimedLaunch timed(ev_start, ev_end, s);
   const float* pa = static_cast<const float*>(a);
   float* pi = static_cast<float*>(inv);
 #define REPRO_TRSM_INV_LAUNCH(BM) \
@@ -335,11 +337,13 @@ extern "C" int repro_trsm_f32(int bm, int bn, const void* a, const void* b,
                               int batch, long long sAb, long long lda,
                               long long sBb, long long ldb, long long sXb,
                               long long ldx, float alpha, int vec,
-                              void* stream, int* launched) {
+                              void* stream, void* ev_start, void* ev_end,
+                              int* launched) {
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(inv), static_cast<float*>(x),
                m, n, batch, sAb, lda, sBb, ldb, sXb, ldx, alpha, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TimedLaunch timed(ev_start, ev_end, s);
 #define REPRO_TRSM_LAUNCH(BM, BN) \
   if (bm == BM && bn == BN) return int(launch<BM, BN>(p, s, launched));
   REPRO_TRSM_TILES(REPRO_TRSM_LAUNCH)

@@ -34,7 +34,7 @@ import torch
 from repro_torch.core.knobs import HOPPER_TILES_K, HOPPER_TILES_MN
 
 from . import _build
-from .introspect import record_launch
+from .introspect import launch_events, record_launch
 
 __all__ = ["gemm", "gemm_plain", "TILES", "split_plan", "mainloop_params",
            "ring_stages", "vec_aligned", "HOPPER_SMS"]
@@ -116,7 +116,8 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int,         # bm, bk, bn
              _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
              ctypes.c_float, ctypes.c_float, ctypes.c_int,       # alpha..
              ctypes.c_int, ctypes.c_int, ctypes.c_int,           # vec, split
-             ctypes.c_void_p]                                    # stream
+             ctypes.c_void_p,                                    # stream
+             ctypes.c_void_p, ctypes.c_void_p]                   # events
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
@@ -213,7 +214,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             ws_ptr = ws.data_ptr()
             tickets_ptr = ws_ptr + 4 * n_ws
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _build.launcher("gemm", _ARGTYPES)(
+        launch = _build.launcher("gemm", _ARGTYPES)
+        events = launch_events()
+        rc = launch(
             bm, bk, bn, a.data_ptr(), b.data_ptr(),
             c.data_ptr() if has_c else None, out.data_ptr(), ws_ptr,
             tickets_ptr,
@@ -222,7 +225,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             c.stride(-2) if has_c else 0,
             out.stride(0) if stacked else 0, out.stride(-2),
             float(alpha), float(beta), int(has_c), int(vec), slices, length,
-            stream, grid)
+            stream, *events, grid)
     if rc != 0:
         raise RuntimeError(f"GEMM kernel launch failed with CUDA error {rc} "
                            f"(tile {bm}x{bk}x{bn}, A {tuple(a.shape)}, "

@@ -17,6 +17,16 @@ Three things that numerics alone cannot witness:
   zero such ops in ``run_op`` (the reference's
   ``test_no_pad_or_slice_in_dispatch``).  Views and ``torch.empty``
   outputs are not copies.
+* **device windows** — :func:`launch_window` times the kernels the
+  calling thread launches inside the block: every wrapper passes its
+  launcher a pair of CUDA events (:func:`launch_events`), which the
+  launcher records on its stream just before and just after its launch,
+  within the one C call.  So the window holds the kernels' device time
+  and none of the host's work around them (the decision, the backend
+  lookup, the wrapper's checks, and any wait for the GIL, which events
+  recorded from Python on an idle stream would count).  The install's
+  timer (``core/timing.py``) and the service's bucket telemetry both
+  read it.
 * **grids** — :func:`full_grid_for` and :func:`packed_grid_for` give the
   CUDA grid ``(x, y, z)`` each kernel launches, and
   :func:`packed_slot_ratio` the blocks of ``tri`` over those of
@@ -33,10 +43,12 @@ import contextlib
 import math
 import threading
 
+import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["KERNELS", "record_launch", "launch_counts", "reset_launches",
-           "capture_launches", "CopyCounter", "copy_op_counts",
+           "capture_launches", "launch_events", "launch_window",
+           "LaunchWindow", "CopyCounter", "copy_op_counts",
            "COPY_OPS", "grid_slots", "full_grid_for", "packed_grid_for",
            "packed_slot_ratio"]
 
@@ -59,6 +71,62 @@ def record_launch(kernel: str, grid) -> None:
         _COUNTS[kernel] += 1
     for sink in getattr(_LOCAL, "sinks", ()):
         sink.append((kernel, grid))
+
+
+class LaunchWindow:
+    """The kernels one thread launched inside a :func:`launch_window`
+    block: a pair of CUDA events for each launch, which its C launcher
+    records on its stream just before and just after the launch, within
+    the one call (``csrc/launch_grid.cuh``'s ``TimedLaunch``)."""
+    __slots__ = ("spans",)
+
+    def __init__(self) -> None:
+        self.spans: list[tuple] = []
+
+    @property
+    def launches(self) -> int:
+        return len(self.spans)
+
+    def seconds(self) -> float | None:
+        """Device seconds of the launches, summed (waits for each end
+        event); None when nothing was launched."""
+        if not self.spans:
+            return None
+        total = 0.0
+        for start, end in self.spans:
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / 1e3
+
+
+def launch_events() -> tuple:
+    """The ``(start, end)`` event handles a kernel wrapper passes to its
+    launcher: inside a :func:`launch_window` two new CUDA events of the
+    window (each recorded once on the current stream here, so that PyTorch
+    reads them; the launcher records them again around its launch),
+    outside one ``(None, None)`` — the launcher then records nothing."""
+    window = getattr(_LOCAL, "window", None)
+    if window is None:
+        return None, None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    end.record()
+    window.spans.append((start, end))
+    return start.cuda_event, end.cuda_event
+
+
+@contextlib.contextmanager
+def launch_window():
+    """Yield a :class:`LaunchWindow` timing the kernels the calling thread
+    launches inside the block (windows do not nest: an inner block times
+    its own launches and the outer one resumes after it)."""
+    outer = getattr(_LOCAL, "window", None)
+    window = _LOCAL.window = LaunchWindow()
+    try:
+        yield window
+    finally:
+        _LOCAL.window = outer
 
 
 def launch_counts() -> dict[str, int]:

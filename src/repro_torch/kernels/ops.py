@@ -207,10 +207,56 @@ def run_op(op: str, operands: tuple, *, backend: str = HOPPER_BACKEND,
     Trailing operands of one-lower rank (a shared 2-D weight against
     batched activations — the model-serving linear) broadcast across the
     stack without a copy.  Returns a tensor on the backend's device.
+
+    Operands on the ``meta`` device (shapes without data, as
+    ``roofline/harvest.py`` traces a model) take :func:`_meta_step`: the
+    decision is asked of the runtime under the key the card would ask
+    for, and the result is an empty meta tensor of the output's shape; no
+    kernel is launched and no plain version computed.  Only meta operands
+    take it: a CUDA tensor launches its kernel or raises, a CPU tensor
+    computes the plain version.
     """
+    if _all_meta(operands):
+        return _meta_step(op, operands, backend=backend, knob=knob,
+                          runtime=runtime)
     from repro_torch.backends import resolve_backend
     be = resolve_backend(backend, device=device)
     dims = dims_of(op, tuple(tuple(x.shape) for x in operands))
     knob = _select(op, dims, operands[0].dtype, knob, runtime,
                    default=be.default_knob(op), backend=be.name)
     return be.execute_stacked(op, operands, knob, **kw)
+
+
+def _all_meta(operands) -> bool:
+    return bool(operands) and all(isinstance(x, torch.Tensor)
+                                  and x.device.type == "meta"
+                                  for x in operands)
+
+
+def _out_shape(op: str, shapes: tuple[tuple[int, ...], ...]) -> tuple:
+    """The output's shape of ``op`` on operands of ``shapes``: the
+    broadcast leading (batch) axes, then ``(m, n)`` (syrk/syr2k: n x n)."""
+    lead = torch.broadcast_shapes(*(s[:-2] for s in shapes))
+    if op in ("syrk", "syr2k"):
+        n = shapes[0][-2]
+        return (*lead, n, n)
+    return (*lead, shapes[0][-2], shapes[1][-1])
+
+
+def _meta_step(op: str, operands: tuple, *, backend: str,
+               knob: Optional[Knob],
+               runtime: Optional[AdsalaRuntime]) -> torch.Tensor:
+    """The shape-only step of :func:`run_op` for meta operands: the
+    runtime is asked for the decision under ``(backend, op, dtype bytes,
+    dims)`` (a :class:`~repro_torch.roofline.harvest.Recorder` records the
+    key), and an empty meta tensor of the output's shape comes back.  The
+    backend is looked up by name only: a meta tensor has no device whose
+    absence could raise."""
+    from repro_torch.backends import get_backend
+    be = get_backend(backend)
+    shapes = tuple(tuple(x.shape) for x in operands)
+    dims = dims_of(op, shapes)
+    _select(op, dims, operands[0].dtype, knob, runtime,
+            default=be.default_knob(op), backend=be.name)
+    return torch.empty(_out_shape(op, shapes), dtype=operands[0].dtype,
+                       device="meta")

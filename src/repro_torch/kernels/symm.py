@@ -29,7 +29,7 @@ from repro_torch.core.knobs import hopper_2d_knob_space
 
 from . import _build
 from .gemm import vec_aligned
-from .introspect import record_launch
+from .introspect import launch_events, record_launch
 from .ref import sym_lower
 
 __all__ = ["symm", "symm_plain", "TILES"]
@@ -48,7 +48,8 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int,                         # bm, bn
              _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
              ctypes.c_float, ctypes.c_float, ctypes.c_int,       # alpha..
              ctypes.c_int,                                       # vec
-             ctypes.c_void_p]                                    # stream
+             ctypes.c_void_p,                                    # stream
+             ctypes.c_void_p, ctypes.c_void_p]                   # events
 
 
 def symm_plain(a: torch.Tensor, b: torch.Tensor,
@@ -113,14 +114,16 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     grid = _build.launch_grid()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _build.launcher("symm", _ARGTYPES)(
+        launch = _build.launcher("symm", _ARGTYPES)
+        events = launch_events()
+        rc = launch(
             bm, bn, a.data_ptr(), b.data_ptr(),
             c.data_ptr() if has_c else None, out.data_ptr(), m, n, batch or 1,
             sab, a.stride(-2), sbb, b.stride(-2),
             c.stride(0) if has_c and stacked else 0,
             c.stride(-2) if has_c else 0,
             out.stride(0) if stacked else 0, out.stride(-2),
-            float(alpha), float(beta), int(has_c), int(vec), stream, grid)
+            float(alpha), float(beta), int(has_c), int(vec), stream, *events, grid)
     if rc != 0:
         raise RuntimeError(f"SYMM kernel launch failed with CUDA error {rc} "
                            f"(tile {bm}x{bn}, A {tuple(a.shape)}, "

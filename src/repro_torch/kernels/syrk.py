@@ -50,7 +50,7 @@ from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
 
 from . import _build
 from .gemm import mainloop_params, ring_stages, vec_aligned
-from .introspect import record_launch
+from .introspect import launch_events, record_launch
 from .ref import sym_lower
 
 __all__ = ["syrk", "syr2k", "rank_k_plain", "rank_k_params", "TILES",
@@ -72,12 +72,11 @@ _COMMON = [ctypes.c_int, ctypes.c_int,                          # bm, bk
            _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,
            ctypes.c_float, ctypes.c_float,                      # alpha, beta
            ctypes.c_int]                                        # two
+_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]    # stream, events
 _ARGTYPES = {"rank_k": _COMMON + [ctypes.c_int, ctypes.c_int,   # tri, has_c
-                                  ctypes.c_int,                 # vec
-                                  ctypes.c_void_p],             # stream
+                                  ctypes.c_int] + _TAIL,        # vec
              "rank_k_packed": _COMMON + [ctypes.c_int,          # has_c
-                                         ctypes.c_int,          # vec
-                                         ctypes.c_void_p]}      # stream
+                                         ctypes.c_int] + _TAIL}  # vec
 
 
 def rank_k_params(bm: int, bk: int) -> dict:
@@ -186,14 +185,16 @@ def _launch(a, b, c, out, n, k, batch, *, bm, bk, alpha, beta, variant,
     flags = (int(two), int(variant == "tri"), int(has_c), int(vec)) \
         if kernel == "rank_k" else (int(two), int(has_c), int(vec))
     grid = _build.launch_grid()
-    rc = _build.launcher(kernel, _ARGTYPES[kernel])(
+    launch = _build.launcher(kernel, _ARGTYPES[kernel])
+    events = launch_events()
+    rc = launch(
         bm, bk, a.data_ptr(), b.data_ptr() if two else None,
         c.data_ptr() if has_c else None, out.data_ptr(), n, k, batch or 1,
         sab, a.stride(-2), sbb, b.stride(-2) if two else 0,
         c.stride(0) if has_c and stacked else 0,
         c.stride(-2) if has_c else 0,
         out.stride(0) if stacked else 0, out.stride(-2),
-        float(alpha), float(beta), *flags, stream, grid)
+        float(alpha), float(beta), *flags, stream, *events, grid)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{rc} (tile {bm}x{bk}, variant {variant}, "

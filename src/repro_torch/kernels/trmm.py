@@ -43,7 +43,7 @@ from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
 
 from . import _build
 from .gemm import vec_aligned
-from .introspect import record_launch
+from .introspect import launch_events, record_launch
 
 __all__ = ["trmm", "trmm_plain", "TILES", "VARIANTS"]
 
@@ -60,10 +60,10 @@ _COMMON = [ctypes.c_int, ctypes.c_int,                          # bm, bn
            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # m, n, batch
            _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,            # strides
            ctypes.c_float]                                      # alpha
-_ARGTYPES = {"trmm": _COMMON + [ctypes.c_int, ctypes.c_int,     # tri, vec
-                                ctypes.c_void_p],               # stream
-             "trmm_packed": _COMMON + [ctypes.c_int,            # vec
-                                       ctypes.c_void_p]}        # stream
+_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]    # stream, events
+_ARGTYPES = {"trmm": _COMMON + [ctypes.c_int, ctypes.c_int]     # tri, vec
+             + _TAIL,
+             "trmm_packed": _COMMON + [ctypes.c_int] + _TAIL}   # vec
 
 
 def trmm_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -136,11 +136,13 @@ def _launch(a, b, out, m, n, batch, *, bm, bn, alpha, variant,
     flags = (int(vec),) if kernel == "trmm_packed" \
         else (int(variant == "tri"), int(vec))
     grid = _build.launch_grid()
-    rc = _build.launcher(kernel, _ARGTYPES[kernel])(
+    launch = _build.launcher(kernel, _ARGTYPES[kernel])
+    events = launch_events()
+    rc = launch(
         bm, bn, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
         batch or 1, sab, a.stride(-2), sbb, b.stride(-2),
         out.stride(0) if stacked else 0, out.stride(-2),
-        float(alpha), *flags, stream, grid)
+        float(alpha), *flags, stream, *events, grid)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{rc} (tile {bm}x{bn}, variant {variant}, "

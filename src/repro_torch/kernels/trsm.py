@@ -43,7 +43,7 @@ from repro_torch.core.knobs import (HOPPER_CONTRACTION_STEP,
 
 from . import _build
 from . import gemm as _gemm
-from .introspect import record_launch
+from .introspect import launch_events, record_launch
 
 __all__ = ["trsm", "trsm_plain", "diag_inverses", "diag_inverses_plain",
            "substitute", "substitute_plain", "inverse_blocks", "trsm_params",
@@ -60,13 +60,16 @@ _MAX_GRID_Z = 65535
 _C_LL = ctypes.c_longlong
 _INV_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,  # bm, A, inv
                  ctypes.c_int, ctypes.c_int, _C_LL, _C_LL,      # m, batch, sA
-                 ctypes.c_void_p]                               # stream
+                 ctypes.c_void_p,                               # stream
+                 ctypes.c_void_p, ctypes.c_void_p]              # events
 _ARGTYPES = [ctypes.c_int, ctypes.c_int,                        # bm, bn
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # A, B, inv
              ctypes.c_void_p,                                   # X
              ctypes.c_int, ctypes.c_int, ctypes.c_int,          # m, n, batch
              _C_LL, _C_LL, _C_LL, _C_LL, _C_LL, _C_LL,          # strides
-             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]     # alpha, vec
+             ctypes.c_float, ctypes.c_int,                      # alpha, vec
+             ctypes.c_void_p,                                   # stream
+             ctypes.c_void_p, ctypes.c_void_p]                  # events
 
 
 def trsm_params(bm: int, bn: int) -> dict:
@@ -280,10 +283,12 @@ def _launch_inv(a, inv, bm, stream) -> None:
     record the launch."""
     stacked = a.dim() == 3
     grid = _build.launch_grid()
-    rc = _build.launcher("trsm_inv", _INV_ARGTYPES, source="trsm")(
+    launch = _build.launcher("trsm_inv", _INV_ARGTYPES, source="trsm")
+    events = launch_events()
+    rc = launch(
         bm, a.data_ptr(), inv.data_ptr(), a.shape[-1],
         a.shape[0] if stacked else 1, a.stride(0) if stacked else 0,
-        a.stride(-2), stream, grid)
+        a.stride(-2), stream, *events, grid)
     if rc != 0:
         _raise("trsm_inv", rc, f"bm {bm}, A {tuple(a.shape)}")
     record_launch("trsm_inv", grid)
@@ -298,11 +303,13 @@ def _launch(a, b, inv, x, *, bm, bn, alpha, stream) -> None:
     vec = _gemm.vec_aligned((a, a.stride(-2), sab), (b, b.stride(-2), sbb),
                             (x, x.stride(-2), sxb))
     grid = _build.launch_grid()
-    rc = _build.launcher("trsm", _ARGTYPES)(
+    launch = _build.launcher("trsm", _ARGTYPES)
+    events = launch_events()
+    rc = launch(
         bm, bn, a.data_ptr(), b.data_ptr(), inv.data_ptr(), x.data_ptr(),
         a.shape[-1], b.shape[-1], a.shape[0] if stacked else 1, sab,
         a.stride(-2), sbb, b.stride(-2), sxb, x.stride(-2), float(alpha),
-        int(vec), stream, grid)
+        int(vec), stream, *events, grid)
     if rc != 0:
         _raise("trsm", rc, f"tile {bm}x{bn}, A {tuple(a.shape)}, "
                f"B {tuple(b.shape)}")

@@ -191,7 +191,10 @@ def embed(p: Embedding, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
     """The reference's frequencies, computed in float64 numpy and used in
-    float32; cached per device, so a step copies nothing to the card."""
+    float32; cached per device, so a step copies nothing to the card.  On
+    the meta device (a harvest) only the shape is made."""
+    if device.type == "meta":
+        return torch.empty(half, dtype=torch.float32, device=device)
     freqs = 1.0 / (theta ** (np.arange(0, half) / half))
     return torch.from_numpy(freqs).to(device=device, dtype=torch.float32)
 

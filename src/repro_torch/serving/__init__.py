@@ -11,17 +11,24 @@ its error budgets and its fault harness).
     FaultPlan   — deterministic seeded fault injection (chaos harness); give
                   one plan to the service/runtime to drive every failure
                   path on purpose
+    Retuner     — online drift-aware retraining from serving telemetry
+                  (``BlasService(retuner=...)``): the kernels' device time
+                  against the installed model's predictions, refit and
+                  atomic hot-swap on drift
+    FleetService — the service's front end over N executor processes
+                  (``spawn``), each with its own runtime and CUDA context
 
 Failure semantics: every submitted request resolves — result, or a typed
 error (ServiceClosedError / DeadlineExpiredError / ExecutionFailedError);
 overload is shed synchronously at submit with AdmissionRejectedError.  The
 ladder has no backend rung below the requested one: ``hopper`` never
-degrades onto a library call or the CPU.  The retuner and the
-multi-process fleet are not ported yet.
+degrades onto a library call or the CPU.
 """
 
 from .budget import BudgetConfig, ErrorBudgetLedger
 from .faults import FaultPlan, FaultSpec, InjectedFault
+from .fleet import ExecutorDiedError, FleetConfig, FleetService
+from .retune import RetuneConfig, Retuner, RetuneStats
 from .service import (AdmissionRejectedError, BlasService,
                       DeadlineExpiredError, ExecutionFailedError,
                       ServeConfig, ServeStats, ServiceClosedError, bucket_key)
@@ -30,4 +37,6 @@ __all__ = ["BlasService", "ServeConfig", "ServeStats", "bucket_key",
            "BudgetConfig", "ErrorBudgetLedger",
            "FaultPlan", "FaultSpec", "InjectedFault",
            "ServiceClosedError", "DeadlineExpiredError",
-           "ExecutionFailedError", "AdmissionRejectedError"]
+           "ExecutionFailedError", "AdmissionRejectedError",
+           "Retuner", "RetuneConfig", "RetuneStats",
+           "FleetConfig", "FleetService", "ExecutorDiedError"]

@@ -22,11 +22,23 @@ What differs from the reference, seam by seam:
   is taken from CUDA events on that stream around ``run_op``: it holds this
   bucket's kernels and the gaps the host leaves between them (``run_op``'s
   dispatch before the first launch, the gap between trsm's two), and no
-  other worker's kernels.  The worker waits on its stream before it
-  resolves any future, so a resolved future holds a computed result;
+  other worker's kernels.  Without a retuner a bucket books that span over
+  its items, as the reference does.  With one, the span is what a
+  retuner would misread (a stack of small problems runs in fewer calls'
+  time than it has items, and the host's dispatch and GIL waits ride on
+  an idle stream), so once per key and step
+  (:meth:`~repro_torch.serving.retune.Retuner.claim_probe`) a worker probes:
+  with the card to itself it runs the bucket's first item alone, twice,
+  and books the second call's kernels (``kernels/introspect.py::
+  launch_window``, the events each launcher records around its launch) as
+  one item — the install's labels' own quantity (``core/timing.py``); the
+  other buckets book no execution.  The worker waits on its stream before
+  it resolves any future, so a resolved future holds a computed result;
 * there is no trace-time decision batcher (PyTorch has no trace time); the
   concurrent cold-decision prewarm (``select_many``) stays;
-* the online retuner is not ported yet, so there is no ``retuner=``.
+* the online retuner (``serving/retune.py``) is started with the workers
+  and stopped before the decision cache is persisted, as in the
+  reference.
 
 The paper's runtime (Fig. 1b) decides a knob per *single* call.  Under
 serving traffic the same handful of shapes repeats across many concurrent
@@ -98,6 +110,7 @@ respawned (``ServeStats.worker_respawns``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -259,6 +272,8 @@ class ServeStats:
                                   # their shed fraction of max_pending
     brownout_batches: int = 0     # buckets served cached-or-default knobs
                                   # (zero model evals) under brownout
+    retuner_abandoned: int = 0    # close() retuner joins that timed out
+                                  # mid-refit (bounded by the close budget)
 
     @property
     def mean_batch(self) -> float:
@@ -342,6 +357,47 @@ class _Bucket:
         self.recovered = 0            # times requeued after a worker death
 
 
+class _CardLock:
+    """The card, shared by the workers' buckets and held alone by a probe
+    (a retuner's telemetry: one item's kernels with nothing else of the
+    service on the card).  A waiting probe goes first: no new bucket
+    starts once one is waiting."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._shared = 0
+        self._waiting = 0
+        self._alone = False
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            while self._alone or self._waiting:
+                self._cond.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._shared -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._waiting += 1
+            while self._alone or self._shared:
+                self._cond.wait()
+            self._waiting -= 1
+            self._alone = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._alone = False
+                self._cond.notify_all()
+
+
 class BlasService:
     """Asynchronous shape-bucketed BLAS front-end over an ADSALA runtime.
 
@@ -366,7 +422,8 @@ class BlasService:
 
     def __init__(self, *, runtime: Optional[AdsalaRuntime] = None,
                  config: Optional[ServeConfig] = None,
-                 registry=None, faults=None, device=None) -> None:
+                 registry=None, retuner=None, faults=None,
+                 device=None) -> None:
         self.runtime = runtime if runtime is not None else global_runtime()
         self.config = config if config is not None else ServeConfig()
         self.device = None if device is None else torch.device(device)
@@ -409,11 +466,20 @@ class BlasService:
                 self.warm_started = registry.load_decision_cache(self.runtime)
             except Exception:        # noqa: BLE001 — cold start instead
                 self.stats.warm_start_errors += 1
+        # optional online feedback loop (serving.retune.Retuner): started
+        # once the workers are up, stopped before the decision cache is
+        # persisted on close so the saved cache reflects the final artifact
+        # generations.  Omit it (the default) for reproducibility runs.
+        self.retuner = retuner
         self._start()
+        if self.retuner is not None:
+            self.retuner.start()
 
     def _start(self) -> None:
         self._mutex = threading.Lock()
         self._local = threading.local()   # per-worker CUDA streams
+        # with a retuner attached a probe has the card to itself
+        self._card = _CardLock() if self.retuner is not None else None
         self._done = threading.Condition(self._mutex)   # batch completions
         self._buckets: dict[tuple, _Bucket] = {}
         self._ready: "queue.Queue[Optional[_Bucket]]" = queue.Queue()
@@ -607,6 +673,7 @@ class BlasService:
                 return
             self._closed = True
             self._done.notify_all()
+        deadline = time.monotonic() + max(0.0, timeout)
         self.drain(timeout=timeout)
         self._wake.set()
         for _ in self._workers:
@@ -619,6 +686,17 @@ class BlasService:
         for w in self._workers:
             w.join(timeout=join_s)
         self._abort_leftovers()
+        if self.retuner is not None:        # before the cache is persisted:
+            # no swap may race the export — but a retuner mid-refit can
+            # outlast any close budget, so the join is bounded by whatever
+            # remains of the caller's timeout.  A timed-out join abandons
+            # the refit *counted*, never silently: the halted thread exits
+            # after its in-flight step, and its swap (if any) lands on a
+            # runtime nobody serves from anymore
+            remaining = max(0.1, deadline - time.monotonic())
+            if not self.retuner.stop(timeout=remaining):
+                with self._mutex:
+                    self.stats.retuner_abandoned += 1
         if self.registry is not None:
             try:
                 self.registry.save_decision_cache(self.runtime)
@@ -805,9 +883,10 @@ class BlasService:
     def _dispatch(self, bucket: _Bucket, reqs: list,
                   worker_idx: int) -> None:
         """Execution transport seam: the in-process service runs the
-        degradation ladder right here on the worker thread (the reference's
-        fleet overrides this to ship the bucket to an executor process; the
-        port's fleet is a later slice)."""
+        degradation ladder right here on the worker thread;
+        :class:`~repro_torch.serving.fleet.FleetService` overrides this to
+        ship the bucket to the executor process paired with
+        ``worker_idx``."""
         self._execute_chain(bucket, reqs)
 
     def budget_state(self) -> dict:
@@ -971,6 +1050,31 @@ class BlasService:
             stream = streams[device] = torch.cuda.Stream(device=device)
         return stream
 
+    def _probe(self, call, stacked: tuple, on_card: bool):
+        """A bucket's first item alone, twice, the second call timed — one
+        call of one item after a warm-up, as the install's labels are
+        measured — then the rest as one stack.  Returns the stacked result
+        and a callable giving the timed call's seconds (its kernels' device
+        time on the card, read once the stream is done; None where nothing
+        was launched)."""
+        from repro_torch.kernels.introspect import launch_window
+        one = tuple(x[0] for x in stacked)
+        call(one)
+        if on_card:
+            with launch_window() as window:
+                head = call(one)
+            seconds = window.seconds
+        else:
+            t0 = time.perf_counter()
+            head = call(one)
+            host = time.perf_counter() - t0
+
+            def seconds():
+                return host
+        rest = [call(tuple(x[1:] for x in stacked))] \
+            if len(stacked[0]) > 1 else []
+        return torch.cat([head[None], *rest]), seconds
+
     def _run_and_resolve(self, bucket: _Bucket, reqs: list, knob,
                          attempt: int) -> None:
         """One stacked execution with one explicit knob; resolves futures
@@ -979,48 +1083,64 @@ class BlasService:
         from repro_torch.kernels.ops import run_op
         backend, op, dtype_bytes, dims = bucket.key[:4]
         be = _backend_resolver()(backend, device=self.device)
-        # the stack build is accounted as queue time, not execution: only
-        # the run_op span is "executing" — a retuner compares it against
-        # the model's per-call predictions, and folding scheduler-side work
-        # (queue wait, linger, stacking) into it would read as drift
-        stacked = tuple(_stack([r.operands[i] for r in reqs], be)
-                        for i in range(len(reqs[0].operands)))
-        if self._faults is not None:
-            self._faults.fire("stacked_execute", backend=backend, op=op,
-                              dims=dims, attempt=attempt, n=len(reqs),
-                              knob=knob)
-        t_exec = time.monotonic()
-        if be.device.type == "cuda":
-            stream = self._stream(be.device)
-            with torch.cuda.device(be.device):
-                # the operands were stacked on the current stream
-                stream.wait_stream(torch.cuda.current_stream())
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                try:
-                    with torch.cuda.stream(stream):
-                        start.record()
-                        out = run_op(op, stacked, backend=backend,
-                                     device=be.device, knob=knob,
-                                     runtime=self.runtime, **reqs[0].kw)
-                        end.record()
-                finally:
-                    # nothing of this bucket is in flight once it returns
-                    # or raises
-                    stream.synchronize()
-                # callers read the rows on the current stream: a freed
-                # result is not reused by this worker's stream before that
-                # stream is done with it
-                out.record_stream(torch.cuda.current_stream())
-                exec_span = start.elapsed_time(end) / 1e3
+        on_card = be.device.type == "cuda"
+        probe = self.retuner is not None \
+            and self.retuner.claim_probe(bucket.key[:4])
+        card = contextlib.nullcontext() if self._card is None \
+            else self._card.exclusive() if probe else self._card.shared()
+
+        def call(operands):
+            return run_op(op, operands, backend=backend, device=be.device,
+                          knob=knob, runtime=self.runtime, **reqs[0].kw)
+
+        with card:
+            # the stack build is accounted as queue time, not execution:
+            # only the run_op span is "executing" — a retuner compares it
+            # against the model's per-call predictions, and folding
+            # scheduler-side work (queue wait, linger, stacking) into it
+            # would read as drift
+            stacked = tuple(_stack([r.operands[i] for r in reqs], be)
+                            for i in range(len(reqs[0].operands)))
+            if self._faults is not None:
+                self._faults.fire("stacked_execute", backend=backend, op=op,
+                                  dims=dims, attempt=attempt, n=len(reqs),
+                                  knob=knob)
+            t_exec = time.monotonic()
+            if on_card:
+                stream = self._stream(be.device)
+                with torch.cuda.device(be.device):
+                    # the operands were stacked on the current stream
+                    stream.wait_stream(torch.cuda.current_stream())
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    try:
+                        with torch.cuda.stream(stream):
+                            start.record()
+                            out, probed = self._probe(call, stacked, True) \
+                                if probe else (call(stacked), None)
+                            end.record()
+                    finally:
+                        # nothing of this bucket is in flight once it
+                        # returns or raises
+                        stream.synchronize()
+                    # callers read the rows on the current stream: a freed
+                    # result is not reused by this worker's stream before
+                    # that stream is done with it
+                    out.record_stream(torch.cuda.current_stream())
+                    exec_span = start.elapsed_time(end) / 1e3
+            else:
+                out, probed = self._probe(call, stacked, False) \
+                    if probe else (call(stacked), None)
+                exec_span = time.monotonic() - t_exec
+        # what the bucket books as its execution (module docstring)
+        if self.retuner is None:
+            booked, items = exec_span, len(reqs)
         else:
-            out = run_op(op, stacked, backend=backend, device=be.device,
-                         knob=knob, runtime=self.runtime, **reqs[0].kw)
-            exec_span = time.monotonic() - t_exec
+            booked = probed() if probed is not None else None
+            booked, items = (booked, 1) if booked is not None else (0.0, 0)
         queue_span = sum(t_exec - r.t_submit for r in reqs)
         self.runtime.record_batch(op, dims, dtype_bytes, backend, len(reqs),
-                                  exec_seconds=exec_span,
-                                  exec_items=len(reqs),
+                                  exec_seconds=booked, exec_items=items,
                                   queue_seconds=queue_span)
         now = time.monotonic()
         resolved = 0

@@ -10,7 +10,8 @@ syrk/syr2k and trmm too), ``tri``'s rank-k output symmetric bit for bit,
 trmm's A read nowhere above its diagonal, a TRSM call launching its two
 kernels and nothing else, and the launch parameters built into the
 kernels equal to their Python mirrors; the dense, MoE, zamba2 and rwkv6
-smoke models routed on the card against their plain versions.  The card's
+smoke models routed on the card against their plain versions; a retune
+step on the card's telemetry and a one-executor fleet on the card.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -818,3 +819,83 @@ def test_routed_recurrent_smoke_model_on_the_card_matches_its_unrouted_run(
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_retune_step_and_one_executor_fleet_on_the_card(tmp_path):
+    """A GEMM model installed on the card (a few samples), served through
+    a ``BlasService`` with a retuner: one bucket of the key (a probe: one
+    claim per step) books its first item's call, within 2x of the install's
+    own timer at the same dims and knob, the retuner samples and anchors
+    it, and the
+    served knob's time x 4 fed as telemetry is detected, refit, saved
+    under the next version and swapped in one ``step()``.  Then a fleet of
+    one executor process on the card over the same registry: it resolves
+    the sub-registry of this card and its results equal the in-process
+    ``run_op`` under the same model bit for bit."""
+    _need_card()
+    import numpy as np
+
+    from repro_torch.backends import resolve_backend
+    from repro_torch.core import AdsalaRuntime, ModelRegistry
+    from repro_torch.core import install_subroutine
+    from repro_torch.serving import (BlasService, FleetConfig, FleetService,
+                                     RetuneConfig, Retuner, ServeConfig)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    be = resolve_backend("hopper")
+    sub = install_subroutine(
+        "gemm", ops.knob_space_for("gemm", sizes=(64, 128)),
+        be.timer_fn("gemm"), n_samples=8, dim_lo=64, dim_hi=512,
+        tune_trials=1, candidates=("DecisionTree",), use_lof=False)
+    reg = ModelRegistry(tmp_path).for_fingerprint(create=True)
+    reg.save(sub)
+    rt = AdsalaRuntime()
+    rt.register(sub)
+    ret = Retuner(rt, registry=reg, config=RetuneConfig(
+        min_samples=1, anchor_samples=1, interval_s=3600.0, tune_trials=1))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    work = [(torch.randn(256, 256, generator=gen, device="cuda"),
+             torch.randn(256, 256, generator=gen, device="cuda"))
+            for _ in range(12)]
+    with BlasService(runtime=rt, config=ServeConfig(max_batch=4,
+                                                    linger_ms=1.0),
+                     retuner=ret) as svc:
+        outs = [f.result(timeout=120)
+                for f in [svc.submit("gemm", xs) for xs in work]]
+    for (a, b), got in zip(work, outs):
+        want = a.double() @ b.double()
+        assert ((got - want).abs().max() / want.abs().max()).item() < TOL
+    key = next(k for k in rt.stats.buckets if k[1] == "gemm")
+    bucket = rt.stats.buckets[key]
+    # with a retuner attached one bucket a step books its first item run
+    # alone: one call, the quantity the install's labels measure
+    assert bucket.exec_seconds > 0 and bucket.exec_items == 1
+    assert bucket.batches == 3 and bucket.requests == len(work)
+    per_call = bucket.mean_exec_per_item
+    label = be.timer_fn("gemm")(key[3], rt.peek("gemm", key[3], 4, "hopper"))
+    assert 0.5 < per_call / label < 2.0
+    assert ret.observe() == 1
+    rt.record_batch("gemm", key[3], 4, "hopper", 4,
+                    exec_seconds=4 * 4.0 * per_call, exec_items=4)
+    version = sub.artifact_version
+    assert ret.step() == [("hopper", "gemm", 4)]
+    assert rt.subroutine("gemm", 4, "hopper").artifact_version == version + 1
+    fleet = FleetService(fleet=FleetConfig(processes=1,
+                                           registry_root=str(tmp_path)),
+                         config=ServeConfig(max_batch=4, linger_ms=1.0))
+    try:
+        futs = [fleet.submit("gemm", xs) for xs in work]
+        got = [f.result(timeout=300) for f in futs]
+        stats = fleet.fleet_stats()[0]
+    finally:
+        fleet.close()
+    fresh = AdsalaRuntime()
+    reg.load_into(fresh, backend="hopper")
+    for (a, b), g in zip(work, got):
+        want = ops.run_op("gemm", (a, b), runtime=fresh).cpu()
+        assert torch.equal(g, want)
+    assert stats["resolution"]["mode"] == "exact"
+    assert torch.cuda.get_device_name(0).lower() in \
+        stats["resolution"]["gpu"]
+    assert stats["device_name"] == torch.cuda.get_device_name(0)
+    assert np.isfinite(per_call)

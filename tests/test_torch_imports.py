@@ -27,7 +27,11 @@ def test_import_loads_no_jax_repro_or_msgpack():
         "repro_torch.backends.conformance, repro_torch.launch.calibrate, "
         "repro_torch.serving, repro_torch.serving.service, "
         "repro_torch.configs, repro_torch.models, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.core.oracle, "
+        "repro_torch.roofline, repro_torch.roofline.harvest, "
+        "repro_torch.roofline.costing, repro_torch.serving.retune, "
+        "repro_torch.serving.fleet, repro_torch.distributed, "
+        "repro_torch.distributed.elastic\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"
         "print(bad)\n"
@@ -62,7 +66,9 @@ def test_the_scan_covers_the_serving_package():
             "kernels/padded_ref.py", "configs/base.py",
             "models/layers.py", "models/transformer.py",
             "models/moe.py", "models/mla.py",
-            "launch/serve.py"} <= scanned
+            "launch/serve.py", "core/oracle.py", "roofline/harvest.py",
+            "roofline/costing.py", "serving/retune.py", "serving/fleet.py",
+            "distributed/elastic.py"} <= scanned
 
 
 def test_chip_smoke_imports_nothing_of_repro():
@@ -70,3 +76,31 @@ def test_chip_smoke_imports_nothing_of_repro():
     text = (SRC.parent / "chip_smoke.py").read_text()
     assert _FORBIDDEN.search(text) is None, _FORBIDDEN.search(text).group(0)
     assert "import repro." not in text
+
+
+def test_prewarm_script_imports_nothing_of_repro(tmp_path):
+    """``scripts/torch_prewarm_model.py``, run to its end (the oracle timer
+    on a smoke config), leaves no module of JAX, the reference package or
+    msgpack loaded, and its source imports none."""
+    script = SRC.parent / "scripts" / "torch_prewarm_model.py"
+    text = script.read_text()
+    assert _FORBIDDEN.search(text) is None and "import repro." not in text
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{str(script)!r}, '--arch', 'zamba2-1.2b', "
+        f"'--smoke-config', '--registry', {str(tmp_path)!r}, '--batch', "
+        "'1', '--seq', '8', '--n-samples', '12', '--tune-trials', '1', "
+        "'--candidates', 'LinearRegression', '--timer', 'oracle']\n"
+        "try:\n"
+        "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
+        "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=SRC.parent,
+                          env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "replay from persisted cache: 0 model evals" in proc.stdout

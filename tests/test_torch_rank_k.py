@@ -226,8 +226,9 @@ def test_wrapper_makes_one_launch_with_vec_and_no_pass_after_it(
         assert args[9:17] == (x.stride(0), x.stride(1),
                               960 if two else 0, 24 if two else 0,
                               1600, 40, 1600, 40)
-        assert args[17:19] == (0.5, 2.0) and args[-1] == 0
-        flags = args[19:-1]
+        # alpha, beta, then the stream and no launch events outside a window
+        assert args[17:19] == (0.5, 2.0) and args[-3:] == (0, None, None)
+        flags = args[19:-3]
         assert flags == ((int(two), 1, vec) if kernel == "rank_k_packed"
                          else (int(two), int(variant == "tri"), 1, vec)), \
             flags

@@ -149,8 +149,9 @@ def test_wrapper_passes_tile_variant_flag_and_vec_to_the_launcher(
         assert name == kernel and args[:2] == (128, 64)
         assert args[5:8] == (40, 24, 3)
         assert args[8:14] == (x.stride(0), x.stride(1), 960, 24, 960, 24)
-        assert args[14] == 0.5 and args[-1] == 0          # alpha, stream
-        flags = args[15:-1]
+        # alpha, then the stream and no launch events outside a window
+        assert args[14] == 0.5 and args[-3:] == (0, None, None)
+        flags = args[15:-3]
         assert flags == ((vec,) if kernel == "trmm_packed"
                          else (int(variant == "tri"), vec)), flags
 
