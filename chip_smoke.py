@@ -194,6 +194,32 @@ calls, and fails (non-zero exit) if any phase fails:
    puts ahead of the prompt.  It fails unless the generate launches the
    GEMM kernel 114 + 32 x 113 = 3,730 times and nothing else; the calls,
    layers, head and logits are held as in phase 6;
+8. training (``launch/train.py``'s ``TrainLoop``, ``optim``, ``data``,
+   ``checkpoint``, ``distributed/fault_tolerance.py``), in fresh processes
+   once phase 6f's has exited.  The training step routes nothing through
+   the hand-written kernels (the GEMM has no backward; the reference
+   trains unrouted too), so its matmuls are ``torch.matmul``.
+   8a: every architecture's smoke config takes 2 ``step_fn`` steps on the
+   card; every loss and gradient finite, every parameter moved.
+   8b: llama3-8b at full width and 2 layers, float32 with TF32 off, one
+   8 x 128 batch: the loss and every parameter's gradient against a
+   float64 copy of the same weights on the card, within 1e-5 (loss,
+   relative) and 1e-4 (each gradient's max error over its max value).
+   8c: llama3-8b at full width and 12 of its 32 layers (``TRAIN_CUTS``)
+   at its own numerics (bf16 compute, remat ``nested``, ``ce_chunk``
+   2048), 8 steps of 8 x 128 tokens from ``SyntheticLMDataset`` at
+   ``launch/train.py``'s defaults: every loss and gradient norm finite,
+   the first loss within 1.0 of ln 128256, every parameter moved, no
+   hand-written kernel launched, the peak memory under the card's; it
+   prints the step's ms and tokens/s, the model TFLOP/s against the
+   dense bf16 peak, the optimiser's and the clip's device time and the
+   device's idle share from a profiled step, and the peak memory.
+   8d (another process, deterministic algorithms): the example's reduced
+   config through ``TrainLoop.run`` preempted at step 6, restored and run
+   to step 10, against 10 steps uninterrupted: the restored state, every
+   loss and the final parameters bit for bit.  Beside it (a process of
+   its own, untimed) ``examples/torch_train_lm.py`` (300 steps) on the
+   card must exit 0 with its loss dropping;
 7. times (CUDA events) of every served call: the kernel under the tuned and
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
@@ -211,7 +237,8 @@ calls, and fails (non-zero exit) if any phase fails:
 The launch counts come from ``repro_torch.kernels.introspect``: each path
 (the ``run_op`` calls, the service, each model's generate) is driven with
 the counts set to 0 just before it and read just after; launches made by
-the comparisons of phase 3 and the models' checks do not count.
+the comparisons of phase 3 and the models' checks do not count.  Phase 8c
+reads them around its training steps, which must launch none.
 
 Run from the root of a checkout on a machine with the card:
 ``python3 chip_smoke.py``.  The last line of its output is
@@ -233,6 +260,7 @@ import faulthandler
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -344,6 +372,31 @@ MODEL_PHASES = {
 #: room on the 85.5 GB card for the checks' temporaries (the TF32 rounding
 #: of the (8192, 128256) head takes two 4.2 GB ones)
 MODEL_CUTS = {"internvl2-76b": 16}
+#: phase 8: the model trained at a cut depth, arch -> layers: llama3-8b's 32
+#: layers are 8.030 B parameters, 128.5 GB of float32 parameters,
+#: gradients and both AdamW moments (16 bytes a parameter), which do not
+#: fit the 80 GB card; 16 layers are 4.540 B (72.6 GB), which leave no room
+#: for the activations and the bf16 weight casts; 12 are 3.668 B (58.7
+#: GB).  All 32 need the state sharded over several cards
+TRAIN_CUTS = {"llama3-8b": 12}
+#: phase 8: the batch of a step (launch/train.py's defaults), the steps of
+#: the full-width run and of each smoke config, and the layers of the
+#: full-width float64 gradient check (1.487 B parameters)
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS = 8
+TRAIN_SMOKE_STEPS = 2
+GRAD_LAYERS = 2
+#: phase 8b's limits: per tensor, max |g_f32 - g_f64| / max |g_f64|, and
+#: the loss's relative error
+GRAD_TOL = 1e-4
+GRAD_LOSS_TOL = 1e-5
+#: phase 8d: the step during which the preemption notice arrives, and the
+#: steps of the resumed and the uninterrupted run
+RESUME_AT, RESUME_STEPS = 6, 10
+#: seconds the training processes may take (8a-8c, 8d, the example)
+TRAIN_TIMEOUT_S = 300
+RESUME_TIMEOUT_S = 180
+EXAMPLE_TIMEOUT_S = 240
 #: requests, prompt and new tokens of each model's generate, greedy
 MODEL_REQUESTS, MODEL_PROMPT, MODEL_NEW = 4, 128, 32
 #: decode steps after the prefill whose logits are held to the plain version
@@ -375,6 +428,8 @@ GEMM_KERNEL = re.compile(r"(^|[\s:])gemm_kernel<")
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+#: dense bf16 (NVIDIA's H100 SXM data sheet), phase 8's model-FLOP share
+BF16_PEAK_TFLOPS = 989.4
 #: the ops whose calls phase 7 prints a ``[rate]`` line for
 RATE_OPS = ("gemm", "symm", "syrk", "syr2k", "trmm", "trsm")
 
@@ -2364,6 +2419,379 @@ def report_model(card: str, arch: str, res: dict) -> None:
                          f"(noise floor {res['floor']:.3e})")
 
 
+# -- phase 8, training: fresh processes after phase 6f's ------------------
+
+def _param_samples(params) -> dict:
+    """A strided sample of at most ~4096 values of every parameter, to tell
+    whether each moved without a copy of the model."""
+    return {k: p.detach().reshape(-1)[::max(1, p.numel() // 4096)].clone()
+            for k, p in params.named_parameters()}
+
+
+def _unmoved(torch, params, before: dict) -> list:
+    return [k for k, s in _param_samples(params).items()
+            if torch.equal(s, before[k])]
+
+
+def train_families(torch, card: str, root: Path) -> None:
+    """8a: every architecture's smoke config takes :data:`TRAIN_SMOKE_STEPS`
+    ``TrainLoop.step_fn`` steps on the card at its own numerics (Whisper's
+    and the VLM's stub inputs beside the tokens).  Fails unless every loss
+    and gradient norm (so every gradient) is finite and every parameter
+    moved."""
+    import numpy as np
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ARCHITECTURES, get_smoke_config
+    from repro_torch.data import SyntheticLMDataset, make_device_batch
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+    for arch in ARCHITECTURES:
+        cfg = get_smoke_config(arch)
+        ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=64, global_batch=2)
+        loop = TrainLoop(cfg=cfg, adamw=AdamWConfig(lr=1e-3, warmup_steps=1),
+                         ckpt=Checkpointer(root / cfg.name), dataset=ds)
+        state = loop.init_state(SEED)
+        before = _param_samples(state["params"])
+        rng = np.random.default_rng(SEED)
+        losses, norms = [], []
+        for step in range(TRAIN_SMOKE_STEPS):
+            batch = make_device_batch({**ds.batch_at(step),
+                                       **stub_inputs(cfg, 2, rng)},
+                                      loop.device)
+            p, o, ef, m = loop.step_fn(state["params"], state["opt"],
+                                       state["ef"], batch)
+            state = {"params": p, "opt": o, "ef": ef}
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        unmoved = _unmoved(torch, state["params"], before)
+        print(f"[train:families] [{card}] {cfg.name} ({cfg.family}): "
+              f"{sum(x.numel() for x in state['params'].parameters()):,} "
+              f"parameters on {loop.device}, losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)}, grad norms "
+              f"{' '.join(f'{x:.4f}' for x in norms)}, "
+              f"{len(before) - len(unmoved)}/{len(before)} parameters "
+              f"moved", flush=True)
+        if not all(map(math.isfinite, losses + norms)) or unmoved:
+            raise SystemExit(f"[train:families] {arch}: a loss or gradient "
+                             f"is not finite, or {unmoved} did not move")
+        del state, p, o, ef, m
+        torch.cuda.empty_cache()
+
+
+def train_gradient(torch, card: str, root: Path) -> None:
+    """8b: llama3-8b at full width and :data:`GRAD_LAYERS` layers, float32
+    compute with TF32 off, one batch of :data:`TRAIN_BATCH` x
+    :data:`TRAIN_SEQ`: the loss and every parameter's gradient against a
+    float64 copy of the same weights on the same batch.  Fails unless
+    every gradient's max |error| / max |g_f64| is within
+    :data:`GRAD_TOL` and the loss's relative error within
+    :data:`GRAD_LOSS_TOL`."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset, make_device_batch
+    from repro_torch.models import init_params, loss_fn
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=GRAD_LAYERS,
+                              compute_dtype="float32")
+    batch = make_device_batch(SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=SEED).batch_at(0), "cuda")
+    out = {}
+    for dtype in ("float32", "float64"):
+        t0 = time.perf_counter()
+        # the same draw both times; the float64 copy holds the same values
+        model = init_params(SEED, cfg, device="cuda")
+        if dtype == "float64":
+            model.double()
+        model.requires_grad_(True)
+        loss, _ = loss_fn(model, batch,
+                          dataclasses.replace(cfg, compute_dtype=dtype))
+        loss.backward()
+        loss = loss.detach()
+        out[dtype] = (loss, {k: p.grad for k, p in
+                             model.named_parameters()})
+        torch.cuda.synchronize()
+        print(f"[train:grad] {dtype}: loss {loss.item():.9f}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del model, loss
+    (l32, g32), (l64, g64) = out["float32"], out["float64"]
+    loss_err = abs(float(l32) - float(l64)) / abs(float(l64))
+    errs = {k: float((g32[k].double() - g64[k]).abs().max()
+                     / g64[k].abs().max()) for k in g64}
+    worst = max(errs, key=errs.get)
+    print(f"[train:grad] [{card}] {cfg.name} full width, {GRAD_LAYERS} "
+          f"layers, {sum(g.numel() for g in g64.values()):,} parameters, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, float32 (TF32 off) vs "
+          f"float64 on the card: loss rel err {loss_err:.3e} (limit "
+          f"{GRAD_LOSS_TOL:g}); largest gradient error {errs[worst]:.3e} "
+          f"of max |g_f64| at {worst} (limit {GRAD_TOL:g}); median "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e} over {len(errs)} "
+          f"tensors", flush=True)
+    if not (loss_err <= GRAD_LOSS_TOL and errs[worst] <= GRAD_TOL):
+        raise SystemExit("[train:grad] float32 gradients off float64")
+    del out, g32, g64
+    torch.cuda.empty_cache()
+
+
+def _annotated_ms(prof, name: str) -> float:
+    """Device ms of the kernels launched inside the ``record_function``
+    ranges called ``name`` (their host-side events' kernels)."""
+    from torch.autograd import DeviceType
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+
+
+def _step_profile(torch, fn) -> dict:
+    """Two calls of ``fn`` under ``torch.profiler``.  The first traces the
+    device alone (host tracing slows the host, which would read as device
+    idle time): the device time of its kernels, the device's idle share
+    between its first and last kernel, the top kernels.  The second traces
+    the host too, for the optimiser's and the clip's kernel time (their
+    ``record_function`` ranges, ``optim/adamw.py``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise SystemExit("[train:step] torch.profiler recorded no device "
+                         "time")
+    spans = sorted((s, e) for s, e, _ in ops)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    window = spans[-1][1] - spans[0][0]
+    by_name: dict = {}
+    for s, e, name in ops:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:MODEL_TOP_OPS]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / window,
+            "device_ms": sum(by_name.values()) / 1e3,
+            "adamw_ms": _annotated_ms(prof, "adamw_update"),
+            "clip_ms": _annotated_ms(prof, "clip_by_global_norm"),
+            "top": [(name[:90], us / 1e3) for name, us in top]}
+
+
+def train_full_width(torch, card: str, root: Path) -> None:
+    """8c: llama3-8b at full width and the depth of :data:`TRAIN_CUTS`
+    (12 of its 32 layers) at the config's own numerics
+    (float32 parameters, bf16 compute, remat ``nested``, ``ce_chunk``
+    2048), ``launch/train.py``'s defaults (batch 8, seq 128, lr 3e-4, the
+    schedule its ``main`` derives for :data:`TRAIN_STEPS` steps), from
+    ``SyntheticLMDataset``: :data:`TRAIN_STEPS` ``TrainLoop.step_fn``
+    steps, then one more under the profiler.  Fails unless every loss and
+    gradient norm is finite, the first loss lies within 1.0 of ln V, every
+    parameter moved, no hand-written kernel launched and the peak memory
+    stayed under the card's."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset, make_device_batch
+    from repro_torch.kernels import introspect
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+    full = get_config("llama3-8b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CUTS["llama3-8b"])
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=SEED)
+    loop = TrainLoop(cfg=cfg, adamw=AdamWConfig(
+        lr=3e-4, total_steps=TRAIN_STEPS,
+        warmup_steps=max(TRAIN_STEPS // 20, 5)),
+        ckpt=Checkpointer(root / "full_width"), dataset=ds)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = loop.init_state(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    named = dict(state["params"].named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    state_gb = 16 * n_params / 1e9     # f32 parameters, grads, two moments
+    before = _param_samples(state["params"])
+    introspect.reset_launches()
+    mem0 = torch.cuda.memory_stats()
+    losses, norms, times = [], [], []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = make_device_batch(ds.batch_at(step), loop.device)
+        p, o, ef, m = loop.step_fn(state["params"], state["opt"],
+                                   state["ef"], batch)
+        state = {"params": p, "opt": o, "ef": ef}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = sum(introspect.launch_counts().values())
+    mem1 = torch.cuda.memory_stats()
+    # the caching allocator's cudaMalloc calls and its retries (a retry
+    # frees the cache and synchronises the host with the card)
+    allocs = {k: mem1.get(k, 0) - mem0.get(k, 0)
+              for k in ("num_device_alloc", "num_alloc_retries")}
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    unmoved = _unmoved(torch, state["params"], before)
+    batch = make_device_batch(ds.batch_at(TRAIN_STEPS), loop.device)
+    prof = _step_profile(torch, lambda: loop.step_fn(
+        state["params"], state["opt"], state["ef"], batch))
+    step_ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs of a step: 6 N T over the matmul parameters (all but
+    # the embedding table, a gather), plus attention's 12 L S d T (QK^T
+    # and PV, forward and backward, over the full S x S); no recompute
+    n_matmul = n_params - named["embed.table"].numel()
+    flops = tokens * (6 * n_matmul
+                      + 12 * cfg.n_layers * TRAIN_SEQ * cfg.d_model)
+    tflops = flops / (step_ms / 1e3) / 1e12
+    ln_v = math.log(cfg.vocab)
+    print(f"[train:step] [{card}] {cfg.name} full width (d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) at "
+          f"{cfg.n_layers} of {full.n_layers} layers: {n_params:,} "
+          f"parameters ({state_gb:.2f} GB of f32 parameters, gradients and "
+          f"moments), {cfg.compute_dtype} compute, remat {cfg.remat}, "
+          f"ce_chunk {cfg.ce_chunk}; drawn in {init_s:.1f} s", flush=True)
+    print(f"[train:step] losses {' '.join(f'{x:.4f}' for x in losses)} "
+          f"(ln V = {ln_v:.4f}); grad norms "
+          f"{' '.join(f'{x:.4f}' for x in norms)}", flush=True)
+    print(f"[train:step] [{card}] step ms {step_ms:.3f} (median of steps "
+          f"2-{TRAIN_STEPS}; all: {' '.join(f'{t * 1e3:.1f}' for t in times)}"
+          f"), {tokens / (step_ms / 1e3):.1f} tokens/s ({TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} a step); model {tflops:.2f} TFLOP/s "
+          f"({flops / 1e12:.3f} TFLOP a step: 6 N T over {n_matmul:,} "
+          f"matmul parameters + attention, no recompute) = "
+          f"{tflops / BF16_PEAK_TFLOPS:.4f} of the dense bf16 peak "
+          f"{BF16_PEAK_TFLOPS} TFLOP/s (NVIDIA's H100 SXM data sheet)",
+          flush=True)
+    print(f"[train:step] [{card}] profiled steps {TRAIN_STEPS + 1}-"
+          f"{TRAIN_STEPS + 2}: device {prof['device_ms']:.3f} ms of kernels "
+          f"over a {prof['window_ms']:.3f} ms window, idle share "
+          f"{prof['idle_share']:.4f}; adamw_update {prof['adamw_ms']:.3f} "
+          f"ms of kernels ({prof['adamw_ms'] / prof['device_ms']:.4f} of "
+          f"the step's), of which clip_by_global_norm "
+          f"{prof['clip_ms']:.3f} ms", flush=True)
+    for name, ms in prof["top"]:
+        print(f"[train:top] {ms:9.3f} ms  {name}")
+    print(f"[train:step] peak memory {peak / 1e9:.2f} GB of the card's "
+          f"{card_bytes / 1e9:.2f} GB (state {state_gb:.2f} GB); "
+          f"allocator over the {TRAIN_STEPS} steps: {allocs}; "
+          f"hand-written kernel launches {launches}; "
+          f"{len(before) - len(unmoved)}/{len(before)} parameters moved",
+          flush=True)
+    if not all(map(math.isfinite, losses + norms)):
+        raise SystemExit("[train:step] a loss or gradient norm is not "
+                         "finite")
+    if not abs(losses[0] - ln_v) <= 1.0:
+        raise SystemExit(f"[train:step] first loss {losses[0]:.4f} is not "
+                         f"within 1.0 of ln V {ln_v:.4f}")
+    if unmoved or launches or not peak < card_bytes:
+        raise SystemExit(f"[train:step] unmoved {unmoved}, launches "
+                         f"{launches}, peak {peak}")
+    if not prof["adamw_ms"] > 0:
+        raise SystemExit("[train:step] the profile holds no optimiser time")
+
+
+def train_main(root: str) -> None:
+    """Phases 8a-8c in a fresh process (:func:`train_families`,
+    :func:`train_gradient`, then :func:`train_full_width`, the 8b models
+    freed before the 12-layer one is built; their checkpointers under
+    ``root``, never written); each prints its ``[train:*]`` lines and
+    exits non-zero when a gate fails."""
+    faulthandler.dump_traceback_later(TRAIN_TIMEOUT_S - 10, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()[0]
+    for phase in (train_families, train_gradient, train_full_width):
+        t0 = time.perf_counter()
+        phase(torch, card, Path(root))
+        print(f"[train] {phase.__name__} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def resume_main(root: str) -> None:
+    """8d in a fresh process with ``CUBLAS_WORKSPACE_CONFIG`` set, under
+    ``torch.use_deterministic_algorithms(True)``: the example's reduced
+    config (``examples/torch_train_lm.py``) through ``TrainLoop.run`` with
+    a preemption notice during step :data:`RESUME_AT`, a checkpoint there
+    and a clean exit, then ``restore_or_init`` and ``run`` to
+    :data:`RESUME_STEPS`; and :data:`RESUME_STEPS` steps uninterrupted.
+    Fails unless the restored state equals the saved one and the losses
+    and final parameters equal the uninterrupted run's, bit for bit."""
+    faulthandler.dump_traceback_later(RESUME_TIMEOUT_S - 10, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import importlib.util
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed import PreemptionGuard
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+    torch.use_deterministic_algorithms(True)
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = example.reduced_config()
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=64, global_batch=8)
+    guard = PreemptionGuard(install_handlers=False)
+
+    class Preempting:                 # the notice arrives during a step
+        def batch_at(self, step):
+            if step == RESUME_AT - 1:
+                guard.simulate()
+            return ds.batch_at(step)
+
+    def loop(name, dataset):
+        return TrainLoop(cfg=cfg, adamw=AdamWConfig(lr=1e-3, total_steps=100,
+                                                    warmup_steps=5),
+                         ckpt=Checkpointer(Path(root) / name),
+                         dataset=dataset, ckpt_every=4, log_every=1)
+
+    first = loop("resumed", Preempting())
+    res = first.run(RESUME_STEPS, guard=guard)
+    saved_steps = first.ckpt.steps()
+    second = loop("resumed", ds)
+    step, state = second.restore_or_init()
+    saved, restored = res["state"], state
+    same_state = step == RESUME_AT and all(
+        torch.equal(a, b) for a, b in zip(
+            [*saved["params"].parameters(), saved["opt"].step,
+             *saved["opt"].mu.values(), *saved["opt"].nu.values()],
+            [*restored["params"].parameters(), restored["opt"].step,
+             *restored["opt"].mu.values(), *restored["opt"].nu.values()],
+            strict=True))
+    res2 = second.run(RESUME_STEPS, start_step=step, state=state)
+    plain = loop("plain", ds).run(RESUME_STEPS)
+    resumed = [h["loss"] for h in res["history"] + res2["history"]]
+    straight = [h["loss"] for h in plain["history"]]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        res2["state"]["params"].parameters(),
+        plain["state"]["params"].parameters(), strict=True))
+    print(f"[train:resume] deterministic algorithms on, "
+          f"CUBLAS_WORKSPACE_CONFIG {os.environ.get('CUBLAS_WORKSPACE_CONFIG')}"
+          f": preempted at step {res['final_step']} (checkpoints "
+          f"{saved_steps}), restored step {step}, state bit-equal "
+          f"{same_state}; resumed to step {res2['final_step']}: losses "
+          f"{' '.join(f'{x:.6f}' for x in resumed)}; uninterrupted "
+          f"{' '.join(f'{x:.6f}' for x in straight)}; losses bit-equal "
+          f"{resumed == straight}, final parameters bit-equal "
+          f"{same_params}", flush=True)
+    if not (same_state and res2["final_step"] == RESUME_STEPS
+            and resumed == straight and same_params):
+        raise SystemExit("[train:resume] the resumed run differs")
+
+
 # -- phase 2 ----------------------------------------------------------------
 
 def _ptxas_entries(name: str) -> list[tuple[str, int, int]]:
@@ -3304,6 +3732,38 @@ def main(argv: list[str]) -> int:
                                  f"({mproc.returncode}):\n"
                                  f"{mproc.stdout[-4000:]}")
             models[arch] = (mproc.stdout, time.perf_counter() - t0)
+        # 8. training, once phase 6f's process has exited: 8a-8c in a
+        # fresh process; then 8d in another (cuBLAS reads its workspace
+        # setting when it starts) beside the example, neither timed
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH"))))}
+
+        def train_process(job):
+            tag, cmd, extra, timeout = job
+            t0 = time.perf_counter()
+            tproc = subprocess.run([sys.executable, *cmd], cwd=ROOT,
+                                   env={**env, **extra}, capture_output=True,
+                                   text=True, timeout=timeout)
+            sys.stderr.write(tproc.stderr[-4000:])
+            if tproc.returncode != 0:
+                raise SystemExit(f"[{tag}] fresh process failed "
+                                 f"({tproc.returncode}):\n"
+                                 f"{tproc.stdout[-4000:]}")
+            return tag, tproc.stdout, time.perf_counter() - t0
+
+        torch.cuda.empty_cache()
+        training = [train_process((
+            "train", ["-c", f"import chip_smoke; chip_smoke.train_main("
+                            f"{str(tmp / 'train')!r})"], {},
+            TRAIN_TIMEOUT_S))]
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            training += pool.map(train_process, (
+                ("train:resume", ["-c", f"import chip_smoke; chip_smoke."
+                                        f"resume_main({str(tmp / 'resume')!r})"],
+                 {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, RESUME_TIMEOUT_S),
+                ("train:example", ["examples/torch_train_lm.py", "--ckpt",
+                                   str(tmp / "example")], {},
+                 EXAMPLE_TIMEOUT_S)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     served = json.loads(next(line for line in proc.stdout.splitlines()
@@ -3381,6 +3841,15 @@ def main(argv: list[str]) -> int:
         model_launches[arch] = res["launches"]["gemm"]
         print(f"[{MODEL_PHASES[arch][0]}] phase {seconds:.1f} s (a fresh "
               f"process)", flush=True)
+
+    for tag, stdout, seconds in training:
+        lines = stdout.splitlines()
+        if tag == "train:example":
+            lines = [f"[{tag}] [{card}] {lines[-1]}"]
+        for line in lines:
+            if line.startswith("[train"):
+                print(line)
+        print(f"[{tag}] phase {seconds:.1f} s (a fresh process)", flush=True)
 
     # 7. times on the main paths' shapes
     totals = time_rows(torch, card, served["rows"])

@@ -10,8 +10,13 @@ GEMM kernel reads B, so no call copies or transposes a weight
 modules; ``Ctx`` threads the model config and the runtime serving the
 routed matmuls' knob decisions through the stack.
 
-Training pieces (the cross-entropy losses) wait for the training slice,
-so the parameters carry no gradient.
+The training pieces are the losses, ``cross_entropy`` and
+``chunked_cross_entropy``.  The parameters are made with
+``requires_grad=False``, so serving keeps no autograd state; a trainer
+(``launch/train.py``) turns gradients on for its own model.  The
+accumulating steps (norms, softmax, the losses) run in float32 for every
+compute dtype but float64, which they keep, so that a float64 copy of a
+model evaluates the same function in float64 throughout.
 """
 
 from __future__ import annotations
@@ -24,16 +29,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
 __all__ = ["Ctx", "Linear", "Norm", "Embedding", "Attention", "MLP",
            "torch_dtype", "linear", "routed_matmul", "rmsnorm", "embed",
-           "rope", "attention", "mlp", "flash_attention"]
+           "rope", "attention", "mlp", "flash_attention", "cross_entropy",
+           "chunked_cross_entropy"]
 
 #: the score of a masked position (the reference's ``NEG``)
 NEG = -1e30
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in its accumulation dtype: float32, or float64 if it is."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -174,9 +186,9 @@ def linear(p: Linear, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
 
 def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x32 = x.float()
+    x32 = _acc(x)
     var = (x32 * x32).mean(-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * p.scale.float()).to(dt)
+    return (x32 * torch.rsqrt(var + eps) * p.scale.to(x32.dtype)).to(dt)
 
 
 def embed(p: Embedding, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -253,16 +265,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vc = v.reshape(B, nk, k_chunk, KH, Dv)
     outs = []
     for i in range(nq):
-        qi = qc[:, i].float()                        # (B, Cq, KH, G, D)
+        qi = _acc(qc[:, i])                          # (B, Cq, KH, G, D)
         q_pos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((B, q_chunk, G, KH), NEG, device=dev)
-        l = torch.zeros((B, q_chunk, G, KH), device=dev)
-        acc = torch.zeros((B, q_chunk, G, KH, Dv), device=dev)
+        m = torch.full((B, q_chunk, G, KH), NEG, dtype=qi.dtype, device=dev)
+        l = torch.zeros((B, q_chunk, G, KH), dtype=qi.dtype, device=dev)
+        acc = torch.zeros((B, q_chunk, G, KH, Dv), dtype=qi.dtype,
+                          device=dev)
         hi = nk
         if causal_skip and causal:
             hi = min(nk, (q_offset + (i + 1) * q_chunk - 1) // k_chunk + 1)
         for j in range(hi):
-            kj, vj = kc[:, j].float(), vc[:, j]
+            kj, vj = _acc(kc[:, j]), vc[:, j]
             # scores: (B, Cq, G, KH, Ck)
             s = torch.einsum("bqhgd,bkhd->bqghk", qi, kj) * scale
             k_pos = j * k_chunk + torch.arange(k_chunk, device=dev)
@@ -279,7 +292,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bqghk,bkhd->bqghd", p.to(v.dtype).float(), vj.float())
+                "bqghk,bkhd->bqghd", _acc(p.to(v.dtype)), _acc(vj))
             m = m_new
         out_i = acc / torch.clamp_min(l[..., None], 1e-30)
         outs.append(out_i.permute(0, 1, 3, 2, 4).to(q.dtype))
@@ -382,3 +395,61 @@ def mlp(p: MLP, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(linear(p.w1, x, ctx), approximate="tanh")
     return linear(p.w2, h, ctx)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _nll_sums(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
+    """The sum of the next-token NLL (with ``z_loss * lse**2``) over the
+    positions whose label is >= 0, and their count."""
+    logits = _acc(logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (labels >= 0).to(logits.dtype)
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean next-token CE in float32; labels < 0 are masked out."""
+    tot, cnt = _nll_sums(logits, labels, z_loss)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _chunk_sums(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                z_loss: float):
+    return _nll_sums(x @ w, labels, z_loss)
+
+
+def chunked_cross_entropy(x: torch.Tensor, w: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 2048,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """CE fused with the LM head over sequence chunks of ``chunk``
+    positions: under autograd each chunk runs under
+    ``torch.utils.checkpoint``, which keeps its inputs and recomputes its
+    logits in the backward pass, so the (B, S, V) float32 logits are never
+    held at once (at a 128k vocabulary the dominant memory term of a train
+    step).  x: (B, S, D) after the final norm; w: (D, V)."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = cnt = 0.0
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if torch.is_grad_enabled():
+            t, n = checkpoint(_chunk_sums, x[:, sl], w, labels[:, sl],
+                              z_loss, use_reentrant=False)
+        else:
+            t, n = _chunk_sums(x[:, sl], w, labels[:, sl], z_loss)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -34,7 +34,9 @@ from .layers import Ctx, Linear, Norm, _param, linear, rmsnorm, torch_dtype
 
 __all__ = ["Mamba2", "mamba2_mixer", "init_mamba2_state"]
 
-#: the floor of a chunk's running log-decay at a source position
+#: the floor of a chunk's running log-decay at a source position (taken
+#: with ``torch.maximum``, whose gradient at a tie is split in half as
+#: ``jnp.maximum``'s is; ``clamp_min`` would pass all of it)
 CUM_FLOOR = -30.0
 
 
@@ -121,7 +123,7 @@ def _ssd_chunked(x, dt, A, B_in, C_in, cfg: ModelConfig, h0):
         sl = slice(c * L, (c + 1) * L)
         xc, dtc, Bc, Cc = x[:, sl], dt[:, sl], Bh[:, sl], Ch[:, sl]
         cum = torch.cumsum(dtc * A, dim=1)                   # (B, L, H) ≤ 0
-        cum_cl = torch.clamp_min(cum, CUM_FLOOR)
+        cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
         # intra-chunk: scores[t,s] = (C_t·B_s)·exp(cum_t−cum_s)·dt_s, s ≤ t
         cb = torch.einsum("blhn,bshn->blsh", Cc, Bc)
         decay = torch.exp(cum[:, :, None, :] - cum_cl[:, None, :, :])

@@ -38,7 +38,9 @@ from .layers import Ctx, Linear, Norm, _param, linear, rmsnorm, torch_dtype
 
 __all__ = ["RWKV6", "rwkv6_block", "init_rwkv6_state"]
 
-#: the floor of a chunk's running log-decay at a source position
+#: the floor of a chunk's running log-decay at a source position (taken
+#: with ``torch.maximum``, whose gradient at a tie is split in half as
+#: ``jnp.maximum``'s is; ``clamp_min`` would pass all of it)
 CUM_FLOOR = -30.0
 
 
@@ -132,7 +134,7 @@ def _wkv_chunked(r, k, v, w_log, u, chunk: int, S0):
         sl = slice(c * L, (c + 1) * L)
         rc, kc, vc, lw = r[:, sl], k[:, sl], v[:, sl], w_log[:, sl]
         cum = torch.cumsum(lw, dim=1)                        # ≤ 0
-        cum_cl = torch.clamp_min(cum, CUM_FLOOR)
+        cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
         cum_prev = F.pad(cum, (0, 0, 0, 0, 1, 0))[:, :-1]    # exclusive
         r_sc = rc * torch.exp(cum_prev)                      # ≤ rc
         k_sc = kc * torch.exp(-cum_cl)                       # ≤ e^30 kc

@@ -1,9 +1,11 @@
 """Model assembler of every family of the reference package's
 ``models/transformer.py`` (dense, MoE, hybrid, SSM, audio and VLM), with
 the reference's functions over them: ``init_params``, ``forward``,
-``init_decode_state``, ``prefill``, ``decode_step`` and ``param_count``,
-and :func:`from_reference`, which carries the reference's parameter pytree
-across.
+``loss_fn``, ``init_decode_state``, ``prefill``, ``decode_step`` and
+``param_count``; :func:`from_reference`, which carries the reference's
+parameter pytree across, its inverse :func:`to_reference` (parameters or
+gradients as the reference's stacked tree), and
+:func:`adamw_state_from_reference`, which carries an optimiser state.
 
 Block kinds:
   attn        pre-LN attention (GQA, or MLA) + MLP     (dense, VLM backbone)
@@ -21,6 +23,14 @@ a leading axis, the port holds one module per layer, the segments of
 per layer (a KV or latent cache, a Mamba2 or RWKV6 state, or a
 ``zamba_super``'s states and KV cache), written in place.
 
+Under autograd the layer loop recomputes activations as ``cfg.remat``
+says, through ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``): ``"block"`` checkpoints every block, ``"dots"``
+keeps the outputs of the matmuls without batch axes and recomputes the
+rest, and ``"nested"`` checkpoints groups of blocks whose blocks are each
+checkpointed again (:func:`_scan_stack`), so only one activation a group
+outlives the forward pass.  Remat changes memory, never numbers.
+
 Whisper's encoder (``encoder``: ``"enc"`` blocks and a norm) reads stub
 frame embeddings with sinusoid positions, and its decoder embeds tokens at
 sinusoid positions too; the VLM's ``vision_proj`` maps stub patch
@@ -29,25 +39,30 @@ embeddings into the token stream ahead of the prompt.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.optim import AdamWState
 
 from .layers import (MLP, Attention, Ctx, Embedding, Linear, Norm,
-                     attention, embed, linear, mlp, rmsnorm, routed_matmul,
-                     torch_dtype)
+                     attention, chunked_cross_entropy, cross_entropy, embed,
+                     linear, mlp, rmsnorm, routed_matmul, torch_dtype)
 from .mamba2 import Mamba2, init_mamba2_state, mamba2_mixer
 from .mla import MLA, init_mla_cache, mla_attention
 from .moe import MoE
 from .rwkv6 import RWKV6, init_rwkv6_state
 
 __all__ = ["Block", "DecCross", "Encoder", "Mamba2Block", "ZambaSuper",
-           "Transformer", "init_params", "forward", "init_decode_state",
-           "prefill", "decode_step", "param_count", "from_reference"]
+           "Transformer", "init_params", "forward", "loss_fn",
+           "init_decode_state", "prefill", "decode_step", "param_count",
+           "from_reference", "to_reference", "adamw_state_from_reference"]
 
 #: the block kinds the port runs
 _KINDS = ("attn", "moe", "mamba2", "zamba_super", "rwkv6", "enc",
@@ -260,7 +275,11 @@ class Transformer(nn.Module):
         what Whisper's cross-attention reads."""
         x0 = x                    # what the shared block reads beside x
         aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
-        for i, block in enumerate(self.layers):
+        remat = (ctx.cfg.remat if caches is None and torch.is_grad_enabled()
+                 else "none")
+
+        def body(x, aux, i):
+            block = self.layers[i]
             cache = None if caches is None else caches[i]
             if block.kind == "zamba_super":
                 x = block(x, ctx, cache, shared=self.shared_attn, x0=x0)
@@ -272,7 +291,72 @@ class Transformer(nn.Module):
                     aux = aux + a
             else:
                 x = block(x, ctx, cache)
+            return x, aux
+
+        offset = 0
+        for _, repeat in ctx.cfg.segments():
+            x, aux = _scan_stack(body, x, aux,
+                                 range(offset, offset + repeat), remat)
+            offset += repeat
         return x, aux
+
+
+#: the ops whose outputs ``remat="dots"`` keeps: the matmuls without batch
+#: axes (the reference's ``dots_with_no_batch_dims_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` under ``torch.utils.checkpoint`` as ``remat`` says (the
+    reference's ``_maybe_remat``): as it is for ``"none"``, saving only the
+    matmuls without batch axes for ``"dots"``, else recomputed whole."""
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _nest_factors(repeat: int) -> tuple[int, int]:
+    """Factor repeat = r1·r2 minimising r1+r2 (nested remat grouping)."""
+    best = (1, repeat)
+    for a in range(2, int(math.isqrt(repeat)) + 1):
+        if repeat % a == 0:
+            best = (repeat // a, a)
+    return best
+
+
+def _scan_stack(body, x, aux, layers: range, remat: str):
+    """``x, aux = body(x, aux, i)`` for each layer ``i`` of one segment, with
+    the remat scheme ``remat``.  ``"nested"`` at 8 or more layers that
+    factor as r1 groups of r2: each group is checkpointed and each block in
+    it again, so r1 group inputs outlive the forward pass instead of one a
+    layer (the reference's two-level scan)."""
+    if remat == "nested" and len(layers) >= 8:
+        r1, r2 = _nest_factors(len(layers))
+        if r1 > 1 and r2 > 1:
+            inner = _maybe_remat(body, "block")
+
+            def group(x, aux, g):
+                for i in layers[g * r2:(g + 1) * r2]:
+                    x, aux = inner(x, aux, i)
+                return x, aux
+
+            outer = _maybe_remat(group, "block")
+            for g in range(r1):
+                x, aux = outer(x, aux, g)
+            return x, aux
+    fn = _maybe_remat(body, remat)
+    for i in layers:
+        x, aux = fn(x, aux, i)
+    return x, aux
 
 
 def init_params(seed: int, cfg: ModelConfig, *,
@@ -289,49 +373,117 @@ def init_params(seed: int, cfg: ModelConfig, *,
     return Transformer(cfg, device=device, gen=gen)
 
 
+def _reference_slot(cfg: ModelConfig, key: str) -> tuple[tuple, tuple]:
+    """Where the port's parameter ``key`` lives in the reference's pytree:
+    the path of keys to its stacked leaf, and its index there.  The
+    reference stacks each segment's per-layer parameters on a leading
+    axis, a ``zamba_super``'s mamba blocks on a second one, and Whisper's
+    encoder blocks on one; the port holds them as the layer list (each
+    super's ``mamba`` list, the encoder's ``blocks``)."""
+    parts = key.split(".")
+    if parts[0] == "layers":
+        i, rest = int(parts[1]), parts[2:]
+        offset = 0
+        for si, (kind, repeat) in enumerate(cfg.segments()):
+            if i < offset + repeat:
+                break
+            offset += repeat
+        if kind == "zamba_super" and rest[0] == "mamba":
+            return ("segments", si, "mamba", *rest[2:]), \
+                (i - offset, int(rest[1]))
+        return ("segments", si, *rest), (i - offset,)
+    if parts[:2] == ["encoder", "blocks"]:
+        return ("encoder", "blocks", *parts[3:]), (int(parts[2]),)
+    return tuple(parts), ()
+
+
+def _leaf_paths(tree, path: tuple = ()):
+    if isinstance(tree, dict):
+        for key, child in tree.items():
+            yield from _leaf_paths(child, path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, child in enumerate(tree):
+            yield from _leaf_paths(child, path + (i,))
+    else:
+        yield path
+
+
+def _named_from_reference(cfg: ModelConfig, tree, device) -> dict:
+    """A pytree shaped like the reference's parameters (its leaves numpy
+    arrays) as a dict of tensors on ``device`` keyed by the port's
+    parameter names.  Raises unless every leaf of ``tree`` is used."""
+    device = resolve_device(device)
+    out, used = {}, set()
+    for key in Transformer(cfg, device="meta").state_dict():
+        path, idx = _reference_slot(cfg, key)
+        node = tree
+        for k in path:
+            node = node[k]
+        out[key] = torch.tensor(np.asarray(node)[idx], device=device)
+        used.add(path)
+    extra = set(_leaf_paths(tree)) - used
+    if extra:
+        raise ValueError(f"reference leaves the port has no parameter for: "
+                         f"{sorted(map(str, extra))}")
+    return out
+
+
 def from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
     """The reference's parameter pytree (``repro.models.init_params``, its
-    leaves as numpy arrays) as the port's model on ``device``.  The
-    reference stacks each segment's per-layer parameters on a leading axis,
-    a ``zamba_super``'s mamba blocks on a second one, and Whisper's encoder
-    blocks on one; they are unstacked into the layer list (each super's
-    ``mamba`` list, the encoder's ``blocks``) here."""
-    device = resolve_device(device)
+    leaves as numpy arrays) as the port's model on ``device``."""
     model = Transformer(cfg, device="meta")
-    state = {}
-
-    def walk(node, prefix: str, idx: tuple = ()) -> None:
-        if isinstance(node, dict):
-            for key, child in node.items():
-                walk(child, f"{prefix}{key}.", idx)
-            return
-        state[prefix[:-1]] = np.asarray(node)[idx]
-
-    for key, node in tree.items():
-        if key == "segments":
-            # segment si's item j is the layer at the segment's offset + j
-            offset = 0
-            for seg, (kind, repeat) in zip(node, cfg.segments(),
-                                           strict=True):
-                for j in range(repeat):
-                    at = f"layers.{offset + j}."
-                    if kind == "zamba_super":
-                        walk(seg["in_proj"], f"{at}in_proj.", (j,))
-                        for i in range(cfg.shared_attn_every):
-                            walk(seg["mamba"], f"{at}mamba.{i}.", (j, i))
-                    else:
-                        walk(seg, at, (j,))
-                offset += repeat
-        elif key == "encoder":
-            for j in range(cfg.n_enc_layers):
-                walk(node["blocks"], f"encoder.blocks.{j}.", (j,))
-            walk(node["norm"], "encoder.norm.")
-        else:
-            walk(node, f"{key}.")
-    model.load_state_dict(
-        {k: torch.tensor(v, device=device) for k, v in state.items()},
-        strict=True, assign=True)
+    model.load_state_dict(_named_from_reference(cfg, tree, device),
+                          strict=True, assign=True)
     return model
+
+
+def to_reference(cfg: ModelConfig, named: dict) -> dict:
+    """The inverse of :func:`from_reference`: tensors keyed by the port's
+    parameter names (a model's parameters, or their gradients) as the
+    reference's stacked pytree of numpy arrays."""
+    tree: dict = {}
+    for key, t in named.items():
+        path, idx = _reference_slot(cfg, key)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        arr = t.detach().cpu().numpy()
+        if idx:
+            node.setdefault(path[-1], {})[idx] = arr
+        else:
+            node[path[-1]] = arr
+
+    def stacked(node):
+        if not isinstance(node, dict):
+            return node
+        if all(isinstance(k, tuple) for k in node):      # per-layer slices
+            idx = sorted(node)
+            first = node[idx[0]]
+            shape = tuple(max(i[d] for i in idx) + 1
+                          for d in range(len(idx[0])))
+            out = np.empty(shape + first.shape, first.dtype)
+            for i in idx:
+                out[i] = node[i]
+            return out
+        out = {k: stacked(v) for k, v in node.items()}
+        if all(isinstance(k, int) for k in out):          # the segments
+            return [out[k] for k in sorted(out)]
+        return out
+
+    return stacked(tree)
+
+
+def adamw_state_from_reference(cfg: ModelConfig, state,
+                               device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (its step and its moments' pytrees as
+    numpy arrays) as the port's, its moments keyed by parameter name on
+    ``device``, so a reference run resumes in the port."""
+    device = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(np.asarray(state.step), dtype=torch.int32,
+                          device=device),
+        mu=_named_from_reference(cfg, state.mu, device),
+        nu=_named_from_reference(cfg, state.nu, device))
 
 
 def param_count(params: Transformer) -> int:
@@ -362,8 +514,14 @@ def _run_encoder(params: Transformer, frames: torch.Tensor,
     x = ctx.cast(frames)
     x = x + _sinusoid(x.shape[1], x.shape[2],
                       device=x.device).to(x.dtype)[None]
+    remat = ctx.cfg.remat if torch.is_grad_enabled() else "none"
+
+    def body(x, block):
+        return block(x, ctx, None)[0]
+
+    body = _maybe_remat(body, remat)
     for block in params.encoder.blocks:
-        x, _ = block(x, ctx, None)
+        x = body(x, block)
     return rmsnorm(params.encoder.norm, x)
 
 
@@ -411,6 +569,43 @@ def forward(params: Transformer, batch: dict, cfg: ModelConfig, *,
     x, aux = params(x, ctx, with_aux=True,
                     enc_out=_encoded(params, batch, ctx, None))
     return _logits(params, x, ctx), aux
+
+
+def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig, *,
+            runtime=None, moe_aux_coef: float = 0.01):
+    """The training loss of ``batch`` ({tokens, labels (B, S); Whisper's
+    frames or the VLM's vision as in :func:`forward`}): the mean next-token
+    CE over the labels >= 0 (the VLM's vision positions carry none) plus
+    ``moe_aux_coef`` times the MoE load-balancing loss.  Returns ``(loss,
+    {"ce", "moe_aux"})``.  With ``cfg.ce_chunk`` the LM head and the CE
+    run fused over sequence chunks (:func:`chunked_cross_entropy`).
+
+    Raises ``ValueError`` for a config that routes its matmuls through the
+    tuned GEMM (``use_pallas_gemm``) when gradients are to flow: the GEMM
+    kernel has no backward, nor has the reference's Pallas GEMM, whose
+    training step never routes."""
+    if cfg.use_pallas_gemm and torch.is_grad_enabled() and any(
+            p.requires_grad for p in params.parameters()):
+        raise ValueError(
+            f"{cfg.name}: use_pallas_gemm routes the matmuls through the "
+            f"tuned GEMM kernel, which has no backward (nor has the "
+            f"reference's); train with use_pallas_gemm=False")
+    ctx = Ctx(cfg, runtime)
+    x = _embed_inputs(params, batch, ctx)
+    x, aux = params(x, ctx, with_aux=True,
+                    enc_out=_encoded(params, batch, ctx, None))
+    labels = batch["labels"]
+    if cfg.family == "vlm":   # the vision prefix carries no LM loss
+        pad = labels.new_full(batch["vision"].shape[:2], -1)
+        labels = torch.cat([pad, labels], dim=1)
+    x = rmsnorm(params.final_norm, x)
+    w = (ctx.cast(params.lm_head.w) if params.lm_head is not None
+         else ctx.cast(params.embed.table).T)
+    if cfg.ce_chunk:
+        ce = chunked_cross_entropy(x, w, labels, chunk=cfg.ce_chunk)
+    else:
+        ce = cross_entropy(x @ w, labels)
+    return ce + moe_aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
-NAMES = ("torch_quickstart", "torch_autotune_blas", "torch_serve_batched")
+NAMES = ("torch_quickstart", "torch_autotune_blas", "torch_serve_batched",
+         "torch_train_lm")
 
 #: the same scan as tests/test_torch_imports.py: no import of the reference
 #: package, JAX or msgpack
@@ -61,3 +62,15 @@ def test_serve_batched_serves_the_smoke_model_on_the_cpu(arch, capsys):
                                              "cpu"])
     assert out.shape == (4, 16) and out.dtype == np.int32
     assert "on cpu" in capsys.readouterr().out
+
+
+def test_train_lm_reduces_the_loss_on_the_cpu(tmp_path, capsys):
+    """The reduced llama3 trains 50 steps (the loss logged at steps 25 and
+    50 must drop) and checkpoints at its last step."""
+    out = _load("torch_train_lm").main(["--device", "cpu", "--steps", "50",
+                                        "--ckpt", str(tmp_path)])
+    assert out["final_step"] == 50
+    assert [h["step"] for h in out["history"]] == [25, 50]
+    assert out["history"][-1]["loss"] < out["history"][0]["loss"]
+    assert "on cpu" in capsys.readouterr().out
+    assert (tmp_path / "step_50" / "manifest").exists()

@@ -11,7 +11,8 @@ trmm's A read nowhere above its diagonal, a TRSM call launching its two
 kernels and nothing else, and the launch parameters built into the
 kernels equal to their Python mirrors; the dense, MoE, zamba2 and rwkv6
 smoke models routed on the card against their plain versions; a retune
-step on the card's telemetry and a one-executor fleet on the card.  The card's
+step on the card's telemetry and a one-executor fleet on the card; two
+train steps of the llama3 smoke model on the card.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -899,3 +900,39 @@ def test_retune_step_and_one_executor_fleet_on_the_card(tmp_path):
         stats["resolution"]["gpu"]
     assert stats["device_name"] == torch.cuda.get_device_name(0)
     assert np.isfinite(per_call)
+
+
+@pytest.mark.gpu
+def test_two_train_steps_of_the_smoke_llama3_on_the_card(tmp_path):
+    """``TrainLoop`` on the card (its default device): two steps of the
+    llama3 smoke config at its own numerics (bf16 compute), finite losses
+    and gradient norms, the parameters moved, and no hand-written kernel
+    launched (the training step never routes)."""
+    _need_card()
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMDataset, make_device_batch
+    from repro_torch.kernels import introspect
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_smoke_config("llama3-8b")
+    loop = TrainLoop(cfg=cfg, adamw=AdamWConfig(lr=1e-3, warmup_steps=1),
+                     ckpt=Checkpointer(tmp_path),
+                     dataset=SyntheticLMDataset(vocab=cfg.vocab, seq_len=64,
+                                                global_batch=4))
+    state = loop.init_state()
+    before = [p.detach().clone() for p in state["params"].parameters()]
+    assert before[0].is_cuda
+    introspect.reset_launches()
+    for step in range(2):
+        batch = make_device_batch(loop.dataset.batch_at(step), loop.device)
+        p, o, ef, m = loop.step_fn(state["params"], state["opt"],
+                                   state["ef"], batch)
+        state = {"params": p, "opt": o, "ef": ef}
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    torch.cuda.synchronize()
+    assert sum(introspect.launch_counts().values()) == 0
+    assert int(state["opt"].step) == 2
+    assert all(not torch.equal(a, b) for a, b in
+               zip(before, state["params"].parameters()))

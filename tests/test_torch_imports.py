@@ -31,7 +31,10 @@ def test_import_loads_no_jax_repro_or_msgpack():
         "repro_torch.roofline, repro_torch.roofline.harvest, "
         "repro_torch.roofline.costing, repro_torch.serving.retune, "
         "repro_torch.serving.fleet, repro_torch.distributed, "
-        "repro_torch.distributed.elastic\n"
+        "repro_torch.distributed.elastic, repro_torch.optim, "
+        "repro_torch.data, repro_torch.checkpoint, "
+        "repro_torch.launch.train, "
+        "repro_torch.distributed.fault_tolerance\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"
         "print(bad)\n"
@@ -68,7 +71,10 @@ def test_the_scan_covers_the_serving_package():
             "models/moe.py", "models/mla.py",
             "launch/serve.py", "core/oracle.py", "roofline/harvest.py",
             "roofline/costing.py", "serving/retune.py", "serving/fleet.py",
-            "distributed/elastic.py"} <= scanned
+            "distributed/elastic.py", "optim/adamw.py",
+            "optim/compression.py", "data/pipeline.py",
+            "checkpoint/checkpointer.py", "launch/train.py",
+            "distributed/fault_tolerance.py"} <= scanned
 
 
 def test_chip_smoke_imports_nothing_of_repro():
