@@ -220,6 +220,22 @@ calls, and fails (non-zero exit) if any phase fails:
    loss and the final parameters bit for bit.  Beside it (a process of
    its own, untimed) ``examples/torch_train_lm.py`` (300 steps) on the
    card must exit 0 with its loss dropping;
+9. training under a mesh, in a fresh process after phase 8's: a world of
+   one under NCCL (``distributed/world.py::init_world``) and the (1, 1)
+   ("data", "model") mesh ``best_mesh`` gives it, the parameters
+   DTensors laid out by ``param_specs`` and each batch sharded by
+   ``make_global_batch``.  9a: llama3-8b at full width and 2 layers,
+   float32 with TF32 off, one 8 x 128 batch: one ``TrainLoop`` step under
+   the mesh against one unsharded step from the same weights, the loss
+   within 1e-6 relative and each gradient (as the optimiser reads it)
+   within 1e-6 of its max |g|; it prints whether the two are bit-equal.
+   9b: llama3-8b at the depth of ``TRAIN_CUTS`` at its own numerics, 4
+   steps of 8 x 128 under the mesh: every loss finite, the first within
+   1.0 of ln V, every parameter moved, no hand-written kernel launched,
+   the peak memory under the card's; its step ms and tokens/s are printed
+   beside 8c's (DTensor's host cost).  9c: the llama3 smoke config's
+   state saved under the mesh restores into the unsharded ``TrainLoop``,
+   and one saved by that loop restores under the mesh, both bit for bit;
 7. times (CUDA events) of every served call: the kernel under the tuned and
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
@@ -237,8 +253,8 @@ calls, and fails (non-zero exit) if any phase fails:
 The launch counts come from ``repro_torch.kernels.introspect``: each path
 (the ``run_op`` calls, the service, each model's generate) is driven with
 the counts set to 0 just before it and read just after; launches made by
-the comparisons of phase 3 and the models' checks do not count.  Phase 8c
-reads them around its training steps, which must launch none.
+the comparisons of phase 3 and the models' checks do not count.  Phases
+8c and 9b read them around their training steps, which must launch none.
 
 Run from the root of a checkout on a machine with the card:
 ``python3 chip_smoke.py``.  The last line of its output is
@@ -397,6 +413,12 @@ RESUME_AT, RESUME_STEPS = 6, 10
 TRAIN_TIMEOUT_S = 300
 RESUME_TIMEOUT_S = 180
 EXAMPLE_TIMEOUT_S = 240
+#: phase 9 (training under a mesh): the steps of 9b, 9a's limit (the
+#: loss's relative error, each gradient's max error over its max value),
+#: and the seconds its process may take
+MESH_STEPS = 4
+MESH_TOL = 1e-6
+MESH_TIMEOUT_S = 180
 #: requests, prompt and new tokens of each model's generate, greedy
 MODEL_REQUESTS, MODEL_PROMPT, MODEL_NEW = 4, 128, 32
 #: decode steps after the prefill whose logits are held to the plain version
@@ -2421,11 +2443,17 @@ def report_model(card: str, arch: str, res: dict) -> None:
 
 # -- phase 8, training: fresh processes after phase 6f's ------------------
 
+def _whole(t):
+    """A DTensor's gathered value; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _param_samples(params) -> dict:
-    """A strided sample of at most ~4096 values of every parameter, to tell
-    whether each moved without a copy of the model."""
-    return {k: p.detach().reshape(-1)[::max(1, p.numel() // 4096)].clone()
-            for k, p in params.named_parameters()}
+    """A strided sample of at most ~4096 values of every parameter (a
+    DTensor's from its gathered value), to tell whether each moved without
+    a copy of the model."""
+    return {k: _whole(p.detach()).reshape(-1)[::max(1, p.numel() // 4096)]
+            .clone() for k, p in params.named_parameters()}
 
 
 def _unmoved(torch, params, before: dict) -> list:
@@ -2790,6 +2818,238 @@ def resume_main(root: str) -> None:
     if not (same_state and res2["final_step"] == RESUME_STEPS
             and resumed == straight and same_params):
         raise SystemExit("[train:resume] the resumed run differs")
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+def mesh_step(torch, card: str, root: Path, device, mesh) -> dict:
+    """9a: llama3-8b at full width and :data:`GRAD_LAYERS` layers, float32
+    compute with TF32 off, one batch of :data:`TRAIN_BATCH` x
+    :data:`TRAIN_SEQ`: one ``TrainLoop.step_fn`` step on ``mesh`` against
+    one unsharded step from the same draw.  The gradients are taken as the
+    optimiser reads them (``adamw_update``'s argument, after the
+    redistribution to the parameters' placements).  Fails unless the loss
+    is within :data:`MESH_TOL` relative and each gradient within
+    :data:`MESH_TOL` of its max |g|."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset, make_global_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=GRAD_LAYERS,
+                              compute_dtype="float32")
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=SEED)
+    real = train.adamw_update
+    seen = {}
+
+    def spy(params, grads, state, cfg_):
+        seen["grads"] = {k: _whole(g).detach().clone()
+                         for k, g in grads.items()}
+        return real(params, grads, state, cfg_)
+
+    out = {}
+    train.adamw_update = spy
+    try:
+        for name, m in (("mesh", mesh), ("unsharded", None)):
+            loop = train.TrainLoop(
+                cfg=cfg, adamw=AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS),
+                ckpt=Checkpointer(root / name), dataset=ds, device=device,
+                mesh=m)
+            state = loop.init_state(SEED)
+            batch = make_global_batch(ds.batch_at(0), m,
+                                      None if m is None else batch_axes(m),
+                                      device=device)
+            t0 = time.perf_counter()
+            _, _, _, metrics = loop.step_fn(state["params"], state["opt"],
+                                            state["ef"], batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            out[name] = (loss, seen.pop("grads"), time.perf_counter() - t0)
+            if m is not None:
+                placements = {str(p.placements) for p in
+                              state["params"].parameters()}
+            del loop, state, batch, metrics
+            torch.cuda.empty_cache()
+    finally:
+        train.adamw_update = real
+    (ls, gs, ts), (lu, gu, tu) = out["mesh"], out["unsharded"]
+    loss_err = abs(ls - lu) / abs(lu)
+    errs = {k: float((gs[k] - g).abs().max() / g.abs().max())
+            for k, g in gu.items()}
+    worst = max(errs, key=errs.get)
+    bit_equal = ls == lu and all(torch.equal(gs[k], g)
+                                 for k, g in gu.items())
+    print(f"[mesh:grad] [{card}] {cfg.name} full width, {GRAD_LAYERS} "
+          f"layers, {sum(g.numel() for g in gu.values()):,} parameters, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, float32 (TF32 off): one "
+          f"TrainLoop step on the (1, 1) mesh (parameter placements "
+          f"{sorted(placements)}) against one unsharded step: loss "
+          f"{ls:.9f} vs {lu:.9f}, rel err {loss_err:.3e} (limit "
+          f"{MESH_TOL:g}); largest gradient error {errs[worst]:.3e} of max "
+          f"|g| at {worst} (limit {MESH_TOL:g}) over {len(errs)} tensors; "
+          f"bit-equal {bit_equal}; step {ts * 1e3:.1f} ms vs "
+          f"{tu * 1e3:.1f} ms (first steps)", flush=True)
+    if not (loss_err <= MESH_TOL and errs[worst] <= MESH_TOL):
+        raise SystemExit("[mesh:grad] the sharded step differs from the "
+                         "unsharded one")
+    return {"bit_equal": bit_equal}
+
+
+def mesh_full_width(torch, card: str, root: Path, device, mesh) -> dict:
+    """9b: llama3-8b at full width and the depth of :data:`TRAIN_CUTS` at
+    its own numerics, :data:`MESH_STEPS` ``step_fn`` steps of
+    :data:`TRAIN_BATCH` x :data:`TRAIN_SEQ` on ``mesh``, as 8c on one
+    device.  Fails unless every loss and gradient norm is finite, the
+    first loss lies within 1.0 of ln V, every parameter moved, no
+    hand-written kernel launched and the peak memory stayed under the
+    card's."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset, make_global_batch
+    from repro_torch.kernels import introspect
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+    full = get_config("llama3-8b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CUTS["llama3-8b"])
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=SEED)
+    loop = TrainLoop(cfg=cfg, adamw=AdamWConfig(
+        lr=3e-4, total_steps=TRAIN_STEPS,
+        warmup_steps=max(TRAIN_STEPS // 20, 5)),
+        ckpt=Checkpointer(root / "mesh_full_width"), dataset=ds,
+        device=device, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = loop.init_state(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    before = _param_samples(state["params"])
+    introspect.reset_launches()
+    losses, norms, times = [], [], []
+    for step in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        batch = make_global_batch(ds.batch_at(step), mesh, batch_axes(mesh),
+                                  device=device)
+        p, o, ef, m = loop.step_fn(state["params"], state["opt"],
+                                   state["ef"], batch)
+        state = {"params": p, "opt": o, "ef": ef}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = sum(introspect.launch_counts().values())
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    unmoved = _unmoved(torch, state["params"], before)
+    step_ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    ln_v = math.log(cfg.vocab)
+    print(f"[mesh:step] [{card}] {cfg.name} full width at {cfg.n_layers} of "
+          f"{full.n_layers} layers on the (1, 1) mesh: {n_params:,} "
+          f"parameters, {cfg.compute_dtype} compute, remat {cfg.remat}; "
+          f"drawn and laid out in {init_s:.1f} s; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (ln V = {ln_v:.4f}); "
+          f"grad norms {' '.join(f'{x:.4f}' for x in norms)}", flush=True)
+    print(f"[mesh:step] [{card}] step ms {step_ms:.3f} (median of steps "
+          f"2-{MESH_STEPS}; all: {' '.join(f'{t * 1e3:.1f}' for t in times)}"
+          f"), {tokens_s:.1f} tokens/s ({TRAIN_BATCH} x {TRAIN_SEQ} a "
+          f"step); peak memory {peak / 1e9:.2f} GB of the card's "
+          f"{card_bytes / 1e9:.2f} GB; hand-written kernel launches "
+          f"{launches}; {len(before) - len(unmoved)}/{len(before)} "
+          f"parameters moved", flush=True)
+    if not all(map(math.isfinite, losses + norms)):
+        raise SystemExit("[mesh:step] a loss or gradient norm is not finite")
+    if not abs(losses[0] - ln_v) <= 1.0:
+        raise SystemExit(f"[mesh:step] first loss {losses[0]:.4f} is not "
+                         f"within 1.0 of ln V {ln_v:.4f}")
+    if unmoved or launches or not peak < card_bytes:
+        raise SystemExit(f"[mesh:step] unmoved {unmoved}, launches "
+                         f"{launches}, peak {peak}")
+    return {"step_ms": step_ms, "tokens_s": tokens_s}
+
+
+def _state_values(state) -> list:
+    return [_whole(t).detach() for t in
+            [*state["params"].parameters(), state["opt"].step,
+             *state["opt"].mu.values(), *state["opt"].nu.values()]]
+
+
+def mesh_checkpoint(torch, card: str, root: Path, device, mesh) -> dict:
+    """9c: the llama3 smoke config trained 2 steps on ``mesh`` and saved;
+    the unsharded ``TrainLoop`` restores it (over a draw from another
+    seed), trains to step 4 and saves; a loop on ``mesh`` restores that.
+    Fails unless both restores equal the saved states bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+    cfg = get_smoke_config("llama3-8b")
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=64, global_batch=4)
+
+    def loop(m):
+        return TrainLoop(cfg=cfg, adamw=AdamWConfig(lr=1e-3, warmup_steps=1),
+                         ckpt=Checkpointer(root / "mesh_ckpt"), dataset=ds,
+                         device=device, mesh=m, log_every=100)
+
+    saved = loop(mesh).run(2, start_step=0,
+                           state=loop(mesh).init_state(SEED))["state"]
+    one = loop(None)
+    step1, state1 = one.restore_or_init(SEED + 1)
+    into_one = step1 == 2 and all(
+        torch.equal(a, b) for a, b in zip(_state_values(saved),
+                                          _state_values(state1), strict=True))
+    again = one.run(4, start_step=step1, state=state1)["state"]
+    step2, state2 = loop(mesh).restore_or_init(SEED + 1)
+    into_mesh = step2 == 4 and all(
+        torch.equal(a, b) for a, b in zip(_state_values(again),
+                                          _state_values(state2), strict=True))
+    print(f"[mesh:ckpt] [{card}] {cfg.name}: saved on the (1, 1) mesh at "
+          f"step 2, restored unsharded: step {step1}, bit-equal {into_one}; "
+          f"saved unsharded at step 4, restored on the mesh: step {step2}, "
+          f"bit-equal {into_mesh}", flush=True)
+    if not (into_one and into_mesh):
+        raise SystemExit("[mesh:ckpt] a restore across meshes differs")
+    return {"ckpt_bit_equal": True}
+
+
+def mesh_main(root: str) -> None:
+    """Phase 9 in a fresh process: a world of one under NCCL, the (1, 1)
+    mesh ``best_mesh`` gives it, then 9a-9c (:func:`mesh_step`,
+    :func:`mesh_full_width`, :func:`mesh_checkpoint`), each printing its
+    ``[mesh:*]`` lines and exiting non-zero when a gate fails; the last
+    line ``MESH_RESULT`` and a JSON object."""
+    faulthandler.dump_traceback_later(MESH_TIMEOUT_S - 10, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import best_mesh, close_world, init_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()[0]
+    t0 = time.perf_counter()
+    device = init_world("cuda")
+    mesh = best_mesh(model_parallel=1)
+    print(f"[mesh] world of {dist.get_world_size()} under "
+          f"{dist.get_backend()} on {device} in "
+          f"{time.perf_counter() - t0:.1f} s; mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
+    res = {}
+    try:
+        for phase in (mesh_step, mesh_full_width, mesh_checkpoint):
+            t0 = time.perf_counter()
+            res.update(phase(torch, card, Path(root), device, mesh))
+            torch.cuda.empty_cache()
+            print(f"[mesh] {phase.__name__} {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    finally:
+        close_world()
+    print("MESH_RESULT " + json.dumps(res), flush=True)
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -3764,6 +4024,11 @@ def main(argv: list[str]) -> int:
                 ("train:example", ["examples/torch_train_lm.py", "--ckpt",
                                    str(tmp / "example")], {},
                  EXAMPLE_TIMEOUT_S)))
+        # 9. training under a mesh, once phase 8's processes have exited
+        torch.cuda.empty_cache()
+        training.append(train_process((
+            "mesh", ["-c", f"import chip_smoke; chip_smoke.mesh_main("
+                           f"{str(tmp / 'mesh')!r})"], {}, MESH_TIMEOUT_S)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     served = json.loads(next(line for line in proc.stdout.splitlines()
@@ -3847,9 +4112,24 @@ def main(argv: list[str]) -> int:
         if tag == "train:example":
             lines = [f"[{tag}] [{card}] {lines[-1]}"]
         for line in lines:
-            if line.startswith("[train"):
+            if line.startswith(("[train", "[mesh")):
                 print(line)
         print(f"[{tag}] phase {seconds:.1f} s (a fresh process)", flush=True)
+    # 9b beside 8c: the same model, batch and numerics, with and without
+    # the mesh (DTensor's host cost)
+    outs = {tag: stdout for tag, stdout, _ in training}
+    one_ms = float(re.search(r"\[train:step\] \[[^]]*\] step ms ([0-9.]+)",
+                             outs["train"]).group(1))
+    meshed = json.loads(next(line for line in outs["mesh"].splitlines()
+                             if line.startswith("MESH_RESULT "))
+                        .split(" ", 1)[1])
+    print(f"[mesh:vs] [{card}] llama3-8b at {TRAIN_CUTS['llama3-8b']} "
+          f"layers, {TRAIN_BATCH} x {TRAIN_SEQ}: step ms {meshed['step_ms']:.3f}"
+          f" on the (1, 1) mesh against {one_ms:.3f} unsharded (8c), "
+          f"{meshed['step_ms'] / one_ms:.3f}x; tokens/s "
+          f"{meshed['tokens_s']:.1f} against "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (one_ms / 1e3):.1f}; 9a bit-equal "
+          f"{meshed['bit_equal']}", flush=True)
 
     # 7. times on the main paths' shapes
     totals = time_rows(torch, card, served["rows"])

@@ -17,6 +17,11 @@ Guarantees:
   * **device-agnostic restore** — ``restore`` copies each saved leaf into
     the caller's tensor at the same path, on that tensor's device, so a
     state saved from the card restores onto the CPU and back;
+  * **mesh-agnostic** — a DTensor leaf is saved as its gathered value
+    (``full_tensor``, a collective every rank makes on the calling thread
+    before the writer starts), and only rank 0 writes; ``restore`` lays
+    each value out on the target's mesh and placements, so a state saved
+    on one mesh restores onto another, or onto no mesh;
   * **GC** — keep the newest ``keep`` checkpoints.
 """
 
@@ -55,11 +60,37 @@ def _flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, object]]:
     return out
 
 
+def _is_dtensor(leaf) -> bool:
+    return hasattr(leaf, "device_mesh") and isinstance(leaf, torch.Tensor)
+
+
 def _to_host(leaf) -> np.ndarray:
-    """A copy of ``leaf`` in host memory, as numpy."""
+    """A copy of ``leaf`` in host memory, as numpy (a DTensor's gathered
+    value: a collective)."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
+
+
+def _snapshot(tree) -> tuple[list, bool]:
+    """The tree's ``(path, host copy)`` pairs, and whether the save is a
+    collective (a DTensor leaf): then every rank gathers and rank 0
+    writes."""
+    leaves = _flatten_with_paths(tree)
+    collective = any(_is_dtensor(leaf) for _, leaf in leaves)
+    return [(p, _to_host(leaf)) for p, leaf in leaves], collective
+
+
+def _writes(collective: bool) -> bool:
+    import torch.distributed as dist
+    return not collective or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
 
 
 class Checkpointer:
@@ -68,6 +99,7 @@ class Checkpointer:
         self.root.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._collective = False
 
     # -- discovery -----------------------------------------------------------
     def steps(self) -> list[int]:
@@ -86,21 +118,32 @@ class Checkpointer:
 
     # -- save ------------------------------------------------------------------
     def save(self, step: int, tree) -> Path:
-        return self._write(step, [(p, _to_host(leaf)) for p, leaf in
-                                  _flatten_with_paths(tree)])
+        leaves, collective = _snapshot(tree)
+        final = self.root / f"step_{step}"
+        if _writes(collective):
+            self._write(step, leaves)
+        if collective:
+            _barrier()
+        return final
 
     def save_async(self, step: int, tree) -> None:
         self.wait()
-        leaves = [(p, _to_host(leaf))                         # snapshot
-                  for p, leaf in _flatten_with_paths(tree)]
-        self._thread = threading.Thread(
-            target=self._write, args=(step, leaves), daemon=True)
-        self._thread.start()
+        leaves, collective = _snapshot(tree)
+        self._collective = collective
+        if _writes(collective):
+            self._thread = threading.Thread(
+                target=self._write, args=(step, leaves), daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
+        """Join the writer; after a collective save every rank waits for
+        rank 0's write, so a restore that follows reads it on each."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._collective:
+            self._collective = False
+            _barrier()
 
     def _write(self, step: int, leaves: list[tuple[str, np.ndarray]]) -> Path:
         final = self.root / f"step_{step}"
@@ -132,8 +175,10 @@ class Checkpointer:
     def restore(self, step: int, target):
         """Copy checkpoint ``step`` into ``target``, a tree of tensors of
         the saved paths, shapes and dtypes, each on the device it is to
-        live on (the copy runs without autograd, so parameters that
-        require grad are filled too).  Returns ``target``."""
+        live on, a DTensor on its mesh and placements (each rank keeps its
+        shard of the saved value; the copy runs without autograd, so
+        parameters that require grad are filled too).  Returns
+        ``target``."""
         d = self.root / f"step_{step}"
         manifest = json.loads((d / "manifest").read_text())
         by_path = {m["path"]: m for m in manifest["leaves"]}
@@ -149,7 +194,13 @@ class Checkpointer:
                         f"checkpoint leaf {p!r} is {src.dtype} "
                         f"{tuple(src.shape)}; the target is {tgt.dtype} "
                         f"{tuple(tgt.shape)}")
-                tgt.copy_(src)
+                if _is_dtensor(tgt):
+                    from torch.distributed.tensor import distribute_tensor
+                    tgt.to_local().copy_(distribute_tensor(
+                        src.to(tgt.to_local().device), tgt.device_mesh,
+                        tgt.placements, src_data_rank=None).to_local())
+                else:
+                    tgt.copy_(src)
         return target
 
     def restore_latest(self, target):

@@ -10,9 +10,10 @@ be made again anywhere.
 ``ByteCorpusDataset`` is the "real data" path of the examples: a byte-level
 tokenizer over a text file with the same stateless step → batch indexing.
 
-``make_device_batch`` puts a batch of host arrays on one device (the
-reference's ``make_global_batch`` places it on a mesh; the sharded form
-waits for the distributed slice).
+``make_device_batch`` puts a batch of host arrays on one device;
+``make_global_batch`` places it on a mesh, its batch dim sharded over the
+batch axes (each rank keeps its slice of the host batch, which every rank
+makes alike from the step).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["SyntheticLMDataset", "ByteCorpusDataset", "make_device_batch"]
+__all__ = ["SyntheticLMDataset", "ByteCorpusDataset", "make_device_batch",
+           "make_global_batch"]
 
 
 @dataclasses.dataclass
@@ -87,4 +89,27 @@ def make_device_batch(batch: dict[str, np.ndarray],
         if not t.is_floating_point():
             t = t.long()
         out[k] = t.to(device)
+    return out
+
+
+def make_global_batch(batch: dict[str, np.ndarray], mesh,
+                      batch_axes=("data",), device=None) -> dict:
+    """Place host arrays on ``mesh``, batch dim sharded over
+    ``batch_axes``: DTensors whose local shards are this rank's rows of
+    the host arrays (integers as int64, as :func:`make_device_batch`).
+    With ``mesh=None`` the plain tensors on ``device``."""
+    if mesh is None:
+        return make_device_batch(batch, device)
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.sharding import PartitionSpec, placements
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else torch.device("cpu"))
+    axes = tuple(batch_axes)
+    out = {}
+    for k, t in make_device_batch(batch, device).items():
+        spec = PartitionSpec(axes if len(axes) > 1 else axes[0],
+                             *([None] * (t.dim() - 1)))
+        out[k] = distribute_tensor(t, mesh, placements(spec, mesh),
+                                   src_data_rank=None)
     return out

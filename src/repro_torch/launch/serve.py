@@ -42,7 +42,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import AdsalaRuntime, ModelRegistry
 from repro_torch.models import (decode_step, init_decode_state, init_params,
                                 prefill)
+from repro_torch.data import make_global_batch
+from repro_torch.distributed import reshard
+from repro_torch.launch.mesh import batch_axes
+from repro_torch.launch.specs import cache_leaf_spec
 from repro_torch.models.layers import Ctx, torch_dtype
+from repro_torch.models.sharding import DEFAULT_RULES
 from repro_torch.models.transformer import _run_encoder, resolve_device
 
 __all__ = ["ServeSession", "main", "stub_inputs"]
@@ -50,11 +55,18 @@ __all__ = ["ServeSession", "main", "stub_inputs"]
 
 @dataclasses.dataclass
 class ServeSession:
+    """Batched generation from ``params`` on ``device``.  Under ``mesh``
+    (a ``DeviceMesh``; ``params`` DTensors on it) the caches are laid out
+    by ``cache_specs`` and the prompts sharded over the batch axes, the
+    activations by ``rules`` (default ``DEFAULT_RULES``); every rank
+    samples the same tokens from the gathered logits."""
     cfg: ModelConfig
     params: torch.nn.Module
     max_len: int
     runtime: object = None            # AdsalaRuntime | None (None → global)
     device: str | torch.device = "cuda"
+    mesh: object = None
+    rules: object = None
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -80,30 +92,54 @@ class ServeSession:
         caches = init_decode_state(cfg, B, self.max_len,
                                    dtype=torch_dtype(cfg.compute_dtype),
                                    device=self.device)
-        batch = {"tokens": torch.as_tensor(np.asarray(prompts, dtype=np.int64),
-                                           device=self.device)}
+        rules = self.rules or DEFAULT_RULES
+        if self.mesh is not None:
+            caches = reshard(caches, self.mesh, lambda path, t:
+                             cache_leaf_spec(cfg, rules, self.mesh, path, t))
+        kw = dict(mesh=self.mesh, rules=rules, runtime=self.runtime)
+        batch = {"tokens": self._place(np.asarray(prompts, dtype=np.int64))}
         enc_out = None
         if cfg.family == "audio":
-            enc_out = _run_encoder(self.params, self._floats(frames),
-                                   Ctx(cfg, self.runtime))
+            enc_out = _run_encoder(
+                self.params, self._place(np.asarray(frames, np.float32)),
+                Ctx(cfg, self.runtime, self.mesh, rules))
         if cfg.family == "vlm":
-            batch["vision"] = self._floats(vision)
+            batch["vision"] = self._place(np.asarray(vision, np.float32))
         logits, caches = prefill(self.params, batch, caches, cfg,
-                                 runtime=self.runtime, enc_out=enc_out)
+                                 enc_out=enc_out, **kw)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = []
-        tok = self._sample(logits[:, -1], temperature, gen)
+        tok = self._sample(self._whole(logits)[:, -1], temperature, gen)
         for t in range(max_new):
             out.append(tok)
-            logits, caches = decode_step(self.params, tok, caches, cfg,
-                                         runtime=self.runtime,
-                                         enc_out=enc_out, pos=S + t)
-            tok = self._sample(logits[:, -1], temperature, gen)
+            logits, caches = decode_step(self.params, self._batch_rows(tok),
+                                         caches, cfg, enc_out=enc_out,
+                                         pos=S + t, **kw)
+            tok = self._sample(self._whole(logits)[:, -1], temperature, gen)
         return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
 
-    def _floats(self, x: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, dtype=np.float32),
-                               device=self.device)
+    def _place(self, x: np.ndarray) -> torch.Tensor:
+        """Host rows on the device, sharded over the batch axes under a
+        mesh."""
+        if self.mesh is None:
+            return torch.as_tensor(x, device=self.device)
+        return make_global_batch({"x": x}, self.mesh, batch_axes(self.mesh),
+                                 device=self.device)["x"]
+
+    def _batch_rows(self, tok: torch.Tensor) -> torch.Tensor:
+        """A token every rank sampled alike, as the next step's input."""
+        if self.mesh is None:
+            return tok
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.models.sharding import PartitionSpec, placements
+        axes = batch_axes(self.mesh)
+        spec = PartitionSpec(axes if len(axes) > 1 else axes[0], None)
+        return distribute_tensor(tok, self.mesh,
+                                 placements(spec, self.mesh),
+                                 src_data_rank=None)
+
+    def _whole(self, logits: torch.Tensor) -> torch.Tensor:
+        return logits if self.mesh is None else logits.full_tensor()
 
     @staticmethod
     def _sample(logits: torch.Tensor, temperature: float,

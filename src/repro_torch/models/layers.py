@@ -8,7 +8,12 @@ does: a linear's ``w`` is ``(d_in, d_out)`` row-major, which is how the
 GEMM kernel reads B, so no call copies or transposes a weight
 (``nn.Linear``'s ``(out, in)`` layout would).  The functions take those
 modules; ``Ctx`` threads the model config and the runtime serving the
-routed matmuls' knob decisions through the stack.
+routed matmuls' knob decisions through the stack, and under a device mesh
+the mesh and the logical sharding rules: ``Ctx.cons`` lays an activation
+out by its logical names (the reference's ``ctx.cons`` sites, at the same
+points), and ``Ctx.local`` runs a head-, batch- or expert-parallel region
+on each rank's shards (``shard_map`` in JAX terms), so that the tensors a
+region builds (positions, masks, chunk offsets) stay plain.
 
 The training pieces are the losses, ``cross_entropy`` and
 ``chunked_cross_entropy``.  The parameters are made with
@@ -34,6 +39,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
+from .sharding import (DEFAULT_RULES, ShardingRules, constrain, logical_spec,
+                       placements)
+
 __all__ = ["Ctx", "Linear", "Norm", "Embedding", "Attention", "MLP",
            "torch_dtype", "linear", "routed_matmul", "rmsnorm", "embed",
            "rope", "attention", "mlp", "flash_attention", "cross_entropy",
@@ -58,17 +66,90 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass
 class Ctx:
+    """The model config, the runtime serving the routed matmuls' knob
+    decisions, and, under a device mesh, the mesh and the logical sharding
+    rules (``models/sharding.py``) that lay out the activations."""
     cfg: ModelConfig
     runtime: object = None            # AdsalaRuntime | None (None → global)
+    mesh: object = None               # DeviceMesh | None
+    rules: ShardingRules = DEFAULT_RULES
 
     def cast(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(torch_dtype(self.cfg.compute_dtype))
 
+    def cons(self, x: torch.Tensor, *names) -> torch.Tensor:
+        """``x`` laid out by its logical names (the reference's
+        ``with_sharding_constraint``); ``x`` itself off-mesh."""
+        if self.mesh is None:
+            return x
+        return constrain(x, self.rules, self.mesh, *names)
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor the model builds inside a step (a position table) as a
+        DTensor replicated on the mesh; ``x`` itself off-mesh."""
+        if self.mesh is None:
+            return x
+        return self.cons(x, *(None,) * x.dim())
+
+    def local(self, fn, args, names, out_names):
+        """``fn(*args)`` on each rank's shards (the reference's
+        head-/batch-parallel regions, ``shard_map`` in JAX terms): each
+        tensor of ``args`` is laid out by its logical names in ``names``
+        (``None`` passes an argument as it is) and ``fn`` gets the local
+        shards, plain tensors; its outputs, a tensor or a tuple, become
+        DTensors by ``out_names``, each name sized as the inputs' dim of
+        that name (``None`` returns an output as it is).  Off-mesh it is
+        ``fn(*args)``.  ``fn`` must compute each output shard from the
+        input shards alone: every dim an output is sharded on is one of
+        the inputs'."""
+        if self.mesh is None:
+            return fn(*args)
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        sizes: dict = {}
+        laid = []
+        for x, n in zip(args, names, strict=True):
+            if n is not None:
+                x = self.cons(x, *n)
+                for name, size in zip(n, x.shape):
+                    if (name is not None
+                            and sizes.setdefault(name, size) != size):
+                        raise ValueError(f"logical dim {name!r} is {size} "
+                                         f"and {sizes[name]} in one region")
+            laid.append(x)
+        # the mesh dims the region splits its work over; an input
+        # replicated on one of them feeds each rank's share of the work, so
+        # its gradient is the sum of the ranks' (Partial)
+        split = {i for x, n in zip(laid, names) if n is not None
+                 for i, pl in enumerate(x.placements) if pl.is_shard()}
+        local_args = [
+            x if n is None else x.to_local(grad_placements=[
+                pl if pl.is_shard() else
+                Partial() if i in split else Replicate()
+                for i, pl in enumerate(x.placements)])
+            for x, n in zip(laid, names)]
+        outs = fn(*local_args)
+        single = not isinstance(outs, tuple)
+        outs = (outs,) if single else outs
+        wrapped = []
+        for o, n in zip(outs, (out_names,) if single else out_names,
+                        strict=True):
+            if n is None or o is None:
+                wrapped.append(o)
+                continue
+            dims = [sizes[name] if name is not None else o.shape[d]
+                    for d, name in enumerate(n)]
+            spec = logical_spec(self.rules, self.mesh, n, dims=dims)
+            wrapped.append(DTensor.from_local(
+                o, self.mesh, placements(spec, self.mesh), run_check=False))
+        return wrapped[0] if single else tuple(wrapped)
+
     def routes_gemm(self, x: torch.Tensor) -> bool:
-        """Whether a dense matmul on ``x`` goes through the tuned runtime
-        (opt-in via config; the sharded path of the reference waits for
-        the distributed slice)."""
-        return self.cfg.use_pallas_gemm and x.dim() >= 2
+        """Whether a dense matmul on ``x`` goes through the tuned runtime:
+        opt-in via config, single-device only (the sharded path keeps
+        plain matmuls on DTensors, as the reference's keeps jnp matmuls
+        for GSPMD to partition)."""
+        return (self.cfg.use_pallas_gemm and self.mesh is None
+                and x.dim() >= 2)
 
 
 def routed_matmul(x: torch.Tensor, w: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -84,12 +165,47 @@ def routed_matmul(x: torch.Tensor, w: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     raises; on a CPU tensor it computes the kernel's plain version.  Plain
     ``x @ w`` when the config does not route."""
     if not ctx.routes_gemm(x) or w.dim() != 2:
-        return x @ w
+        return flat_safe(lambda t: t @ w, x, ctx)
     lead = x.shape[:-2]
     x3 = x.reshape(-1, *x.shape[-2:]) if len(lead) > 1 else x
     y = kops.run_op("gemm", (x3, w), backend=ctx.cfg.gemm_backend,
                     runtime=ctx.runtime, device=x.device)
     return y.reshape(*lead, *y.shape[-2:]) if len(lead) > 1 else y
+
+
+def _middle_whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its middle dims (all but the first and the last)
+    gathered whole."""
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_shard() and 0 < p.dim % x.dim() < x.dim() - 1
+          else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+class _MiddleWholeGrad(torch.autograd.Function):
+    """The identity, whose gradient comes back with its middle dims
+    whole."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _middle_whole(g)
+
+
+def flat_safe(op, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``op(x)`` for an ``op`` that flattens ``x``'s leading dims (a matmul,
+    an einsum), under a mesh with ``x``'s middle dims gathered whole (the
+    sequence parallelism's all-gather ahead of a matmul) and its result's
+    gradient alike: DTensor flattens dims only where no dim but the first
+    of them is sharded."""
+    if ctx.mesh is None or x.dim() <= 2:
+        return op(x)
+    return _MiddleWholeGrad.apply(op(_middle_whole(x)))
 
 
 # ---------------------------------------------------------------------------
@@ -177,10 +293,16 @@ class MLP(nn.Module):
 # linear / norm / embedding
 # ---------------------------------------------------------------------------
 
-def linear(p: Linear, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+def linear(p: Linear, x: torch.Tensor, ctx: Ctx, *,
+           out_logical: str | None = None) -> torch.Tensor:
     y = routed_matmul(x, ctx.cast(p.w), ctx)
     if p.b is not None:
         y = y + ctx.cast(p.b)
+    if out_logical is not None:
+        # 'embed' outputs are inter-block activations → carry the SP seq
+        # sharding; head/mlp-parallel outputs leave seq unsharded.
+        seq_name = "seq" if out_logical == "embed" else None
+        y = ctx.cons(y, "batch", seq_name, out_logical)
     return y
 
 
@@ -192,8 +314,17 @@ def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def embed(p: Embedding, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    # gather, then cast: the same values as the reference's cast-then-gather
-    return ctx.cast(p.table[ids])
+    # gather, then cast: the same values as the reference's cast-then-gather.
+    # Under a mesh the gather is batch-local against the whole table (an
+    # all-gather of its vocab and FSDP shards; its gradient a partial sum
+    # reduce-scattered back), as GSPMD lowers it
+    x = ctx.local(_gather_rows, [p.table, ids],
+                  [(None, None), ("batch", None)], ("batch", None, None))
+    return ctx.cons(ctx.cast(x), "batch", "seq", "embed")
+
+
+def _gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +467,12 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
     (default: the cache's length onwards, or 0 onwards) unless
     ``use_rope`` is False.  ``cache`` (decode): {k, v: (B, T, KH, D); len:
     int}, written in place at ``len`` (the reference's functional update)
-    and returned alongside the output; a call with ``kv_x`` has none."""
+    and returned alongside the output; a call with ``kv_x`` has none.
+
+    Under a mesh RoPE, the cache write and the attention run in the
+    head-parallel region (:meth:`Ctx.local`) on each rank's heads and
+    batch rows; seq is unsharded there (under SP rules this boundary is
+    the all-gather / reduce-scatter pair)."""
     cfg = ctx.cfg
     B, S, _ = x.shape
     hd = cfg.hd()
@@ -345,43 +481,96 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
     q = linear(p.wq, x, ctx).reshape(B, S, cfg.n_heads, hd)
     k = linear(p.wk, kv_in, ctx).reshape(B, T, cfg.kv_heads, hd)
     v = linear(p.wv, kv_in, ctx).reshape(B, T, cfg.kv_heads, hd)
+    if cache is not None and cache["len"] + S > cache["k"].shape[1]:
+        raise ValueError(f"the cache holds {cache['k'].shape[1]} positions; "
+                         f"{cache['len']} are taken and {S} more do not fit")
+    qn = ("batch_attn", None, "heads", None)
+    kn = ("batch_attn", "kv_seq", "kv_heads", None)
+    pos_names = (None if positions is None or positions.shape[0] != B
+                 else ("batch_attn", None))
+    args, names = [q, k, v, positions], [qn, kn, kn, pos_names]
+    cn = ("batch_attn", None, "kv_heads", None)
     if cache is not None:
-        start = cache["len"]
-        ck, cv = cache["k"], cache["v"]
-        if start + S > ck.shape[1]:
-            raise ValueError(f"the cache holds {ck.shape[1]} positions; "
-                             f"{start} are taken and {S} more do not fit")
+        args += [cache["k"], cache["v"]]
+        names += [cn, cn]
+    region = functools.partial(_attention_core, cfg=cfg, causal=causal,
+                               use_rope=use_rope,
+                               start=None if cache is None else cache["len"],
+                               model_rank=_model_rank(ctx))
+    if cache is None:
+        out = ctx.local(region, args, names, qn)
+    else:
+        out, ck, cv = ctx.local(region, args, names, (qn, cn, cn))
+        if ctx.mesh is not None:
+            # a cache laid out otherwise than the region (the SP fallback)
+            # takes the written copy back in its own layout
+            for key, new in (("k", ck), ("v", cv)):
+                if tuple(cache[key].placements) != tuple(new.placements):
+                    cache[key] = new.redistribute(ctx.mesh,
+                                                  cache[key].placements)
+        cache["len"] += S
+    out = linear(p.wo, out.reshape(B, S, cfg.n_heads * hd), ctx,
+                 out_logical="embed")
+    return out, cache
+
+
+def _model_rank(ctx: Ctx) -> int:
+    """This rank's coordinate on the mesh's ``model`` dim (0 off-mesh)."""
+    if ctx.mesh is None:
+        return 0
+    return ctx.mesh.get_local_rank("model")
+
+
+def _kv_heads_for(q: torch.Tensor, k: torch.Tensor, n_heads: int,
+                  kv_heads: int, model_rank: int) -> slice:
+    """The kv heads of ``k`` that this shard's query heads read: all of
+    them unless the query heads are sharded and the kv heads are not (MQA,
+    or kv_heads not dividing the model axis), then the kv heads of this
+    rank's query heads."""
+    h, kh = q.shape[2], k.shape[2]
+    if h * kv_heads == n_heads * kh:
+        return slice(None)
+    group = n_heads // kv_heads
+    if h % group and group % h:
+        raise NotImplementedError(
+            f"{h} query heads a shard straddle GQA groups of {group}")
+    lo = model_rank * h // group
+    return slice(lo, lo + max(h // group, 1))
+
+
+def _attention_core(q, k, v, positions, ck=None, cv=None, *, cfg, causal,
+                    use_rope, start, model_rank):
+    """RoPE, the cache write and the attention of :func:`attention` on one
+    shard (the whole tensors off-mesh)."""
+    B, S = q.shape[:2]
+    kv = _kv_heads_for(q, k, cfg.n_heads, cfg.kv_heads, model_rank)
+    if start is not None:
         if use_rope:
             if positions is None:
-                positions = start + torch.arange(S, device=x.device)[None, :]
+                positions = start + torch.arange(S, device=q.device)[None, :]
             q = rope(q, positions, theta=cfg.rope_theta)
             k = rope(k, positions, theta=cfg.rope_theta)
         ck[:, start:start + S] = k
         cv[:, start:start + S] = v
-        cache["len"] = start + S
+        kc, vc = ck[:, :, kv].to(q.dtype), cv[:, :, kv].to(q.dtype)
         if S == 1:
-            out = _dense_decode_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                          start)
+            out = _dense_decode_attention(q, kc, vc, start)
         else:
-            valid = torch.full((B,), start + S, device=x.device)
-            out = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                  causal=causal, q_offset=start,
+            valid = torch.full((B,), start + S, device=q.device)
+            out = flash_attention(q, kc, vc, causal=causal, q_offset=start,
                                   q_chunk=min(cfg.attn_q_chunk, S),
                                   k_chunk=cfg.attn_k_chunk,
                                   kv_valid_len=valid)
-    else:
-        if use_rope:
-            if positions is None:
-                positions = torch.arange(S, device=x.device)[None, :].expand(
-                    B, S)
-            q = rope(q, positions, theta=cfg.rope_theta)
-            k = rope(k, positions, theta=cfg.rope_theta)
-        out = flash_attention(q, k, v, causal=causal,
-                              q_chunk=cfg.attn_q_chunk,
-                              k_chunk=cfg.attn_k_chunk,
-                              causal_skip=cfg.causal_skip)
-    out = linear(p.wo, out.reshape(B, S, cfg.n_heads * hd), ctx)
-    return out, cache
+        return out, ck, cv
+    k, v = k[:, :, kv], v[:, :, kv]
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(S, device=q.device)[None, :].expand(B, S)
+        q = rope(q, positions, theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
+    return flash_attention(q, k, v, causal=causal, q_chunk=cfg.attn_q_chunk,
+                           k_chunk=cfg.attn_k_chunk,
+                           causal_skip=cfg.causal_skip)
 
 
 # ---------------------------------------------------------------------------
@@ -390,11 +579,12 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
 
 def mlp(p: MLP, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     if p.swiglu:
-        h = F.silu(linear(p.wg, x, ctx)) * linear(p.wu, x, ctx)
-        return linear(p.wd, h, ctx)
+        h = F.silu(linear(p.wg, x, ctx, out_logical="mlp")) * \
+            linear(p.wu, x, ctx, out_logical="mlp")
+        return linear(p.wd, h, ctx, out_logical="embed")
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(linear(p.w1, x, ctx), approximate="tanh")
-    return linear(p.w2, h, ctx)
+    h = F.gelu(linear(p.w1, x, ctx, out_logical="mlp"), approximate="tanh")
+    return linear(p.w2, h, ctx, out_logical="embed")
 
 
 # ---------------------------------------------------------------------------
@@ -406,9 +596,11 @@ def _nll_sums(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
     positions whose label is >= 0, and their count."""
     logits = _acc(logits)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      labels.clamp_min(0).long()[..., None])[..., 0]
-    nll = lse - ll
+    # the gathered column keeps its last dim until it meets ``lse``: on a
+    # vocab-sharded DTensor the gather is a masked partial sum whose mask
+    # has the gather's shape
+    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])
+    nll = (lse[..., None] - ll)[..., 0]
     if z_loss:
         nll = nll + z_loss * lse ** 2
     mask = (labels >= 0).to(logits.dtype)

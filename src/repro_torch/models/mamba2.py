@@ -24,13 +24,16 @@ them outside its Pallas GEMM.  A state passed in is written in place.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import Ctx, Linear, Norm, _param, linear, rmsnorm, torch_dtype
+from .layers import (Ctx, Linear, Norm, _model_rank, _param, linear, rmsnorm,
+                     torch_dtype)
 
 __all__ = ["Mamba2", "mamba2_mixer", "init_mamba2_state"]
 
@@ -101,9 +104,12 @@ def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return z, xBC, dt
 
 
-def _ssd_chunked(x, dt, A, B_in, C_in, cfg: ModelConfig, h0):
+def _ssd_chunked(x, dt, A, B_in, C_in, cfg: ModelConfig, h0,
+                 heads: slice | None = None):
     """x: (B, S, H, P), dt: (B, S, H), A: (H,), B_in/C_in: (B, S, G, N),
-    h0: (B, H, P, N) float32 → (y (B, S, H, P) float32, h_final)."""
+    h0: (B, H, P, N) float32 → (y (B, S, H, P) float32, h_final).  On a
+    shard the H heads are the model's ``heads``, whose B and C are taken
+    from the groups' (None: the H heads are all of them)."""
     Bsz, S, H, P = x.shape
     L = min(cfg.ssm_chunk, S)
     nc = -(-S // L)
@@ -113,9 +119,8 @@ def _ssd_chunked(x, dt, A, B_in, C_in, cfg: ModelConfig, h0):
         dt = F.pad(dt, (0, 0, 0, pad))
         B_in = F.pad(B_in, (0, 0, 0, 0, 0, pad))
         C_in = F.pad(C_in, (0, 0, 0, 0, 0, pad))
-    rep = H // cfg.ssm_groups
-    Bh = B_in.repeat_interleave(rep, dim=2).float()          # (B, S, H, N)
-    Ch = C_in.repeat_interleave(rep, dim=2).float()
+    Bh, Ch = (_head_rows(t, cfg, heads, H, dim=2).float()    # (B, S, H, N)
+              for t in (B_in, C_in))
     x, dt = x.float(), dt.float()
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
     h, ys = h0, []
@@ -140,24 +145,41 @@ def _ssd_chunked(x, dt, A, B_in, C_in, cfg: ModelConfig, h0):
     return torch.cat(ys, dim=1)[:, :S], h
 
 
+def _head_rows(t: torch.Tensor, cfg: ModelConfig, heads: slice | None,
+               H: int, dim: int) -> torch.Tensor:
+    """The groups' rows of ``t`` (``G`` on ``dim``) repeated to each of the
+    ``H`` heads, or to the model's heads cut to ``heads``."""
+    if heads is None:
+        return t.repeat_interleave(H // cfg.ssm_groups, dim=dim)
+    rep = _dims(cfg)[1] // cfg.ssm_groups
+    return t.repeat_interleave(rep, dim=dim).narrow(dim, heads.start,
+                                                    heads.stop - heads.start)
+
+
 def mamba2_mixer(p: Mamba2, x: torch.Tensor, ctx: Ctx, *,
                  state: dict | None = None):
     """x: (B, S, D) → (y (B, S, D), state).  With ``state`` (serving) its
     ``ssm`` and ``conv`` are read and written in place: S == 1 runs the
     one-token recurrence, a longer S the chunked scan from the carried
-    state."""
+    state.  Under a mesh the scan runs in the head-parallel region
+    (:meth:`Ctx.local`)."""
     cfg = ctx.cfg
     Bsz, S, _ = x.shape
     d_inner, n_heads, _ = _dims(cfg)
     N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_headdim
 
-    z, xBC, dt = _split(cfg, linear(p.in_proj, x, ctx))
+    z, xBC, dt = _split(cfg, linear(p.in_proj, x, ctx,
+                                    out_logical="ssm_inner"))
     w, b = ctx.cast(p.conv_w), ctx.cast(p.conv_b)
+    # the convolution shifts along the sequence: batch-local, whole rows
+    rows = ("batch", None, None)
     if state is None:
-        xBC = _causal_conv(xBC, w, b)
+        xBC = ctx.local(_causal_conv, [xBC, w, b],
+                        [rows, (None, None), (None,)], rows)
     else:
         hist = torch.cat([state["conv"].to(xBC.dtype), xBC], dim=1)
-        xBC = _causal_conv(hist, w, b)[:, -S:]
+        xBC = ctx.local(_causal_conv, [hist, w, b],
+                        [rows, (None, None), (None,)], rows)[:, -S:]
         state["conv"].copy_(hist[:, -(cfg.conv_width - 1):])
     xBC = F.silu(xBC)
 
@@ -167,24 +189,46 @@ def mamba2_mixer(p: Mamba2, x: torch.Tensor, ctx: Ctx, *,
     dt = F.softplus(dt.float() + p.dt_bias.float())          # (B, S, H)
     A = -torch.exp(p.A_log.float())                          # (H,) < 0
 
-    if state is not None and S == 1:
-        # the one-token recurrence, no chunk machinery
-        h0 = state["ssm"]
-        dA = torch.exp(dt[:, 0] * A)                         # (B, H)
-        Bh = B_in[:, 0].repeat_interleave(n_heads // G, dim=1).float()
-        Ch = C_in[:, 0].repeat_interleave(n_heads // G, dim=1).float()
-        dBx = torch.einsum("bh,bhn,bhp->bhpn", dt[:, 0], Bh,
-                           x_ssm[:, 0].float())
-        h = h0 * dA[:, :, None, None] + dBx
-        y = torch.einsum("bhn,bhpn->bhp", Ch, h)[:, None]    # (B, 1, H, P)
-    else:
-        h0 = (state["ssm"] if state is not None else
-              x.new_zeros((Bsz, n_heads, P, N), dtype=torch.float32))
-        y, h = _ssd_chunked(x_ssm, dt, A, B_in, C_in, cfg, h0)
+    # the head-parallel region (the reference's x, Bh, Ch and h layouts)
+    xn, hn = ("batch", None, "heads", None), ("batch", "heads", None, None)
+    gn = ("batch", None, None, None)
+    args = [x_ssm, dt, A, B_in, C_in]
+    names = [xn, ("batch", None, "heads"), ("heads",), gn, gn]
+    if state is not None:
+        args.append(state["ssm"])
+        names.append(hn)
+    y, h = ctx.local(
+        functools.partial(_scan, cfg=cfg, decode=state is not None and S == 1,
+                          model_rank=_model_rank(ctx)),
+        args, names, (xn, hn))
     if state is not None:
         state["ssm"].copy_(h)
 
     y = y + p.D.float()[None, None, :, None] * x_ssm.float()
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     y = rmsnorm(p.norm, y * F.silu(z))
-    return linear(p.out_proj, y, ctx), state
+    return linear(p.out_proj, y, ctx, out_logical="embed"), state
+
+
+def _scan(x_ssm, dt, A, B_in, C_in, h0=None, *, cfg: ModelConfig,
+          decode: bool, model_rank: int):
+    """The SSD scan on one shard: ``(y (B, S, H, P) float32, h)``, the
+    one-token recurrence when ``decode``, else the chunked scan from
+    ``h0`` (zero without one).  The shard's H heads are the
+    ``model_rank``-th block of the model's."""
+    Bsz, S, H, P = x_ssm.shape
+    n_heads = _dims(cfg)[1]
+    heads = (None if H == n_heads
+             else slice(model_rank * H, (model_rank + 1) * H))
+    if decode:
+        # the one-token recurrence, no chunk machinery
+        dA = torch.exp(dt[:, 0] * A)                         # (B, H)
+        Bh, Ch = (_head_rows(t[:, 0], cfg, heads, H, dim=1).float()
+                  for t in (B_in, C_in))
+        dBx = torch.einsum("bh,bhn,bhp->bhpn", dt[:, 0], Bh,
+                           x_ssm[:, 0].float())
+        h = h0 * dA[:, :, None, None] + dBx
+        return torch.einsum("bhn,bhpn->bhp", Ch, h)[:, None], h
+    if h0 is None:
+        h0 = x_ssm.new_zeros((Bsz, H, P, cfg.ssm_state), dtype=torch.float32)
+    return _ssd_chunked(x_ssm, dt, A, B_in, C_in, cfg, h0, heads)

@@ -18,6 +18,7 @@ place, like the dense cache.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,8 +26,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import (NEG, Ctx, Linear, Norm, flash_attention, linear,
-                     rmsnorm, rope, torch_dtype)
+from . import layers
+from .layers import (NEG, Ctx, Linear, Norm, _model_rank, flash_attention,
+                     linear, rmsnorm, rope, torch_dtype)
 
 __all__ = ["MLA", "mla_attention", "init_mla_cache"]
 
@@ -61,22 +63,12 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             "len": 0}
 
 
-def _expand(p: MLA, c_kv: torch.Tensor, k_rope: torch.Tensor, ctx: Ctx):
-    """Per-head K and V from the latent ``(B, T, kv_lora)`` and the shared
-    rotated key ``(B, T, rp)``."""
-    cfg = ctx.cfg
-    B, T, _ = c_kv.shape
-    h, nope, rp = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    kv = linear(p.wkv_b, c_kv, ctx).reshape(B, T, h, nope + cfg.v_head_dim)
-    k = torch.cat([kv[..., :nope],
-                   k_rope[:, :, None, :].expand(B, T, h, rp)], dim=-1)
-    return k, kv[..., nope:]
-
-
 def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
                   cache: dict | None = None):
     """Returns ``(out (B, S, d), cache)``; ``cache`` (None uncached) is
-    written in place at ``len``."""
+    written in place at ``len``.  Under a mesh RoPE, the cache write and
+    the attention run in the head-parallel region (:meth:`Ctx.local`), seq
+    unsharded (the SP boundary)."""
     cfg = ctx.cfg
     B, S, _ = x.shape
     h, nope, rp, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
@@ -85,59 +77,107 @@ def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
     kv_a = linear(p.wkv_a, x, ctx)
     c_kv = rmsnorm(p.kv_norm, kv_a[..., :cfg.kv_lora])
     k_rope_new = kv_a[..., cfg.kv_lora:]                  # (B, S, rp), 1 head
-    q = linear(p.wq, x, ctx).reshape(B, S, h, nope + rp)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    qn, rows = ("batch", None, "heads", None), ("batch", None, None)
+    q = ctx.cons(linear(p.wq, x, ctx).reshape(B, S, h, nope + rp), *qn)
 
     if cache is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-        q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
-        k_rope = rope(k_rope_new[:, :, None, :], positions,
-                      theta=cfg.rope_theta)[:, :, 0]
-        k, v = _expand(p, c_kv, k_rope, ctx)
-        out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                              causal=True, q_chunk=cfg.attn_q_chunk,
-                              k_chunk=cfg.attn_k_chunk,
-                              causal_skip=cfg.causal_skip)
-        return linear(p.wo, out.reshape(B, S, h * vd), ctx), None
+        kv = linear(p.wkv_b, c_kv, ctx).reshape(B, S, h, nope + vd)
+        out = ctx.local(functools.partial(_uncached, cfg=cfg),
+                        [q, kv, k_rope_new], [qn, qn, rows], qn)
+        return linear(p.wo, out.reshape(B, S, h * vd), ctx,
+                      out_logical="embed"), None
 
     # cached: write the latent and the rotated key at len, then attend
     start = cache["len"]
-    c, kr = cache["c_kv"], cache["k_rope"]
-    if start + S > c.shape[1]:
-        raise ValueError(f"the cache holds {c.shape[1]} positions; "
-                         f"{start} are taken and {S} more do not fit")
-    positions = start + torch.arange(S, device=x.device)[None, :]
+    if start + S > cache["c_kv"].shape[1]:
+        raise ValueError(f"the cache holds {cache['c_kv'].shape[1]} "
+                         f"positions; {start} are taken and {S} more do not "
+                         f"fit")
+    out, c, kr = ctx.local(
+        functools.partial(_cached, ctx=ctx, start=start,
+                          model_rank=_model_rank(ctx)),
+        [q, c_kv, k_rope_new, cache["c_kv"], cache["k_rope"],
+         ctx.cast(p.wkv_b.w)],
+        [qn, rows, rows, rows, rows, (None, None)], (qn, rows, rows))
+    if ctx.mesh is not None:
+        # the latent cache's own layout (seq over 'model') takes the
+        # written copy back
+        for key, new in (("c_kv", c), ("k_rope", kr)):
+            if tuple(cache[key].placements) != tuple(new.placements):
+                cache[key] = new.redistribute(ctx.mesh, cache[key].placements)
+    cache["len"] = start + S
+    return linear(p.wo, out.reshape(B, S, h * vd), ctx,
+                  out_logical="embed"), cache
+
+
+def _uncached(q, kv, k_rope, *, cfg: ModelConfig):
+    """RoPE and flash attention of the uncached form on one shard: the
+    latent expanded to per-head ``kv`` (B, S, h, nope + vd), the shared
+    key ``k_rope`` (B, S, rp) broadcast over the heads."""
+    B, S, h, _ = q.shape
+    nope, rp = cfg.qk_nope_dim, cfg.qk_rope_dim
+    positions = torch.arange(S, device=q.device)[None, :]
+    q_rope = rope(q[..., nope:], positions, theta=cfg.rope_theta)
+    k_rope = rope(k_rope[:, :, None, :], positions,
+                  theta=cfg.rope_theta)[:, :, 0]
+    k = torch.cat([kv[..., :nope],
+                   k_rope[:, :, None, :].expand(B, S, h, rp)], dim=-1)
+    return flash_attention(torch.cat([q[..., :nope], q_rope], dim=-1), k,
+                           kv[..., nope:], causal=True,
+                           q_chunk=cfg.attn_q_chunk,
+                           k_chunk=cfg.attn_k_chunk,
+                           causal_skip=cfg.causal_skip)
+
+
+def _cached(q, c_kv, k_rope_new, c, kr, w, *, ctx: Ctx, start: int,
+            model_rank: int):
+    """The cached forms on one shard: the latent ``c_kv`` and the rotated
+    key written into the caches ``c``/``kr`` at ``start``, then the
+    expanded prefill (``S > 1``) or the absorbed decode over them.  ``w``
+    is ``wkv_b``'s weight, of which the shard's query heads read their
+    own."""
+    cfg = ctx.cfg
+    B, S, hl, _ = q.shape
+    h, nope, rp, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                       cfg.v_head_dim)
+    if hl != h:
+        w = w.reshape(cfg.kv_lora, h, nope + vd)[
+            :, model_rank * hl:(model_rank + 1) * hl].reshape(
+                cfg.kv_lora, hl * (nope + vd))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    positions = start + torch.arange(S, device=q.device)[None, :]
     q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
     k_rope_new = rope(k_rope_new[:, :, None, :], positions,
                       theta=cfg.rope_theta)[:, :, 0]
     c[:, start:start + S] = c_kv
     kr[:, start:start + S] = k_rope_new
-    cache["len"] = start + S
-    c, kr = ctx.cast(c), ctx.cast(kr)
+    cc, krc = ctx.cast(c), ctx.cast(kr)
 
     if S > 1:
         # prefill: the whole latent cache expanded, blockwise flash (the
         # absorbed form would materialise S x T scores a head)
-        k, v = _expand(p, c, kr, ctx)
-        out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                              causal=True, q_offset=start,
+        T = cc.shape[1]
+        kv = layers.routed_matmul(cc, w, ctx).reshape(B, T, hl, nope + vd)
+        k = torch.cat([kv[..., :nope],
+                       krc[:, :, None, :].expand(B, T, hl, rp)], dim=-1)
+        out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k,
+                              kv[..., nope:], causal=True, q_offset=start,
                               q_chunk=cfg.attn_q_chunk,
                               k_chunk=cfg.attn_k_chunk,
                               kv_valid_len=torch.full((B,), start + S,
-                                                      device=x.device))
-        return linear(p.wo, out.reshape(B, S, h * vd), ctx), cache
+                                                      device=q.device))
+        return out, c, kr
 
     # decode: the absorbed form over the latent cache
-    w_b = ctx.cast(p.wkv_b.w).reshape(cfg.kv_lora, h, nope + vd)
+    w_b = w.reshape(cfg.kv_lora, hl, nope + vd)
     w_kb, w_vb = w_b[..., :nope], w_b[..., nope:]
     q_c = torch.einsum("bshn,lhn->bshl", q_nope, w_kb)
     scale = 1.0 / math.sqrt(nope + rp)
-    scores = (torch.einsum("bshl,btl->bsht", q_c, c)
-              + torch.einsum("bshr,btr->bsht", q_rope, kr)) * scale
-    k_pos = torch.arange(c.shape[1], device=x.device)[None, None, None, :]
+    scores = (torch.einsum("bshl,btl->bsht", q_c, cc)
+              + torch.einsum("bshr,btr->bsht", q_rope, krc)) * scale
+    k_pos = torch.arange(cc.shape[1], device=q.device)[None, None, None, :]
     ok = (k_pos < start + S) & (k_pos <= positions[:, :, None, None])
     scores = torch.where(ok, scores.float(), NEG)
-    attn = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx_c = torch.einsum("bsht,btl->bshl", attn, c)
-    out = torch.einsum("bshl,lhv->bshv", ctx_c, w_vb)
-    return linear(p.wo, out.reshape(B, S, h * vd), ctx), cache
+    attn = torch.softmax(scores, dim=-1).to(q.dtype)
+    ctx_c = torch.einsum("bsht,btl->bshl", attn, cc)
+    return torch.einsum("bshl,lhv->bshv", ctx_c, w_vb), c, kr

@@ -21,6 +21,7 @@ loss is computed only when asked for (``forward``); ``prefill`` and
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,7 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
-from .layers import MLP, Ctx, Linear, _param, mlp, torch_dtype
+from .layers import MLP, Ctx, Linear, _param, flat_safe, mlp, torch_dtype
 
 __all__ = ["MoE", "moe_ffn", "route", "capacity"]
 
@@ -72,7 +73,11 @@ def capacity(cfg: ModelConfig, S: int) -> int:
 def route(p: MoE, x: torch.Tensor, k: int):
     """The router in float32: ``(probs (B, S, E), top_p, top_e (B, S, k))``,
     ``top_p`` renormalised over the ``k`` chosen experts."""
-    probs = torch.softmax(x.float() @ p.router.w, dim=-1)
+    return _top_k(x.float() @ p.router.w, k)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     return probs, top_p, top_e
@@ -107,18 +112,59 @@ def _positions_in_expert(e_flat: torch.Tensor) -> torch.Tensor:
 def moe_ffn(p: MoE, x: torch.Tensor, ctx: Ctx, *, with_aux: bool = True):
     """x: (B, S, D) → (out (B, S, D), aux), ``aux`` the Switch-style
     load-balancing loss ``E * sum_e f_e * mean p_e`` (None unless
-    ``with_aux``)."""
+    ``with_aux``).
+
+    Under a mesh the routing, dispatch and combine run batch-local
+    (:meth:`Ctx.local`: each rank its batch rows, the whole sequence),
+    and the expert FFN on DTensors: EP when the experts divide the model
+    axis, else slot-parallel over the capacity dim (``expert_cap``)."""
     cfg = ctx.cfg
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
 
-    # routing (f32)
-    probs, top_p, top_e = route(p, x, K)
+    # routing (f32), then the slot bookkeeping and the dispatch, batch-local
+    # (the reference's x_slots, dest and buf layouts)
+    logits = flat_safe(lambda t: t.float() @ p.router.w, x, ctx)
+    buf, dest, wk, probs, top1 = ctx.local(
+        functools.partial(_dispatch, E=E, K=K, C=C, with_aux=with_aux),
+        [x, logits], [("batch", None, "embed"), ("batch", None, None)],
+        (("batch", None, None), ("batch", None), ("batch", None),
+         ("batch", None, None), ("batch", None, None)))
     aux = None
     if with_aux:
-        density = F.one_hot(top_e[..., 0], E).float().mean((0, 1))
-        aux = E * torch.sum(density * probs.mean((0, 1)))
+        aux = E * torch.sum(top1.mean((0, 1)) * probs.mean((0, 1)))
+
+    # the experts: EP over 'model' when the experts divide it, otherwise
+    # slot-parallel over the capacity dim with replicated expert weights
+    buf = ctx.cons(buf.reshape(B, E, C, D), "batch", "experts", "expert_cap",
+                   None)
+    wg, wu, wd = ctx.cast(p.wg), ctx.cast(p.wu), ctx.cast(p.wd)
+    h = F.silu(_expert_matmul(buf, wg, ctx)) * _expert_matmul(buf, wu, ctx)
+    y = ctx.cons(_expert_matmul(h, wd, ctx), "batch", "experts",
+                 "expert_cap", None)
+
+    # combine, batch-local
+    out = ctx.local(functools.partial(_combine, K=K), [y, dest, wk],
+                    [("batch", None, None, None), ("batch", None),
+                     ("batch", None)], ("batch", None, None))
+    out = ctx.cons(out, "batch", "seq", "embed")
+
+    if p.shared is not None:
+        out = out + mlp(p.shared, x, ctx)
+    return out, aux
+
+
+def _dispatch(x: torch.Tensor, logits: torch.Tensor, *, E: int, K: int,
+              C: int, with_aux: bool):
+    """Softmax, top-k, each slot's place in its expert and the scatter of
+    the tokens into the capacity buffer: ``(buf (B, E * C, D), dest (B, S *
+    K), wk (B, S * K) the kept slots' weights, probs (B, S, E), top1 (B, S,
+    E) the first choice one-hot)``; ``probs`` and ``top1`` are None unless
+    ``with_aux``."""
+    B, S, D = x.shape
+    probs, top_p, top_e = _top_k(logits, K)
+    top1 = F.one_hot(top_e[..., 0], E).float() if with_aux else None
 
     # slot bookkeeping: a dropped slot goes to the pad row E * C
     e_flat = top_e.reshape(B, S * K)
@@ -134,19 +180,17 @@ def moe_ffn(p: MoE, x: torch.Tensor, ctx: Ctx, *, with_aux: bool = True):
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
     buf.index_put_((bidx, dest), x_slots * keep[..., None].to(x.dtype),
                    accumulate=True)
-    buf = buf[:, :E * C].reshape(B, E, C, D)
+    return (buf[:, :E * C], dest, w_flat * keep,
+            probs if with_aux else None, top1)
 
-    # the experts
-    wg, wu, wd = ctx.cast(p.wg), ctx.cast(p.wu), ctx.cast(p.wd)
-    h = F.silu(_expert_matmul(buf, wg, ctx)) * _expert_matmul(buf, wu, ctx)
-    y = _expert_matmul(h, wd, ctx)
 
-    # combine: gather each slot's row (the pad row is zero), weight, sum
+def _combine(y: torch.Tensor, dest: torch.Tensor, wk: torch.Tensor, *,
+             K: int) -> torch.Tensor:
+    """Each slot's row of the experts' output ``y`` (B, E, C, D) (the pad
+    row is zero), weighted by ``wk``, summed over a token's K slots:
+    (B, S, D)."""
+    B, E, C, D = y.shape
     y = torch.cat([y.reshape(B, E * C, D), y.new_zeros((B, 1, D))], dim=1)
     gathered = torch.take_along_dim(y, dest[..., None], dim=1)
-    gathered = gathered * (w_flat * keep)[..., None].to(y.dtype)
-    out = gathered.reshape(B, S, K, D).sum(dim=2)
-
-    if p.shared is not None:
-        out = out + mlp(p.shared, x, ctx)
-    return out, aux
+    gathered = gathered * wk[..., None].to(y.dtype)
+    return gathered.reshape(B, -1, K, D).sum(dim=2)

@@ -28,13 +28,16 @@ state passed in is written in place.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import Ctx, Linear, Norm, _param, linear, rmsnorm, torch_dtype
+from .layers import (Ctx, Linear, Norm, _param, flat_safe, linear, rmsnorm,
+                     torch_dtype)
 
 __all__ = ["RWKV6", "rwkv6_block", "init_rwkv6_state"]
 
@@ -116,6 +119,14 @@ def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _shifted(ctx: Ctx, x: torch.Tensor,
+             prev: torch.Tensor | None) -> torch.Tensor:
+    """:func:`_shift` batch-local on whole rows under a mesh."""
+    rows = ("batch", None, None)
+    return ctx.local(_shift, [x, prev],
+                     [rows, None if prev is None else ("batch", None)], rows)
+
+
 def _wkv_chunked(r, k, v, w_log, u, chunk: int, S0):
     """r, k, v: (B, T, H, K); w_log: (B, T, H, K) = log w ≤ 0; u: (H, K);
     S0: (B, H, K, K) float32 → (y (B, T, H, K) float32, S_final)."""
@@ -153,6 +164,23 @@ def _wkv_chunked(r, k, v, w_log, u, chunk: int, S0):
     return torch.cat(ys, dim=1)[:, :T], S
 
 
+def _wkv(r, k, v, w_log, u, S0=None, *, chunk: int, decode: bool):
+    """The WKV recurrence on one shard: ``(y (B, S, H, K) float32,
+    S_new)``, the one-token step when ``decode``, else the chunked scan
+    from ``S0`` (zero without one)."""
+    if decode:
+        rt, kt, vt = (t[:, 0].float() for t in (r, k, v))
+        y = torch.einsum("bhk,bhkv->bhv", rt, S0) + \
+            torch.einsum("bhk,bhk,bhv->bhv", rt, u[None] * kt, vt)
+        S_new = S0 * torch.exp(w_log[:, 0])[..., None] + \
+            torch.einsum("bhk,bhv->bhkv", kt, vt)
+        return y[:, None], S_new                             # (B, 1, H, K)
+    if S0 is None:
+        B, _, H, K = r.shape
+        S0 = r.new_zeros((B, H, K, K), dtype=torch.float32)
+    return _wkv_chunked(r, k, v, w_log, u, chunk, S0)
+
+
 def rwkv6_block(p: RWKV6, x: torch.Tensor, ctx: Ctx, *,
                 state: dict | None = None):
     """The whole RWKV6 layer (time mix, then channel mix), pre-norm
@@ -167,10 +195,12 @@ def rwkv6_block(p: RWKV6, x: torch.Tensor, ctx: Ctx, *,
     x = rmsnorm(p.ln1, x)
 
     # ---------------- time mix ----------------
-    dx = _shift(x, None if state is None else state["tm_prev"]) - x
+    dx = _shifted(ctx, x, None if state is None else state["tm_prev"]) - x
     xx = x + dx * ctx.cast(p.mu_x)
-    lora = torch.tanh(xx @ ctx.cast(p.lora_A)).reshape(B, S, 5, -1)
-    dd = torch.einsum("bsfl,fld->bsfd", lora, ctx.cast(p.lora_B))
+    lora = torch.tanh(flat_safe(lambda t: t @ ctx.cast(p.lora_A), xx, ctx)
+                      ).reshape(B, S, 5, -1)
+    dd = flat_safe(lambda t: torch.einsum("bsfl,fld->bsfd", t,
+                                          ctx.cast(p.lora_B)), lora, ctx)
     mixed = x[:, :, None] + dx[:, :, None] * (ctx.cast(p.mu)[None, None]
                                               + dd)           # (B, S, 5, D)
     xr, xk, xv, xg, xw = mixed.unbind(2)
@@ -179,25 +209,22 @@ def rwkv6_block(p: RWKV6, x: torch.Tensor, ctx: Ctx, *,
     k = linear(p.wk, xk, ctx).reshape(B, S, H, K)
     v = linear(p.wv, xv, ctx).reshape(B, S, H, K)
     g = linear(p.wg, xg, ctx)
-    w_log = -torch.exp(p.w0.float() +
-                       (torch.tanh(xw @ ctx.cast(p.w_lora_A))
-                        @ ctx.cast(p.w_lora_B)).float())
+    w_lora = flat_safe(lambda t: torch.tanh(t @ ctx.cast(p.w_lora_A))
+                       @ ctx.cast(p.w_lora_B), xw, ctx)
+    w_log = -torch.exp(p.w0.float() + w_lora.float())
     w_log = w_log.reshape(B, S, H, K)
 
-    if state is not None and S == 1:
-        # the one-token recurrence
-        S0 = state["S"]
-        rt, kt, vt = (t[:, 0].float() for t in (r, k, v))
-        y = torch.einsum("bhk,bhkv->bhv", rt, S0) + \
-            torch.einsum("bhk,bhk,bhv->bhv", rt, p.u.float()[None] * kt, vt)
-        S_new = S0 * torch.exp(w_log[:, 0])[..., None] + \
-            torch.einsum("bhk,bhv->bhkv", kt, vt)
-        y = y[:, None]                                       # (B, 1, H, K)
-    else:
-        S0 = (state["S"] if state is not None else
-              x.new_zeros((B, H, K, K), dtype=torch.float32))
-        y, S_new = _wkv_chunked(r, k, v, w_log, p.u.float(), cfg.rwkv_chunk,
-                                S0)
+    # the head-parallel region (the reference's r, k, v and S layouts)
+    hn, sn = ("batch", None, "heads", None), ("batch", "heads", None, None)
+    args, names = [r, k, v, w_log, p.u.float()], [hn, hn, hn, hn,
+                                                  ("heads", None)]
+    if state is not None:
+        args.append(state["S"])
+        names.append(sn)
+    y, S_new = ctx.local(
+        functools.partial(_wkv, chunk=cfg.rwkv_chunk,
+                          decode=state is not None and S == 1),
+        args, names, (hn, sn))
 
     # per-head group norm (the population variance, as jnp.var), gate, out
     mean = y.mean(-1, keepdim=True)
@@ -205,16 +232,16 @@ def rwkv6_block(p: RWKV6, x: torch.Tensor, ctx: Ctx, *,
     y = (y - mean) * torch.rsqrt(var + 1e-5)
     y = y * p.ln_scale.float()[None, None] + p.ln_bias.float()[None, None]
     y = y.reshape(B, S, D).to(x.dtype) * F.silu(g)
-    h_res = x_res + linear(p.wo, y, ctx)
+    h_res = x_res + linear(p.wo, y, ctx, out_logical="embed")
     h = rmsnorm(p.ln2, h_res)
 
     # ---------------- channel mix ----------------
-    dh = _shift(h, None if state is None else state["cm_prev"]) - h
+    dh = _shifted(ctx, h, None if state is None else state["cm_prev"]) - h
     hk = h + dh * ctx.cast(p.cm_mu_k)
     hr = h + dh * ctx.cast(p.cm_mu_r)
-    kk = torch.square(F.relu(linear(p.cm_wk, hk, ctx)))
+    kk = torch.square(F.relu(linear(p.cm_wk, hk, ctx, out_logical="mlp")))
     out = h_res + torch.sigmoid(linear(p.cm_wr, hr, ctx)) * \
-        linear(p.cm_wv, kk, ctx)
+        linear(p.cm_wv, kk, ctx, out_logical="embed")
 
     if state is not None:
         state["tm_prev"].copy_(x[:, -1])

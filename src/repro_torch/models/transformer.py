@@ -31,6 +31,11 @@ rest, and ``"nested"`` checkpoints groups of blocks whose blocks are each
 checkpointed again (:func:`_scan_stack`), so only one activation a group
 outlives the forward pass.  Remat changes memory, never numbers.
 
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take ``mesh=``
+and ``rules=`` as the reference's do: the parameters, the batch and the
+caches then DTensors on the mesh, the activations laid out by the rules
+between the blocks (``models/sharding.py``, ``Ctx``).
+
 Whisper's encoder (``encoder``: ``"enc"`` blocks and a norm) reads stub
 frame embeddings with sinusoid positions, and its decoder embeds tokens at
 sinusoid positions too; the VLM's ``vision_proj`` maps stub patch
@@ -58,6 +63,7 @@ from .mamba2 import Mamba2, init_mamba2_state, mamba2_mixer
 from .mla import MLA, init_mla_cache, mla_attention
 from .moe import MoE
 from .rwkv6 import RWKV6, init_rwkv6_state
+from .sharding import DEFAULT_RULES
 
 __all__ = ["Block", "DecCross", "Encoder", "Mamba2Block", "ZambaSuper",
            "Transformer", "init_params", "forward", "loss_fn",
@@ -291,7 +297,8 @@ class Transformer(nn.Module):
                     aux = aux + a
             else:
                 x = block(x, ctx, cache)
-            return x, aux
+            # the inter-block activation layout (SP shards seq here)
+            return ctx.cons(x, "batch", "seq", "embed"), aux
 
         offset = 0
         for _, repeat in ctx.cfg.segments():
@@ -512,8 +519,8 @@ def _run_encoder(params: Transformer, frames: torch.Tensor,
     """Whisper's encoder over the stub frame embeddings (B, enc_seq, d):
     sinusoid positions, the ``"enc"`` blocks, the final norm."""
     x = ctx.cast(frames)
-    x = x + _sinusoid(x.shape[1], x.shape[2],
-                      device=x.device).to(x.dtype)[None]
+    x = x + ctx.replicate(_sinusoid(x.shape[1], x.shape[2],
+                                    device=x.device).to(x.dtype)[None])
     remat = ctx.cfg.remat if torch.is_grad_enabled() else "none"
 
     def body(x, block):
@@ -532,10 +539,10 @@ def _embed_inputs(params: Transformer, batch: dict, ctx: Ctx) -> torch.Tensor:
     x = embed(params.embed, batch["tokens"], ctx)
     if cfg.family == "vlm":
         vis = linear(params.vision_proj, batch["vision"].to(x.dtype), ctx)
-        x = torch.cat([vis, x], dim=1)
+        x = ctx.cons(torch.cat([vis, x], dim=1), "batch", "seq", "embed")
     if cfg.family == "audio":
-        x = x + _sinusoid(x.shape[1], x.shape[2],
-                          device=x.device).to(x.dtype)[None]
+        x = x + ctx.replicate(_sinusoid(x.shape[1], x.shape[2],
+                                        device=x.device).to(x.dtype)[None])
     return x
 
 
@@ -553,18 +560,21 @@ def _logits(params: Transformer, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         w = ctx.cast(params.lm_head.w)
     else:
         w = ctx.cast(params.embed.table).T
-    return routed_matmul(x, w, ctx)
+    return ctx.cons(routed_matmul(x, w, ctx), "batch", None, "vocab")
 
 
 def forward(params: Transformer, batch: dict, cfg: ModelConfig, *,
-            runtime=None):
+            mesh=None, rules=None, runtime=None):
     """batch: {tokens (B, S); Whisper's frames (B, enc_seq, d) or the VLM's
     vision (B, vision_tokens, d)} → (logits (B, S', V), aux), S' counting
     the VLM's vision tokens too.  ``runtime`` — the AdsalaRuntime serving
     the routed matmuls' knob decisions when the config routes (None → the
     process-global runtime).  ``aux`` is the reference's MoE
-    load-balancing loss summed over the layers, zero without MoE layers."""
-    ctx = Ctx(cfg, runtime)
+    load-balancing loss summed over the layers, zero without MoE layers.
+    Under ``mesh`` (a ``DeviceMesh``; the parameters and the batch
+    DTensors on it) the activations are laid out by ``rules`` (default
+    ``DEFAULT_RULES``)."""
+    ctx = Ctx(cfg, runtime, mesh, rules or DEFAULT_RULES)
     x = _embed_inputs(params, batch, ctx)
     x, aux = params(x, ctx, with_aux=True,
                     enc_out=_encoded(params, batch, ctx, None))
@@ -572,13 +582,14 @@ def forward(params: Transformer, batch: dict, cfg: ModelConfig, *,
 
 
 def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig, *,
-            runtime=None, moe_aux_coef: float = 0.01):
+            mesh=None, rules=None, runtime=None, moe_aux_coef: float = 0.01):
     """The training loss of ``batch`` ({tokens, labels (B, S); Whisper's
     frames or the VLM's vision as in :func:`forward`}): the mean next-token
     CE over the labels >= 0 (the VLM's vision positions carry none) plus
     ``moe_aux_coef`` times the MoE load-balancing loss.  Returns ``(loss,
     {"ce", "moe_aux"})``.  With ``cfg.ce_chunk`` the LM head and the CE
     run fused over sequence chunks (:func:`chunked_cross_entropy`).
+    ``mesh`` and ``rules`` as in :func:`forward`.
 
     Raises ``ValueError`` for a config that routes its matmuls through the
     tuned GEMM (``use_pallas_gemm``) when gradients are to flow: the GEMM
@@ -590,21 +601,24 @@ def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig, *,
             f"{cfg.name}: use_pallas_gemm routes the matmuls through the "
             f"tuned GEMM kernel, which has no backward (nor has the "
             f"reference's); train with use_pallas_gemm=False")
-    ctx = Ctx(cfg, runtime)
+    ctx = Ctx(cfg, runtime, mesh, rules or DEFAULT_RULES)
     x = _embed_inputs(params, batch, ctx)
     x, aux = params(x, ctx, with_aux=True,
                     enc_out=_encoded(params, batch, ctx, None))
     labels = batch["labels"]
     if cfg.family == "vlm":   # the vision prefix carries no LM loss
-        pad = labels.new_full(batch["vision"].shape[:2], -1)
-        labels = torch.cat([pad, labels], dim=1)
-    x = rmsnorm(params.final_norm, x)
+        pad = torch.full(batch["vision"].shape[:2], -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([ctx.cons(ctx.replicate(pad), "batch", None),
+                            labels], dim=1)
+    # the loss reads whole sequences (its chunks slice them)
+    x = ctx.cons(rmsnorm(params.final_norm, x), "batch", None, "embed")
     w = (ctx.cast(params.lm_head.w) if params.lm_head is not None
          else ctx.cast(params.embed.table).T)
     if cfg.ce_chunk:
         ce = chunked_cross_entropy(x, w, labels, chunk=cfg.ce_chunk)
     else:
-        ce = cross_entropy(x @ w, labels)
+        ce = cross_entropy(ctx.cons(x @ w, "batch", "seq", "vocab"), labels)
     return ce + moe_aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 
@@ -644,30 +658,36 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params: Transformer, batch: dict, caches: list,
-            cfg: ModelConfig, *, runtime=None, enc_out=None):
+            cfg: ModelConfig, *, mesh=None, rules=None, runtime=None,
+            enc_out=None):
     """Run the prompt (the batch of :func:`forward`) through the model
     filling the caches (in place).  Returns (last-token logits (B, 1, V),
     caches).  Whisper's encoder runs on ``batch["frames"]`` unless the
-    caller passes its output as ``enc_out``."""
-    ctx = Ctx(cfg, runtime)
+    caller passes its output as ``enc_out``.  ``mesh`` and ``rules`` as in
+    :func:`forward`; the caches then DTensors laid out by
+    ``launch/specs.py::cache_specs``."""
+    ctx = Ctx(cfg, runtime, mesh, rules or DEFAULT_RULES)
     x = _embed_inputs(params, batch, ctx)
     x, _ = params(x, ctx, caches, enc_out=_encoded(params, batch, ctx,
                                                    enc_out))
+    x = ctx.cons(x, "batch", None, "embed")         # whole rows to slice
     return _logits(params, x[:, -1:], ctx), caches
 
 
 def decode_step(params: Transformer, token: torch.Tensor, caches: list,
-                cfg: ModelConfig, *, runtime=None, enc_out=None, pos: int = 0):
+                cfg: ModelConfig, *, mesh=None, rules=None, runtime=None,
+                enc_out=None, pos: int = 0):
     """One-token step. token: (B, 1) → (logits (B, 1, V), caches), the
     caches written in place.  Whisper needs the encoder's output
     ``enc_out`` and the token's absolute position ``pos`` (its sinusoid
-    offset); the other families read positions from the cache."""
-    ctx = Ctx(cfg, runtime)
+    offset); the other families read positions from the cache.  ``mesh``
+    and ``rules`` as in :func:`prefill`."""
+    ctx = Ctx(cfg, runtime, mesh, rules or DEFAULT_RULES)
     x = embed(params.embed, token, ctx)
     if cfg.family == "audio":
         if enc_out is None:
             raise ValueError("whisper decode needs enc_out from prefill")
-        x = x + _sinusoid(1, x.shape[2], pos,
-                          device=x.device).to(x.dtype)[None]
+        x = x + ctx.replicate(_sinusoid(1, x.shape[2], pos,
+                                        device=x.device).to(x.dtype)[None])
     x, _ = params(x, ctx, caches, enc_out=enc_out)
     return _logits(params, x, ctx), caches

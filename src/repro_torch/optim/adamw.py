@@ -9,6 +9,10 @@ tensor's size, not the whole model's).  The step counter, the learning
 rate, the bias corrections and the clip's scale stay 0-dim tensors on the
 parameters' device: a step makes no host sync.
 
+The tensors may be DTensors (a sharded ``TrainLoop``): the global norm
+then reduces across the shards, so the sharded update is the unsharded
+one.
+
 ``adamw_update`` and ``clip_by_global_norm`` run inside
 ``torch.profiler.record_function`` ranges of their names, so a profile of a
 train step reads their device time apart.
@@ -46,10 +50,17 @@ class AdamWState(NamedTuple):
 
 
 def init_adamw(params: dict) -> AdamWState:
-    """Zero float32 moments shaped like each parameter, on its device."""
-    device = next(iter(params.values())).device
+    """Zero float32 moments shaped like each parameter, on its device (a
+    DTensor parameter's moments are DTensors of its placements, and the
+    step is then replicated on its mesh)."""
+    first = next(iter(params.values()))
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    mesh = getattr(first, "device_mesh", None)
+    if mesh is not None:
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        step = distribute_tensor(step, mesh, [Replicate()] * mesh.ndim)
     return AdamWState(
-        step=torch.zeros((), dtype=torch.int32, device=device),
+        step=step,
         mu={k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()},
         nu={k: torch.zeros_like(p, dtype=torch.float32)

@@ -6,7 +6,9 @@ Per-tensor symmetric int8 quantisation (scale = max|g| / 127, floored at
 and added to the next step's gradient, so the compression's bias vanishes
 over time (Karimireddy et al. 2019).  On one card nothing crosses a link:
 the round trip is what a data-parallel all-reduce of the int8 tensors
-would apply to the gradients.
+would apply to the gradients.  On DTensor gradients (a sharded
+``TrainLoop``) the scale's ``max|g|`` reduces across the shards, so the
+sharded round trip is the unsharded one.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def init_error_feedback(params: dict) -> dict:
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()}
 
 

@@ -12,7 +12,8 @@ kernels and nothing else, and the launch parameters built into the
 kernels equal to their Python mirrors; the dense, MoE, zamba2 and rwkv6
 smoke models routed on the card against their plain versions; a retune
 step on the card's telemetry and a one-executor fleet on the card; two
-train steps of the llama3 smoke model on the card.  The card's
+train steps of the llama3 smoke model on the card, and one on a (1, 1)
+mesh in a world of one under NCCL against the unsharded step.  The card's
 tests skip where there is none; the check that their limit rejects TF32
 runs anywhere.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
@@ -936,3 +937,78 @@ def test_two_train_steps_of_the_smoke_llama3_on_the_card(tmp_path):
     assert int(state["opt"].step) == 2
     assert all(not torch.equal(a, b) for a, b in
                zip(before, state["params"].parameters()))
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_a_world_of_one_matches_the_unsharded_step(tmp_path):
+    """Phase 9a of ``chip_smoke.py`` at the llama3 smoke config's width and
+    2 layers, float32 with TF32 off: one ``TrainLoop`` step on a (1, 1)
+    ("data", "model") mesh in a world of one under NCCL against one
+    unsharded step from the same weights: the loss within 1e-6 relative,
+    every gradient within 1e-6 of its max |g|, the parameters after the
+    step a median |diff| <= 1e-6 apart, and no hand-written kernel
+    launched."""
+    _need_card()
+    import dataclasses
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMDataset, make_global_batch
+    from repro_torch.distributed import best_mesh, close_world, init_world
+    from repro_torch.kernels import introspect
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = init_world("cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = best_mesh(model_parallel=2)
+        assert tuple(mesh.shape) == (1, 1)
+        cfg = dataclasses.replace(get_smoke_config("llama3-8b"), n_layers=2,
+                                  compute_dtype="float32")
+        ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=64, global_batch=4)
+        out = {}
+        introspect.reset_launches()
+        for name, m in (("mesh", mesh), ("one", None)):
+            loop = TrainLoop(cfg=cfg, adamw=AdamWConfig(lr=1e-3,
+                                                        warmup_steps=1),
+                             ckpt=Checkpointer(tmp_path / name), dataset=ds,
+                             device=device, mesh=m)
+            state = loop.init_state()
+            batch = make_global_batch(ds.batch_at(0), m,
+                                      None if m is None else batch_axes(m),
+                                      device=device)
+            loss, _ = loss_fn(state["params"], batch, cfg, mesh=m,
+                              rules=loop.rules)
+            loss.backward()
+            grads = {}
+            for k, p in state["params"].named_parameters():
+                g = p.grad
+                if m is not None:
+                    g = g.redistribute(mesh, p.placements).full_tensor()
+                grads[k] = g.clone()
+            state["params"].zero_grad(set_to_none=True)
+            p, *_ = loop.step_fn(state["params"], state["opt"], state["ef"],
+                                 batch)
+            params = {k: (v.full_tensor() if m is not None else v).detach()
+                      for k, v in p.named_parameters()}
+            loss = loss.full_tensor() if m is not None else loss
+            out[name] = (float(loss.detach()), grads, params)
+        torch.cuda.synchronize()
+        assert sum(introspect.launch_counts().values()) == 0
+        (ls, gs, ps), (lu, gu, pu) = out["mesh"], out["one"]
+        assert abs(ls - lu) <= 1e-6 * abs(lu)
+        for k, g in gu.items():
+            assert (gs[k] - g).abs().max() <= 1e-6 * g.abs().max(), k
+        # a first AdamW step moves an entry by about lr whatever its
+        # gradient's size, so one whose gradient's sign differs at
+        # rounding level may move 2 lr apart
+        diffs = torch.cat([(ps[k] - w).abs().flatten()
+                           for k, w in pu.items()])
+        assert diffs.median() <= 1e-6 and diffs.max() <= 2e-3
+    finally:
+        close_world()
+        torch.backends.cuda.matmul.allow_tf32 = tf32

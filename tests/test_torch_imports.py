@@ -34,7 +34,10 @@ def test_import_loads_no_jax_repro_or_msgpack():
         "repro_torch.distributed.elastic, repro_torch.optim, "
         "repro_torch.data, repro_torch.checkpoint, "
         "repro_torch.launch.train, "
-        "repro_torch.distributed.fault_tolerance\n"
+        "repro_torch.distributed.fault_tolerance, "
+        "repro_torch.models.sharding, repro_torch.launch.mesh, "
+        "repro_torch.launch.specs, repro_torch.distributed.pipeline, "
+        "repro_torch.distributed.world\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"
         "print(bad)\n"
@@ -74,7 +77,9 @@ def test_the_scan_covers_the_serving_package():
             "distributed/elastic.py", "optim/adamw.py",
             "optim/compression.py", "data/pipeline.py",
             "checkpoint/checkpointer.py", "launch/train.py",
-            "distributed/fault_tolerance.py"} <= scanned
+            "distributed/fault_tolerance.py", "models/sharding.py",
+            "launch/mesh.py", "launch/specs.py", "distributed/pipeline.py",
+            "distributed/world.py"} <= scanned
 
 
 def test_chip_smoke_imports_nothing_of_repro():

@@ -362,9 +362,19 @@ def test_main_trains_the_smoke_model_on_the_cpu(tmp_path, capsys):
     assert Checkpointer(tmp_path).latest_step() == 3
 
 
-def test_main_refuses_model_parallel():
-    with pytest.raises(ValueError, match="distributed slice"):
-        train.main(["--smoke", "--device", "cpu", "--model-parallel", "2"])
+def test_main_model_parallel_two_in_a_world_of_one_trains_unsharded(
+        tmp_path, capsys):
+    """``--model-parallel 2`` in a world of one: ``best_mesh`` gives (1, 1),
+    which shards nothing, so the loop runs the single-device step on
+    plain tensors."""
+    out = train.main(["--smoke", "--device", "cpu", "--model-parallel", "2",
+                      "--steps", "2", "--batch", "2", "--seq", "16",
+                      "--ckpt", str(tmp_path)])
+    assert "[train] mesh {'data': 1, 'model': 1} on cpu" in \
+        capsys.readouterr().out
+    assert out["final_step"] == 2 and np.isfinite(out["history"][-1]["loss"])
+    assert all(type(p) is torch.nn.Parameter
+               for p in out["state"]["params"].parameters())
 
 
 def test_train_entry_points_without_a_card_raise(tmp_path):
