@@ -236,6 +236,24 @@ calls, and fails (non-zero exit) if any phase fails:
    beside 8c's (DTensor's host cost).  9c: the llama3 smoke config's
    state saved under the mesh restores into the unsharded ``TrainLoop``,
    and one saved by that loop restores under the mesh, both bit for bit;
+10. the dry run (``launch/dryrun.py``, ``roofline/``).  10a, in phase 9's
+   process on its mesh: 9b's model and batch counted twice by
+   ``roofline/counting.py::count_step``, once as the dry run's step on
+   fake DTensors (nothing allocated) and once as a real ``step_fn`` step
+   on the card (untimed): the FLOPs equal, the dry run's peak bytes within
+   0.8x-1.25x of ``max_memory_allocated`` of a real step, and the
+   measured step (median of 3 after a warm-up) not below the roofline's
+   ``max(t_compute, t_memory)`` of the dry count.  10b, in a fresh
+   process after phase 7, the last timed phase, so that no timed phase
+   shares the host with its work on fake tensors: the
+   production cells of ``DRYRUN_CELLS`` at full depth on fake worlds of 256
+   and 512 ranks over the card's device type, each ``ok``, with their
+   peak bytes a rank, FLOPs, bytes and collective bytes a rank, the three
+   terms, the bottleneck, ``useful_ratio`` and the collectives by kind.
+   10c, after 10b in its process: the ``cpu_blocked`` backend's gemm
+   install at precisions s and d on the host CPU (named from
+   ``/proc/cpuinfo``), and its tuned knob against its default on held-out
+   dims;
 7. times (CUDA events) of every served call: the kernel under the tuned and
    the default knob and under the best knob of a sweep of its whole space,
    the plain version, a library call the port never makes (``torch.matmul``,
@@ -418,7 +436,30 @@ EXAMPLE_TIMEOUT_S = 240
 #: and the seconds its process may take
 MESH_STEPS = 4
 MESH_TOL = 1e-6
-MESH_TIMEOUT_S = 180
+MESH_TIMEOUT_S = 300
+#: phase 10a: the timed real steps after one warm-up, and the band the dry
+#: count's peak bytes must lie in, as a share of the real step's
+DRYRUN_TIMED_STEPS = 3
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+#: phase 10b: the production cells traced at full depth, and the seconds
+#: their process (10c after them) may take.  llama3-8b x prefill_32k is
+#: left out: its 32 x 32 flash blocks a layer, 32 layers, trace on fake
+#: tensors for about 9 minutes of host time (550 s on an 8-core host),
+#: past what the time limit leaves; the CPU tests trace it at 2 layers
+DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
+                ("llama3-8b", "decode_32k", "single"),
+                ("deepseek-v2-lite-16b", "decode_32k", "single"),
+                ("llama3-8b", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 360
+#: phase 10c: the cpu_blocked install (dims up to 512, 16 samples) and the
+#: held-out gemm dims its tuned knob is timed at against the default
+CPU_BLOCKED_ARGS = ("--backend", "cpu_blocked", "--ops", "gemm",
+                    "--precisions", "s,d", "--samples", "16",
+                    "--dim-lo", "32", "--dim-hi", "512",
+                    "--footprint-mb", "8", "--tune-trials", "1",
+                    "--candidates", "LinearRegression,DecisionTree,KNN")
+CPU_BLOCKED_HELD_OUT = ((96, 480, 200), (300, 300, 300), (512, 64, 448),
+                        (200, 512, 96))
 #: requests, prompt and new tokens of each model's generate, greedy
 MODEL_REQUESTS, MODEL_PROMPT, MODEL_NEW = 4, 128, 32
 #: decode steps after the prefill whose logits are held to the plain version
@@ -3017,6 +3058,194 @@ def mesh_checkpoint(torch, card: str, root: Path, device, mesh) -> dict:
     return {"ckpt_bit_equal": True}
 
 
+def dryrun_count(torch, card: str, root: Path, device, mesh) -> dict:
+    """10a: 9b's model (llama3-8b at :data:`TRAIN_CUTS` depth, bf16
+    compute) and batch on ``mesh``, counted by ``count_step`` as the dry
+    run's step on fake DTensors and as a real ``step_fn`` step on the card
+    (untimed, after the timed ones).  Fails unless the FLOPs are equal,
+    the dry peak bytes lie in :data:`DRYRUN_PEAK_BAND` of the real step's
+    ``max_memory_allocated`` and the measured step is not below the
+    roofline's ``max(t_compute, t_memory)`` of the dry count."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.data import SyntheticLMDataset, make_global_batch
+    from repro_torch.launch.dryrun import (_active_params, build_step,
+                                           fake_mode)
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.roofline.analysis import model_flops, roofline
+    from repro_torch.roofline.counting import count_step
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=TRAIN_CUTS["llama3-8b"])
+    shape = Shape("train_128", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    with fake_mode():
+        fn, args = build_step(cfg, shape, mesh,
+                              rules_for(mesh, "train", cfg), device=device)
+        dry = count_step(fn, *args)
+    del fn, args
+    trace_s = time.perf_counter() - t0
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=SEED)
+    loop = TrainLoop(cfg=cfg, adamw=AdamWConfig(
+        lr=3e-4, total_steps=TRAIN_STEPS,
+        warmup_steps=max(TRAIN_STEPS // 20, 5)),
+        ckpt=Checkpointer(root / "dryrun_count"), dataset=ds, device=device,
+        mesh=mesh)
+    state = loop.init_state(SEED)
+    batch = make_global_batch(ds.batch_at(0), mesh, batch_axes(mesh),
+                              device=device)
+    times, peaks = [], []
+    for _ in range(DRYRUN_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, o, ef, _ = loop.step_fn(state["params"], state["opt"],
+                                   state["ef"], batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        state = {"params": p, "opt": o, "ef": ef}
+    real = count_step(loop.step_fn, state["params"], state["opt"],
+                      state["ef"], batch)
+    torch.cuda.synchronize()
+    step_ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    peak = max(peaks[1:])
+    rep = roofline(arch=cfg.name, shape=shape.name, mesh="1x1", chips=1,
+                   hlo_flops=float(dry["flops"]),
+                   hlo_bytes=float(dry["bytes"]),
+                   collective_bytes=float(dry["coll"]["total_operand_bytes"]),
+                   model_flops_=model_flops(cfg, shape,
+                                            _active_params(cfg)))
+    bound_ms = max(rep.t_compute, rep.t_memory) * 1e3
+    ratio = dry["peak_bytes"] / peak
+    print(f"[dryrun:count] [{card}] {cfg.name} at {cfg.n_layers} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {cfg.compute_dtype} compute, the "
+          f"(1, 1) mesh: FLOPs dry {dry['flops']:,} vs real {real['flops']:,}"
+          f" (equal {dry['flops'] == real['flops']}); dry trace "
+          f"{trace_s:.1f} s", flush=True)
+    print(f"[dryrun:count] [{card}] peak bytes dry {dry['peak_bytes']:,} "
+          f"(argument {dry['argument_bytes']:,} + temp "
+          f"{dry['temp_bytes']:,}) vs max_memory_allocated {peak:,} of a "
+          f"real step: {ratio:.4f}x (band {DRYRUN_PEAK_BAND[0]}-"
+          f"{DRYRUN_PEAK_BAND[1]})", flush=True)
+    print(f"[dryrun:count] [{card}] step ms {step_ms:.3f} (median of "
+          f"{DRYRUN_TIMED_STEPS} after a warm-up: "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in times)}) vs the roofline "
+          f"bound {bound_ms:.3f} ms (compute {rep.t_compute * 1e3:.3f}, "
+          f"memory {rep.t_memory * 1e3:.3f} of {dry['bytes']:,} bytes, "
+          f"collective {rep.t_collective * 1e3:.3f}; {rep.bottleneck}); "
+          f"share of the bound {bound_ms / step_ms:.4f}; useful_ratio "
+          f"{rep.useful_ratio:.4f}", flush=True)
+    if dry["flops"] != real["flops"]:
+        raise SystemExit("[dryrun:count] the dry count's FLOPs differ from "
+                         "the real step's")
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        raise SystemExit(f"[dryrun:count] dry peak {ratio:.4f}x the real "
+                         f"step's, outside {DRYRUN_PEAK_BAND}")
+    if step_ms < bound_ms:
+        raise SystemExit(f"[dryrun:count] the card beat the bound: "
+                         f"{step_ms:.3f} < {bound_ms:.3f} ms")
+    return {"dryrun_step_ms": step_ms, "dryrun_bound_ms": bound_ms}
+
+
+def dryrun_main() -> None:
+    """10b and 10c in a process of their own: each cell of
+    :data:`DRYRUN_CELLS` through ``run_cell`` on the card's device type
+    (fake tensors: nothing allocated, no kernel launched), printing a
+    ``[dryrun]`` line a cell; then the ``cpu_blocked`` install on the host
+    (``[cpu_blocked]`` lines).  Exits non-zero when a cell is not ``ok``."""
+    faulthandler.dump_traceback_later(DRYRUN_TIMEOUT_S - 10, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch.dryrun import run_cell
+    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()[0]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = run_cell(arch, shape, mesh, tmp / "cells")
+            if rec["status"] != "ok":
+                raise SystemExit(f"[dryrun] {arch} x {shape} x {mesh}: "
+                                 f"{rec['status']} ({rec.get('reason')})")
+            r, c, m = rec["roofline"], rec["cost"], rec["memory"]
+            coll = {k: (v["count"], v["operand_bytes"])
+                    for k, v in rec["collectives"].items()
+                    if isinstance(v, dict)}
+            print(f"[dryrun] [{card}] {arch} x {shape} x {mesh} "
+                  f"({rec['chips']} ranks): ok, trace_s {rec['trace_s']}, "
+                  f"cell {time.perf_counter() - t0:.1f} s; peak "
+                  f"{m['peak_bytes'] / 1e9:.3f} GB a rank (argument "
+                  f"{m['argument_bytes'] / 1e9:.3f}, temp "
+                  f"{m['temp_bytes'] / 1e9:.3f}); a rank: FLOPs "
+                  f"{c['flops_per_device']:.6g}, bytes "
+                  f"{c['bytes_per_device']:.6g}, collective bytes "
+                  f"{c['collective_bytes']:.6g}; t_compute "
+                  f"{r['t_compute'] * 1e3:.3f} ms, t_memory "
+                  f"{r['t_memory'] * 1e3:.3f} ms, t_collective "
+                  f"{r['t_collective'] * 1e3:.3f} ms, bottleneck "
+                  f"{r['bottleneck']}, useful_ratio {r['useful_ratio']:.4f};"
+                  f" collectives (count, operand bytes) {coll}", flush=True)
+        cpu_blocked_phase(tmp / "cpu_blocked")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cpu_blocked_phase(out: Path) -> None:
+    """10c: the ``cpu_blocked`` gemm install at precisions s and d on this
+    host's CPU, loaded into a fresh runtime; its tuned knob against its
+    default on :data:`CPU_BLOCKED_HELD_OUT`, timed alike (a reading)."""
+    import torch
+    from repro_torch.backends import get_backend
+    from repro_torch.core import AdsalaRuntime, ModelRegistry
+    from repro_torch.core.timing import time_callable
+    from repro_torch.launch import calibrate
+    info = dict(line.split(":", 1) for line in
+                Path("/proc/cpuinfo").read_text().splitlines()
+                if ":" in line)
+    info = {k.strip(): v.strip() for k, v in info.items()}
+    # a virtualised host may report its model name as "unknown"
+    cpu = (f"{info.get('vendor_id', '?')} family "
+           f"{info.get('cpu family', '?')} model {info.get('model', '?')} "
+           f"(model name {info.get('model name', '?')!r}, "
+           f"{info.get('cpu MHz', '?')} MHz, "
+           f"{'avx512f' if 'avx512f' in info.get('flags', '') else 'no avx512f'}"
+           f"{', amx' if 'amx_tile' in info.get('flags', '') else ''})")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        calibrate.main(["--out", str(out), *CPU_BLOCKED_ARGS])
+    install_s = time.perf_counter() - t0
+    rt = AdsalaRuntime()
+    loaded = ModelRegistry(out / "models").load_into(rt)
+    be = get_backend("cpu_blocked")
+    reports = json.loads((out / "calibration_report.json").read_text())
+    print(f"[cpu_blocked] host CPU {cpu}, {os.cpu_count()} cores, numpy "
+          f"BLAS on {os.environ.get('OMP_NUM_THREADS', 'all')} thread(s); "
+          f"install of gemm at s and d in {install_s:.1f} s, {loaded} "
+          f"artifacts: " + ", ".join(
+              f"{r['prec']}: {r['best_model']} of {r['n_samples']} dims x "
+              f"{r['n_knobs']} knobs" for r in reports), flush=True)
+    for prec, dtype in (("s", torch.float32), ("d", torch.float64)):
+        for dims in CPU_BLOCKED_HELD_OUT:
+            operands = be.make_operands("gemm", dims, dtype, seed=7)
+            tuned = rt.select("gemm", dims, dtype.itemsize,
+                              backend="cpu_blocked")
+            default = be.default_knob("gemm")
+            t_tuned = time_callable(lambda: be.execute("gemm", operands,
+                                                       tuned),
+                                    device=be.device, warmup=1, repeats=3)
+            t_default = time_callable(lambda: be.execute("gemm", operands,
+                                                         default),
+                                      device=be.device, warmup=1, repeats=3)
+            print(f"[cpu_blocked] {prec} gemm {dims}: tuned {tuned.dict} "
+                  f"{t_tuned * 1e3:.3f} ms, default {default.dict} "
+                  f"{t_default * 1e3:.3f} ms, default / tuned "
+                  f"{t_default / t_tuned:.3f}", flush=True)
+
+
 def mesh_main(root: str) -> None:
     """Phase 9 in a fresh process: a world of one under NCCL, the (1, 1)
     mesh ``best_mesh`` gives it, then 9a-9c (:func:`mesh_step`,
@@ -3041,7 +3270,8 @@ def mesh_main(root: str) -> None:
           f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
     res = {}
     try:
-        for phase in (mesh_step, mesh_full_width, mesh_checkpoint):
+        for phase in (mesh_step, mesh_full_width, mesh_checkpoint,
+                      dryrun_count):
             t0 = time.perf_counter()
             res.update(phase(torch, card, Path(root), device, mesh))
             torch.cuda.empty_cache()
@@ -3940,6 +4170,8 @@ def main(argv: list[str]) -> int:
 
     # 4. install on the card, 5. serve from a fresh process
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH"))))}
     try:
         for op in ops.HOPPER_OPS:
             calibrate.main(["--out", str(tmp), "--ops", op, "--samples",
@@ -3995,8 +4227,6 @@ def main(argv: list[str]) -> int:
         # 8. training, once phase 6f's process has exited: 8a-8c in a
         # fresh process; then 8d in another (cuBLAS reads its workspace
         # setting when it starts) beside the example, neither timed
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-            filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH"))))}
 
         def train_process(job):
             tag, cmd, extra, timeout = job
@@ -4112,7 +4342,7 @@ def main(argv: list[str]) -> int:
         if tag == "train:example":
             lines = [f"[{tag}] [{card}] {lines[-1]}"]
         for line in lines:
-            if line.startswith(("[train", "[mesh")):
+            if line.startswith(("[train", "[mesh", "[dryrun")):
                 print(line)
         print(f"[{tag}] phase {seconds:.1f} s (a fresh process)", flush=True)
     # 9b beside 8c: the same model, batch and numerics, with and without
@@ -4133,6 +4363,22 @@ def main(argv: list[str]) -> int:
 
     # 7. times on the main paths' shapes
     totals = time_rows(torch, card, served["rows"])
+    # 10b, 10c: host work on fake tensors and numpy, after the last timed
+    # phase, in a fresh process with the host to itself
+    t0 = time.perf_counter()
+    dproc = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                                                  "chip_smoke.dryrun_main()"],
+                           cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=DRYRUN_TIMEOUT_S)
+    sys.stderr.write(dproc.stderr[-4000:])
+    if dproc.returncode != 0:
+        raise SystemExit(f"[dryrun] fresh process failed "
+                         f"({dproc.returncode}):\n{dproc.stdout[-4000:]}")
+    for line in dproc.stdout.splitlines():
+        if line.startswith(("[dryrun", "[cpu_blocked")):
+            print(line)
+    print(f"[dryrun] 10b and 10c {time.perf_counter() - t0:.1f} s (a fresh "
+          f"process)", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []

@@ -19,9 +19,12 @@ from repro_torch.models.sharding import device_type
 __all__ = ["make_production_mesh", "batch_axes", "make_host_mesh"]
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | None = None):
     """The production mesh; raises unless the world has 256 (or, multi-pod,
-    512) ranks."""
+    512) ranks.  ``device`` is its device type (default the world's:
+    ``cuda`` under ``nccl``, else ``cpu``); a fake world
+    (``launch/dryrun.py``) names the one it stands in for."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
@@ -30,7 +33,8 @@ def make_production_mesh(*, multi_pod: bool = False):
     if dist.get_world_size() != n:
         raise ValueError(f"the production mesh {shape} needs a world of {n} "
                          f"ranks; this one has {dist.get_world_size()}")
-    return init_device_mesh(device_type(), shape, mesh_dim_names=axes)
+    return init_device_mesh(device or device_type(), shape,
+                            mesh_dim_names=axes)
 
 
 def make_host_mesh(data: int | None = None, model: int = 1):

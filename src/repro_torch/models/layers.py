@@ -45,7 +45,7 @@ from .sharding import (DEFAULT_RULES, ShardingRules, constrain, logical_spec,
 __all__ = ["Ctx", "Linear", "Norm", "Embedding", "Attention", "MLP",
            "torch_dtype", "linear", "routed_matmul", "rmsnorm", "embed",
            "rope", "attention", "mlp", "flash_attention", "cross_entropy",
-           "chunked_cross_entropy"]
+           "chunked_cross_entropy", "split_heads", "merge_heads"]
 
 #: the score of a masked position (the reference's ``NEG``)
 NEG = -1e30
@@ -203,8 +203,9 @@ def flat_safe(op, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     sequence parallelism's all-gather ahead of a matmul) and its result's
     gradient alike: DTensor flattens dims only where no dim but the first
     of them is sharded."""
-    if ctx.mesh is None or x.dim() <= 2:
-        return op(x)
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or x.dim() <= 2:
+        return op(x)     # off-mesh, or a shard inside a Ctx.local region
     return _MiddleWholeGrad.apply(op(_middle_whole(x)))
 
 
@@ -478,14 +479,14 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
     hd = cfg.hd()
     kv_in = x if kv_x is None else kv_x
     T = kv_in.shape[1]
-    q = linear(p.wq, x, ctx).reshape(B, S, cfg.n_heads, hd)
-    k = linear(p.wk, kv_in, ctx).reshape(B, T, cfg.kv_heads, hd)
-    v = linear(p.wv, kv_in, ctx).reshape(B, T, cfg.kv_heads, hd)
     if cache is not None and cache["len"] + S > cache["k"].shape[1]:
         raise ValueError(f"the cache holds {cache['k'].shape[1]} positions; "
                          f"{cache['len']} are taken and {S} more do not fit")
     qn = ("batch_attn", None, "heads", None)
     kn = ("batch_attn", "kv_seq", "kv_heads", None)
+    q = split_heads(linear(p.wq, x, ctx), cfg.n_heads, hd, ctx, qn)
+    k = split_heads(linear(p.wk, kv_in, ctx), cfg.kv_heads, hd, ctx, kn)
+    v = split_heads(linear(p.wv, kv_in, ctx), cfg.kv_heads, hd, ctx, kn)
     pos_names = (None if positions is None or positions.shape[0] != B
                  else ("batch_attn", None))
     args, names = [q, k, v, positions], [qn, kn, kn, pos_names]
@@ -509,9 +510,50 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
                     cache[key] = new.redistribute(ctx.mesh,
                                                   cache[key].placements)
         cache["len"] += S
-    out = linear(p.wo, out.reshape(B, S, cfg.n_heads * hd), ctx,
-                 out_logical="embed")
+    out = linear(p.wo, merge_heads(out, ctx), ctx, out_logical="embed")
     return out, cache
+
+
+def split_heads(y: torch.Tensor, n: int, hd: int, ctx: Ctx,
+                names) -> torch.Tensor:
+    """A projection's output ``y`` (B, T, n·hd) viewed as (B, T, n, hd).
+    Under a mesh ``y`` is first laid out as the head-parallel region
+    takes the view (its logical ``names``): a column shard that would cut
+    a head (``n`` not dividing the ``model`` axis) is gathered, and the
+    batch and sequence move to the region's axes, where GSPMD reshards
+    the reference's."""
+    B, T = y.shape[:2]
+    if ctx.mesh is not None:
+        spec = logical_spec(ctx.rules, ctx.mesh, names, dims=(B, T, n, hd))
+        target = placements((spec[0], spec[1], spec[2]), ctx.mesh)
+        if tuple(y.placements) != target:
+            y = y.redistribute(ctx.mesh, target)
+    return y.reshape(B, T, n, hd)
+
+
+class _GradInLayout(torch.autograd.Function):
+    """The identity, whose gradient comes back in the forward value's
+    layout."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.placements = tuple(y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def merge_heads(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """The head-parallel region's output ``x`` (B, T, n, hd) as (B, T,
+    n·hd).  Under a mesh its gradient comes back in the merged value's
+    layout, which the view back to heads takes (a column shard of the
+    gradient that cut a head could not be viewed)."""
+    y = x.reshape(*x.shape[:2], -1)
+    return y if ctx.mesh is None else _GradInLayout.apply(y)
 
 
 def _model_rank(ctx: Ctx) -> int:
@@ -591,16 +633,53 @@ def mlp(p: MLP, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
 # loss
 # ---------------------------------------------------------------------------
 
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim.  On a DTensor sharded there (a
+    vocab-parallel head) it is the max, the shifted exponentials and
+    their sum, each reducing across the shards as a small partial result,
+    where DTensor would gather the whole vocabulary for ``logsumexp``."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(logits, DTensor) or \
+            Shard(logits.dim() - 1) not in logits.placements:
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.detach().amax(-1, keepdim=True)
+    return (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[
+        ..., 0]
+
+
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``.  On a DTensor whose last dim is sharded (a
+    vocab-parallel head) each rank picks the labels in its slice of the
+    vocabulary and the result is their partial sum across the slices (the
+    gradient a scatter into the rank's own slice), where DTensor's gather
+    would take its backward over the whole vocabulary."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    vocab = logits.dim() - 1
+    if not isinstance(logits, DTensor) or Shard(vocab) not in \
+            logits.placements:
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    axis = pl.index(Shard(vocab))
+    labels = labels.redistribute(mesh, [
+        p if isinstance(p, Shard) and p.dim < vocab else Replicate()
+        for p in pl])
+    local = logits.to_local(grad_placements=pl)
+    n = local.shape[-1]
+    idx = labels.to_local() - mesh.get_local_rank(axis) * n
+    inside = (idx >= 0) & (idx < n)
+    picked = torch.gather(local, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    out = [Partial() if p == Shard(vocab) else p for p in pl]
+    return DTensor.from_local(torch.where(inside, picked, 0.0), mesh, out,
+                              run_check=False)
+
+
 def _nll_sums(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
     """The sum of the next-token NLL (with ``z_loss * lse**2``) over the
     positions whose label is >= 0, and their count."""
     logits = _acc(logits)
-    lse = torch.logsumexp(logits, dim=-1)
-    # the gathered column keeps its last dim until it meets ``lse``: on a
-    # vocab-sharded DTensor the gather is a masked partial sum whose mask
-    # has the gather's shape
-    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])
-    nll = (lse[..., None] - ll)[..., 0]
+    lse = _logsumexp(logits)
+    ll = _label_logit(logits, labels.clamp_min(0).long())
+    nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse ** 2
     mask = (labels >= 0).to(logits.dtype)
@@ -616,7 +695,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
 
 def _chunk_sums(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                 z_loss: float):
-    return _nll_sums(x @ w, labels, z_loss)
+    logits = x @ w
+    from torch.distributed.tensor import DTensor
+    if isinstance(logits, DTensor):
+        # the logits' gradient in their own layout (rows by batch, columns
+        # by vocabulary), which the head's matmul takes back
+        logits = _GradInLayout.apply(logits)
+    return _nll_sums(logits, labels, z_loss)
 
 
 def chunked_cross_entropy(x: torch.Tensor, w: torch.Tensor,

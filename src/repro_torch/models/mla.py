@@ -28,7 +28,8 @@ from repro_torch.configs.base import ModelConfig
 
 from . import layers
 from .layers import (NEG, Ctx, Linear, Norm, _model_rank, flash_attention,
-                     linear, rmsnorm, rope, torch_dtype)
+                     linear, merge_heads, rmsnorm, rope, split_heads,
+                     torch_dtype)
 
 __all__ = ["MLA", "mla_attention", "init_mla_cache"]
 
@@ -78,13 +79,13 @@ def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
     c_kv = rmsnorm(p.kv_norm, kv_a[..., :cfg.kv_lora])
     k_rope_new = kv_a[..., cfg.kv_lora:]                  # (B, S, rp), 1 head
     qn, rows = ("batch", None, "heads", None), ("batch", None, None)
-    q = ctx.cons(linear(p.wq, x, ctx).reshape(B, S, h, nope + rp), *qn)
+    q = split_heads(linear(p.wq, x, ctx), h, nope + rp, ctx, qn)
 
     if cache is None:
-        kv = linear(p.wkv_b, c_kv, ctx).reshape(B, S, h, nope + vd)
+        kv = split_heads(linear(p.wkv_b, c_kv, ctx), h, nope + vd, ctx, qn)
         out = ctx.local(functools.partial(_uncached, cfg=cfg),
                         [q, kv, k_rope_new], [qn, qn, rows], qn)
-        return linear(p.wo, out.reshape(B, S, h * vd), ctx,
+        return linear(p.wo, merge_heads(out, ctx), ctx,
                       out_logical="embed"), None
 
     # cached: write the latent and the rotated key at len, then attend
@@ -106,7 +107,7 @@ def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
             if tuple(cache[key].placements) != tuple(new.placements):
                 cache[key] = new.redistribute(ctx.mesh, cache[key].placements)
     cache["len"] = start + S
-    return linear(p.wo, out.reshape(B, S, h * vd), ctx,
+    return linear(p.wo, merge_heads(out, ctx), ctx,
                   out_logical="embed"), cache
 
 

@@ -96,6 +96,15 @@ def _expert_matmul(t: torch.Tensor, w: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     return y.reshape(E, B, C, -1).transpose(0, 1)
 
 
+def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+             wd: torch.Tensor, *, ctx: Ctx) -> torch.Tensor:
+    """The SwiGLU experts on the capacity slab ``buf`` (B, E, C, d): on
+    each rank's experts (or capacity slots) under a mesh, its FSDP
+    shards of the weights gathered."""
+    h = F.silu(_expert_matmul(buf, wg, ctx)) * _expert_matmul(buf, wu, ctx)
+    return _expert_matmul(h, wd, ctx)
+
+
 def _positions_in_expert(e_flat: torch.Tensor) -> torch.Tensor:
     """Each slot's rank within its expert, slots taken in a stable sort by
     expert id.  e_flat: (G, S*K) int → (G, S*K) int64."""
@@ -116,8 +125,9 @@ def moe_ffn(p: MoE, x: torch.Tensor, ctx: Ctx, *, with_aux: bool = True):
 
     Under a mesh the routing, dispatch and combine run batch-local
     (:meth:`Ctx.local`: each rank its batch rows, the whole sequence),
-    and the expert FFN on DTensors: EP when the experts divide the model
-    axis, else slot-parallel over the capacity dim (``expert_cap``)."""
+    and the expert FFN in an expert-parallel region: EP when the experts
+    divide the model axis, else slot-parallel over the capacity dim
+    (``expert_cap``), the weights' FSDP shards gathered."""
     cfg = ctx.cfg
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -137,12 +147,11 @@ def moe_ffn(p: MoE, x: torch.Tensor, ctx: Ctx, *, with_aux: bool = True):
 
     # the experts: EP over 'model' when the experts divide it, otherwise
     # slot-parallel over the capacity dim with replicated expert weights
-    buf = ctx.cons(buf.reshape(B, E, C, D), "batch", "experts", "expert_cap",
-                   None)
-    wg, wu, wd = ctx.cast(p.wg), ctx.cast(p.wu), ctx.cast(p.wd)
-    h = F.silu(_expert_matmul(buf, wg, ctx)) * _expert_matmul(buf, wu, ctx)
-    y = ctx.cons(_expert_matmul(h, wd, ctx), "batch", "experts",
-                 "expert_cap", None)
+    slab = ("batch", "experts", "expert_cap", None)
+    wn = ("experts", None, None)
+    y = ctx.local(functools.partial(_experts, ctx=ctx),
+                  [buf.reshape(B, E, C, D), ctx.cast(p.wg), ctx.cast(p.wu),
+                   ctx.cast(p.wd)], [slab, wn, wn, wn], slab)
 
     # combine, batch-local
     out = ctx.local(functools.partial(_combine, K=K), [y, dest, wk],

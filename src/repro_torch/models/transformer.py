@@ -615,6 +615,9 @@ def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig, *,
     x = ctx.cons(rmsnorm(params.final_norm, x), "batch", None, "embed")
     w = (ctx.cast(params.lm_head.w) if params.lm_head is not None
          else ctx.cast(params.embed.table).T)
+    # the head's FSDP shards gathered (vocab-parallel logits, batch-local
+    # rows), as GSPMD gathers an FSDP weight ahead of its matmul
+    w = ctx.cons(w, None, "vocab")
     if cfg.ce_chunk:
         ce = chunked_cross_entropy(x, w, labels, chunk=cfg.ce_chunk)
     else:

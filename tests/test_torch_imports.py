@@ -37,7 +37,10 @@ def test_import_loads_no_jax_repro_or_msgpack():
         "repro_torch.distributed.fault_tolerance, "
         "repro_torch.models.sharding, repro_torch.launch.mesh, "
         "repro_torch.launch.specs, repro_torch.distributed.pipeline, "
-        "repro_torch.distributed.world\n"
+        "repro_torch.distributed.world, repro_torch.launch.dryrun, "
+        "repro_torch.roofline.analysis, repro_torch.roofline.collectives, "
+        "repro_torch.roofline.counting, repro_torch.backends.cpu, "
+        "repro_torch.kernels.cpu_blocked\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
         "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.')))\n"
         "print(bad)\n"
