@@ -214,6 +214,16 @@ calls, and fails (non-zero exit) if any phase fails:
    prints the step's ms and tokens/s, the model TFLOP/s against the
    dense bf16 peak, the optimiser's and the clip's device time and the
    device's idle share from a profiled step, and the peak memory.
+   ``[train:long]`` (its own process after 8a-8c's): llama3-8b at full
+   width and 4 layers, zamba2-1.2b at 12 and rwkv6-1.6b at 8 (``LONG_CUTS``),
+   one sequence of 4,096 tokens a step at each config's
+   own chunks and remat, so that the flash blocks (4 x 4 a layer), SSD
+   chunks (16) and WKV chunks (32) recompute in the backward pass: a
+   warm-up step and 3 timed ones, each loss finite and the first within
+   1.0 of ln V, no hand-written kernel launched; it prints the step's
+   ms, the peak memory above the parameters and optimiser state and in
+   all, the peak of one forward and backward pass alone above what was
+   held before it, and the device's idle share from a profiled step.
    8d (another process, deterministic algorithms): the example's reduced
    config through ``TrainLoop.run`` preempted at step 6, restored and run
    to step 10, against 10 steps uninterrupted: the restored state, every
@@ -427,6 +437,18 @@ GRAD_LOSS_TOL = 1e-5
 #: phase 8d: the step during which the preemption notice arrives, and the
 #: steps of the resumed and the uninterrupted run
 RESUME_AT, RESUME_STEPS = 6, 10
+#: phase 8's long sequences ([train:long], beside 8c): each model at full
+#: width and this depth, one sequence of LONG_SEQ tokens a step at the
+#: config's own chunks and remat; the steps after a warm-up one, and the
+#: seconds its process may take.  zamba2 keeps 2 of its 6 super-blocks
+#: (each 6 Mamba2 layers and the shared attention), rwkv6 8 of 24 layers
+#: (remat nested, 4 groups of 2): at full depth their host-bound steps
+#: took 4.1 and 3.8 s on the H100 (700 W), and the recompute is per
+#: layer, so depth adds time and no new case
+LONG_CUTS = {"llama3-8b": 4, "zamba2-1.2b": 12, "rwkv6-1.6b": 8}
+LONG_SEQ = 4096
+LONG_STEPS = 3
+LONG_TIMEOUT_S = 420
 #: seconds the training processes may take (8a-8c, 8d, the example)
 TRAIN_TIMEOUT_S = 300
 RESUME_TIMEOUT_S = 180
@@ -2609,13 +2631,13 @@ def _annotated_ms(prof, name: str) -> float:
                if e.name == name and e.device_type == DeviceType.CPU) / 1e3
 
 
-def _step_profile(torch, fn) -> dict:
+def _step_profile(torch, fn, host: bool = True) -> dict:
     """Two calls of ``fn`` under ``torch.profiler``.  The first traces the
     device alone (host tracing slows the host, which would read as device
     idle time): the device time of its kernels, the device's idle share
-    between its first and last kernel, the top kernels.  The second traces
-    the host too, for the optimiser's and the clip's kernel time (their
-    ``record_function`` ranges, ``optim/adamw.py``)."""
+    between its first and last kernel, the top kernels.  The second
+    (``host``) traces the host too, for the optimiser's and the clip's
+    kernel time (their ``record_function`` ranges, ``optim/adamw.py``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2641,16 +2663,18 @@ def _step_profile(torch, fn) -> dict:
     for s, e, name in ops:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:MODEL_TOP_OPS]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / window,
-            "device_ms": sum(by_name.values()) / 1e3,
-            "adamw_ms": _annotated_ms(prof, "adamw_update"),
-            "clip_ms": _annotated_ms(prof, "clip_by_global_norm"),
-            "top": [(name[:90], us / 1e3) for name, us in top]}
+    out = {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / window,
+           "device_ms": sum(by_name.values()) / 1e3,
+           "top": [(name[:90], us / 1e3) for name, us in top]}
+    if host:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out["adamw_ms"] = _annotated_ms(prof, "adamw_update")
+        out["clip_ms"] = _annotated_ms(prof, "clip_by_global_norm")
+    return out
 
 
 def train_full_width(torch, card: str, root: Path) -> None:
@@ -2766,6 +2790,112 @@ def train_full_width(torch, card: str, root: Path) -> None:
                          f"{launches}, peak {peak}")
     if not prof["adamw_ms"] > 0:
         raise SystemExit("[train:step] the profile holds no optimiser time")
+
+
+def train_long(torch, card: str, root: Path) -> None:
+    """``[train:long]``: each model of :data:`LONG_CUTS` at full width and
+    that depth, at its config's own numerics, chunks and remat, one
+    sequence of :data:`LONG_SEQ` tokens a ``TrainLoop.step_fn`` step from
+    ``SyntheticLMDataset``: a warm-up step, :data:`LONG_STEPS` timed ones
+    and one under the profiler.  Fails unless every loss is finite, the
+    first within 1.0 of ln V, and no hand-written kernel launched."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset, make_device_batch
+    from repro_torch.kernels import introspect
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig
+    for arch, layers in LONG_CUTS.items():
+        t_model = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=LONG_SEQ,
+                                global_batch=1, seed=SEED)
+        loop = TrainLoop(cfg=cfg, adamw=AdamWConfig(
+            lr=3e-4, total_steps=LONG_STEPS + 2, warmup_steps=1),
+            ckpt=Checkpointer(root / f"long_{cfg.name}"), dataset=ds)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = loop.init_state(SEED)
+        torch.cuda.synchronize()
+        state_bytes = torch.cuda.memory_allocated()
+        introspect.reset_launches()
+        losses, times = [], []
+        for step in range(LONG_STEPS + 1):
+            t0 = time.perf_counter()
+            batch = make_device_batch(ds.batch_at(step), loop.device)
+            p, o, ef, m = loop.step_fn(state["params"], state["opt"],
+                                       state["ef"], batch)
+            state = {"params": p, "opt": o, "ef": ef}
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        launches = sum(introspect.launch_counts().values())
+        peak = torch.cuda.max_memory_allocated()
+        batch = make_device_batch(ds.batch_at(LONG_STEPS + 1), loop.device)
+        # the forward and backward pass alone, the part of the step whose
+        # memory the chunk loops' recompute bounds (the optimiser's
+        # temporaries can set the step's peak)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        # (the metrics are dropped at once: their graph holds the model)
+        loss = loss_fn(state["params"], batch, cfg)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        fb_peak = torch.cuda.max_memory_allocated() - held
+        state["params"].zero_grad(set_to_none=True)
+        del loss
+        t_prof = time.perf_counter()
+        prof = _step_profile(torch, lambda: loop.step_fn(
+            state["params"], state["opt"], state["ef"], batch), host=False)
+        t_prof = time.perf_counter() - t_prof
+        step_ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+        n_params = sum(x.numel() for x in state["params"].parameters())
+        ln_v = math.log(cfg.vocab)
+        blocks = f"attention blocks {cfg.attn_q_chunk} x {cfg.attn_k_chunk}"
+        chunks = {"hybrid": f"ssm_chunk {cfg.ssm_chunk}, {blocks}",
+                  "ssm": f"rwkv_chunk {cfg.rwkv_chunk}"}.get(cfg.family,
+                                                             blocks)
+        print(f"[train:long] [{card}] {cfg.name} full width at "
+              f"{cfg.n_layers} of {full.n_layers} layers ({n_params:,} "
+              f"parameters), 1 x {LONG_SEQ} tokens, {cfg.compute_dtype} "
+              f"compute, remat {cfg.remat}, {chunks}: step ms "
+              f"{step_ms:.3f} (median of steps 2-{LONG_STEPS + 1}; all: "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in times)}); peak "
+              f"{peak / 1e9:.3f} GB, {(peak - state_bytes) / 1e9:.3f} GB "
+              f"above the {state_bytes / 1e9:.3f} GB of parameters and "
+              f"optimiser state; forward and backward alone "
+              f"{fb_peak / 1e9:.3f} GB above what the step holds before "
+              f"them; idle share {prof['idle_share']:.4f} "
+              f"(device {prof['device_ms']:.3f} ms of kernels over a "
+              f"{prof['window_ms']:.3f} ms window); losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)}; hand-written kernel "
+              f"launches {launches}; {time.perf_counter() - t_model:.1f} s "
+              f"(the profiled step {t_prof:.1f} s)", flush=True)
+        if not all(map(math.isfinite, losses)) or \
+                not abs(losses[0] - ln_v) <= 1.0 or launches:
+            raise SystemExit(f"[train:long] {cfg.name}: losses {losses} "
+                             f"(ln V {ln_v:.4f}), launches {launches}")
+        del state, p, o, ef, m, loop, batch
+
+
+def train_long_main(root: str, src: str | None = None) -> None:
+    """``[train:long]`` (:func:`train_long`) in a fresh process, on the
+    port under ``src`` (default: this checkout's ``src``), so that one
+    checkout's phase can time another's port."""
+    faulthandler.dump_traceback_later(LONG_TIMEOUT_S - 10, exit=True)
+    sys.path.insert(0, src or str(ROOT / "src"))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()[0]
+    t0 = time.perf_counter()
+    train_long(torch, card, Path(root))
+    print(f"[train] train_long {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def train_main(root: str) -> None:
@@ -4225,8 +4355,9 @@ def main(argv: list[str]) -> int:
                                  f"{mproc.stdout[-4000:]}")
             models[arch] = (mproc.stdout, time.perf_counter() - t0)
         # 8. training, once phase 6f's process has exited: 8a-8c in a
-        # fresh process; then 8d in another (cuBLAS reads its workspace
-        # setting when it starts) beside the example, neither timed
+        # fresh process, [train:long] in another; then 8d in another
+        # (cuBLAS reads its workspace setting when it starts) beside the
+        # example, neither timed
 
         def train_process(job):
             tag, cmd, extra, timeout = job
@@ -4246,6 +4377,11 @@ def main(argv: list[str]) -> int:
             "train", ["-c", f"import chip_smoke; chip_smoke.train_main("
                             f"{str(tmp / 'train')!r})"], {},
             TRAIN_TIMEOUT_S))]
+        torch.cuda.empty_cache()
+        training.append(train_process((
+            "train:long", ["-c", f"import chip_smoke; chip_smoke."
+                                 f"train_long_main({str(tmp / 'long')!r})"],
+            {}, LONG_TIMEOUT_S)))
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             training += pool.map(train_process, (
                 ("train:resume", ["-c", f"import chip_smoke; chip_smoke."

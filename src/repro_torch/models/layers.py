@@ -101,7 +101,9 @@ class Ctx:
         that name (``None`` returns an output as it is).  Off-mesh it is
         ``fn(*args)``.  ``fn`` must compute each output shard from the
         input shards alone: every dim an output is sharded on is one of
-        the inputs'."""
+        the inputs'.  The one exception is a named combine across a mesh
+        dim (:func:`combine_over_model`), after which every rank of that
+        dim holds the same value: such an output is replicated there."""
         if self.mesh is None:
             return fn(*args)
         from torch.distributed.tensor import DTensor, Partial, Replicate
@@ -372,52 +374,122 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_valid_len`` — optional (B,) number of valid cache entries.
     ``causal_skip`` — skip the kv blocks a causal q block cannot reach.
 
-    Never materialises more than (B, Cq, H, Ck) scores.
+    Never materialises more than (B, Cq, H, Ck) scores.  Under autograd
+    the loop is one :class:`_FlashAttention`: it keeps q, k, v, the output
+    and each query row's log-sum-exp, and its backward recomputes every
+    block's scores (the reference's ``jax.checkpoint`` of its kv step, the
+    flash-attention memory contract).
     """
-    B, S, H, D = q.shape
-    T, KH = k.shape[1], k.shape[2]
-    Dv = v.shape[-1]
-    G = H // KH
-    scale = 1.0 / math.sqrt(D)
-    q_chunk = min(q_chunk, S)
-    k_chunk = min(k_chunk, T)
-    nq = -(-S // q_chunk)
-    nk = -(-T // k_chunk)
-    Sp, Tp = nq * q_chunk, nk * k_chunk
-    if Sp != S:
-        q = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
-    if Tp != T:
-        k = F.pad(k, (0, 0, 0, 0, 0, Tp - T))
-        v = F.pad(v, (0, 0, 0, 0, 0, Tp - T))
+    geo = _FlashGeometry.of(q, k, v, causal=causal, q_offset=q_offset,
+                            q_chunk=q_chunk, k_chunk=k_chunk,
+                            causal_skip=causal_skip)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, kv_valid_len, geo)
+    return _flash_forward(q, k, v, kv_valid_len, geo)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class _FlashGeometry:
+    """The block layout of one :func:`flash_attention` call."""
+    B: int
+    S: int
+    T: int
+    KH: int
+    G: int
+    D: int
+    Dv: int
+    causal: bool
+    q_offset: int
+    q_chunk: int
+    k_chunk: int
+    causal_skip: bool
+
+    @classmethod
+    def of(cls, q, k, v, *, causal, q_offset, q_chunk, k_chunk,
+           causal_skip) -> "_FlashGeometry":
+        B, S, H, D = q.shape
+        T, KH = k.shape[1], k.shape[2]
+        return cls(B, S, T, KH, H // KH, D, v.shape[-1], causal, q_offset,
+                   min(q_chunk, S), min(k_chunk, T), causal_skip)
+
+    @property
+    def nq(self) -> int:
+        return -(-self.S // self.q_chunk)
+
+    @property
+    def nk(self) -> int:
+        return -(-self.T // self.k_chunk)
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.D)
+
+    def blocks(self, i: int) -> int:
+        """The kv blocks q block ``i`` visits."""
+        if self.causal_skip and self.causal:
+            return min(self.nk, (self.q_offset + (i + 1) * self.q_chunk - 1)
+                       // self.k_chunk + 1)
+        return self.nk
+
+    def q_blocks(self, t):
+        """A tensor of q's layout (B, S, H, ·) padded to whole blocks, as
+        (B, nq, Cq, KH, G, ·)."""
+        Sp = self.nq * self.q_chunk
+        if Sp != self.S:
+            t = F.pad(t, (0, 0, 0, 0, 0, Sp - self.S))
+        return t.reshape(self.B, self.nq, self.q_chunk, self.KH, self.G,
+                         t.shape[-1])
+
+    def kv_blocks(self, t):
+        """k or v (B, T, KH, ·) padded to whole blocks, as (B, nk, Ck, KH,
+        ·)."""
+        Tp = self.nk * self.k_chunk
+        if Tp != self.T:
+            t = F.pad(t, (0, 0, 0, 0, 0, Tp - self.T))
+        return t.reshape(self.B, self.nk, self.k_chunk, self.KH,
+                         t.shape[-1])
+
+    def q_pos(self, i: int, dev) -> torch.Tensor:
+        return (self.q_offset + i * self.q_chunk
+                + torch.arange(self.q_chunk, device=dev))
+
+    def scores(self, qi, kj, q_pos, j: int, kv_valid_len) -> torch.Tensor:
+        """The scores (B, Cq, G, KH, Ck) of a q block against kv block
+        ``j``, in the accumulation dtype, masked positions at ``NEG``."""
+        s = torch.einsum("bqhgd,bkhd->bqghk", qi, kj) * self.scale
+        k_pos = j * self.k_chunk + torch.arange(self.k_chunk,
+                                                device=qi.device)
+        mask = (k_pos < self.T)[None, :]
+        if self.causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        s = torch.where(mask[None, :, None, None, :], s, NEG)
+        if kv_valid_len is not None:
+            ok = k_pos[None, :] < kv_valid_len[:, None]       # (B, Ck)
+            s = torch.where(ok[:, None, None, None, :], s, NEG)
+        return s
+
+
+def _flash_forward(q, k, v, kv_valid_len, geo: _FlashGeometry):
+    """The online-softmax loop: (out (B, S, H, Dv) in q's dtype, the
+    log-sum-exp of each query row's scores (B, Sp, G, KH) in the
+    accumulation dtype)."""
+    B, KH, G, Dv = geo.B, geo.KH, geo.G, geo.Dv
     dev = q.device
     # inputs keep their dtype; f32 only inside the chunk step (scores,
     # softmax and accumulators), as the reference's einsums accumulate
-    qc = q.reshape(B, nq, q_chunk, KH, G, D)
-    kc = k.reshape(B, nk, k_chunk, KH, D)
-    vc = v.reshape(B, nk, k_chunk, KH, Dv)
-    outs = []
-    for i in range(nq):
+    qc, kc, vc = geo.q_blocks(q), geo.kv_blocks(k), geo.kv_blocks(v)
+    outs, lses = [], []
+    for i in range(geo.nq):
         qi = _acc(qc[:, i])                          # (B, Cq, KH, G, D)
-        q_pos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((B, q_chunk, G, KH), NEG, dtype=qi.dtype, device=dev)
-        l = torch.zeros((B, q_chunk, G, KH), dtype=qi.dtype, device=dev)
-        acc = torch.zeros((B, q_chunk, G, KH, Dv), dtype=qi.dtype,
+        q_pos = geo.q_pos(i, dev)
+        m = torch.full((B, geo.q_chunk, G, KH), NEG, dtype=qi.dtype,
+                       device=dev)
+        l = torch.zeros((B, geo.q_chunk, G, KH), dtype=qi.dtype, device=dev)
+        acc = torch.zeros((B, geo.q_chunk, G, KH, Dv), dtype=qi.dtype,
                           device=dev)
-        hi = nk
-        if causal_skip and causal:
-            hi = min(nk, (q_offset + (i + 1) * q_chunk - 1) // k_chunk + 1)
-        for j in range(hi):
+        for j in range(geo.blocks(i)):
             kj, vj = _acc(kc[:, j]), vc[:, j]
-            # scores: (B, Cq, G, KH, Ck)
-            s = torch.einsum("bqhgd,bkhd->bqghk", qi, kj) * scale
-            k_pos = j * k_chunk + torch.arange(k_chunk, device=dev)
-            mask = (k_pos < T)[None, :]
-            if causal:
-                mask = mask & (q_pos[:, None] >= k_pos[None, :])
-            s = torch.where(mask[None, :, None, None, :], s, NEG)
-            if kv_valid_len is not None:
-                ok = k_pos[None, :] < kv_valid_len[:, None]       # (B, Ck)
-                s = torch.where(ok[:, None, None, None, :], s, NEG)
+            s = geo.scores(qi, kj, q_pos, j, kv_valid_len)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             p = torch.where(s <= NEG * 0.5, 0.0, p)   # fully-masked guard
@@ -426,11 +498,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + torch.einsum(
                 "bqghk,bkhd->bqghd", _acc(p.to(v.dtype)), _acc(vj))
             m = m_new
-        out_i = acc / torch.clamp_min(l[..., None], 1e-30)
+        l = torch.clamp_min(l, 1e-30)
+        out_i = acc / l[..., None]
         outs.append(out_i.permute(0, 1, 3, 2, 4).to(q.dtype))
+        lses.append(m + torch.log(l))
     # (B, nq, Cq, KH, G, Dv) → heads h = kh·G + g, matching the q projection
-    out = torch.stack(outs, dim=1).reshape(B, Sp, KH * G, Dv)[:, :S]
-    return out.to(q.dtype)
+    out = torch.stack(outs, dim=1).reshape(B, -1, KH * G, Dv)[:, :geo.S]
+    return out.to(q.dtype), torch.cat(lses, dim=1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` under autograd.  The forward is the loop of
+    :func:`_flash_forward`; it keeps q, k, v, the output and the rows'
+    log-sum-exp.  The backward walks the same blocks, recomputing each
+    block's scores and probabilities ``p = exp(s - lse)`` from them: five
+    products a block (the scores, ``dv += pᵀ·do``, ``dp = do·vᵀ``, ``dq +=
+    ds·k``, ``dk += dsᵀ·q``, with ``ds = p ∘ (dp − rowsum(do ∘ out))``),
+    as many as the reference's recomputed kv step and its vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid_len, geo):
+        out, lse = _flash_forward(q, k, v, kv_valid_len, geo)
+        ctx.geo = geo
+        ctx.save_for_backward(q, k, v, kv_valid_len, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_valid_len, out, lse = ctx.saved_tensors
+        geo = ctx.geo
+        Cq, dev = geo.q_chunk, q.device
+        qc, kc, vc = geo.q_blocks(q), geo.kv_blocks(k), geo.kv_blocks(v)
+        do_c, o_c = geo.q_blocks(dout), geo.q_blocks(out)
+        # the cotangents, accumulated block by block in place (no atomics)
+        acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+        dq = torch.zeros(qc.shape, dtype=acc, device=dev)
+        dk = torch.zeros(kc.shape, dtype=acc, device=dev)
+        dv = torch.zeros(vc.shape, dtype=acc, device=dev)
+        for i in range(geo.nq):
+            qi = _acc(qc[:, i])                      # (B, Cq, KH, G, D)
+            doi = _acc(do_c[:, i])                   # (B, Cq, KH, G, Dv)
+            # rowsum(do ∘ out) as (B, Cq, G, KH, 1)
+            di = (doi * _acc(o_c[:, i])).sum(-1).transpose(2, 3)[..., None]
+            lse_i = lse[:, i * Cq:(i + 1) * Cq, :, :, None]
+            q_pos = geo.q_pos(i, dev)
+            for j in range(geo.blocks(i)):
+                kj = _acc(kc[:, j])
+                s = geo.scores(qi, kj, q_pos, j, kv_valid_len)
+                p = torch.exp(s - lse_i)
+                p = torch.where(s <= NEG * 0.5, 0.0, p)
+                dv[:, j] += torch.einsum("bqghk,bqhgd->bkhd",
+                                         _acc(p.to(v.dtype)), doi)
+                dp = torch.einsum("bqhgd,bkhd->bqghk", doi, _acc(vc[:, j]))
+                ds = p * (dp - di)
+                dq[:, i] += torch.einsum("bqghk,bkhd->bqhgd", ds, kj)
+                dk[:, j] += torch.einsum("bqghk,bqhgd->bkhd", ds, qi)
+        B, S, H, D = q.shape
+        return ((dq.reshape(B, -1, H, D)[:, :S] * geo.scale).to(q.dtype),
+                (dk.flatten(1, 2)[:, :geo.T] * geo.scale).to(k.dtype),
+                dv.flatten(1, 2)[:, :geo.T].to(v.dtype), None, None)
 
 
 def _dense_decode_attention(q: torch.Tensor, k: torch.Tensor,
@@ -473,7 +599,10 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
     Under a mesh RoPE, the cache write and the attention run in the
     head-parallel region (:meth:`Ctx.local`) on each rank's heads and
     batch rows; seq is unsharded there (under SP rules this boundary is
-    the all-gather / reduce-scatter pair)."""
+    the all-gather / reduce-scatter pair).  A decode step over a cache
+    whose sequence is sharded on ``model`` (the SP fallback, where the kv
+    heads do not divide that axis) keeps the cache sharded
+    (:func:`_decode_over_seq_shards`); a prefill gathers it."""
     cfg = ctx.cfg
     B, S, _ = x.shape
     hd = cfg.hd()
@@ -482,6 +611,12 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
     if cache is not None and cache["len"] + S > cache["k"].shape[1]:
         raise ValueError(f"the cache holds {cache['k'].shape[1]} positions; "
                          f"{cache['len']} are taken and {S} more do not fit")
+    if cache is not None and S == 1 and seq_sharded(ctx, cache["k"]):
+        out = _decode_over_seq_shards(p, x, kv_in, ctx, positions, cache,
+                                      use_rope=use_rope)
+        cache["len"] += S
+        return linear(p.wo, merge_heads(out, ctx), ctx,
+                      out_logical="embed"), cache
     qn = ("batch_attn", None, "heads", None)
     kn = ("batch_attn", "kv_seq", "kv_heads", None)
     q = split_heads(linear(p.wq, x, ctx), cfg.n_heads, hd, ctx, qn)
@@ -503,8 +638,9 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
     else:
         out, ck, cv = ctx.local(region, args, names, (qn, cn, cn))
         if ctx.mesh is not None:
-            # a cache laid out otherwise than the region (the SP fallback)
-            # takes the written copy back in its own layout
+            # a cache laid out otherwise than the region (a seq-sharded
+            # cache at a prefill) takes the written copy back in its own
+            # layout
             for key, new in (("k", ck), ("v", cv)):
                 if tuple(cache[key].placements) != tuple(new.placements):
                     cache[key] = new.redistribute(ctx.mesh,
@@ -512,6 +648,116 @@ def attention(p: Attention, x: torch.Tensor, ctx: Ctx, *,
         cache["len"] += S
     out = linear(p.wo, merge_heads(out, ctx), ctx, out_logical="embed")
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# decode over a cache whose sequence is sharded on 'model'
+# ---------------------------------------------------------------------------
+
+#: the logical name of a cache's sequence sharded over 'model' (the SP
+#: fallback of ``launch/specs.py::cache_logical_names``)
+SEQ_SHARDS = "kv_seq_model"
+
+
+def seq_sharded(ctx: Ctx, cache_t: torch.Tensor) -> bool:
+    """Whether the cache tensor ``cache_t`` (B, T, ...) has its sequence
+    sharded over the mesh's ``model`` dim."""
+    if ctx.mesh is None or "model" not in ctx.mesh.mesh_dim_names:
+        return False
+    from torch.distributed.tensor import Shard
+    return cache_t.placements[
+        ctx.mesh.mesh_dim_names.index("model")] == Shard(1)
+
+
+def seq_shard_region(ctx: Ctx) -> Ctx:
+    """``ctx`` with :data:`SEQ_SHARDS` mapped to ``model``, so that a
+    region takes a seq-sharded cache in its own layout."""
+    return dataclasses.replace(ctx, rules=ctx.rules.replace(
+        **{SEQ_SHARDS: ("model",)}))
+
+
+def shard_offset(ctx: Ctx, local_len: int) -> int:
+    """The global position of this rank's first cache row, its sequence
+    split evenly over ``model``."""
+    return _model_rank(ctx) * local_len
+
+
+def decode_partials(s: torch.Tensor, v: torch.Tensor, eq: str):
+    """One shard's pieces of a softmax over the last dim of the scores
+    ``s`` (float32, masked at ``NEG``): the max ``m``, ``l = Σ exp(s −
+    m)`` and ``o = einsum(eq, exp(s − m), v)``, in float32; a shard with
+    no valid position gives ``l = o = 0``."""
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(s <= NEG * 0.5, 0.0, p)
+    return m, p.sum(-1), torch.einsum(eq, _acc(p.to(v.dtype)), _acc(v))
+
+
+def combine_over_model(ctx: Ctx, m: torch.Tensor, l: torch.Tensor,
+                       o: torch.Tensor) -> torch.Tensor:
+    """The softmax-weighted sum across the ``model`` group from each
+    rank's :func:`decode_partials` (the log-sum-exp form of one softmax
+    over the whole sequence): the all-reduced max ``m*``, then ``l`` and
+    ``o`` rescaled by ``exp(m − m*)`` and summed in one all-reduce;
+    ``o / l``.  ``o`` has one dim more than ``m`` and ``l``."""
+    from torch.distributed import _functional_collectives as funcol
+    group = ctx.mesh.get_group("model")
+    m_all = funcol.all_reduce(m, "max", group)
+    c = torch.exp(m - m_all)[..., None]
+    lo = funcol.all_reduce(torch.cat([o * c, l[..., None] * c], dim=-1),
+                           "sum", group)
+    return lo[..., :-1] / torch.clamp_min(lo[..., -1:], 1e-30)
+
+
+def _decode_over_seq_shards(p: Attention, x, kv_in, ctx: Ctx, positions,
+                            cache: dict, *, use_rope: bool) -> torch.Tensor:
+    """A decode step's attention (S == 1) over a cache whose sequence is
+    sharded over ``model``, without gathering it: the region takes the
+    one-token q, k and v with every head and batch over the batch axes
+    alone, the cache in its own layout; the rank holding position ``len``
+    writes k and v there, each rank scores its own rows, and
+    :func:`combine_over_model` joins them.  Returns the output (B, 1, H,
+    hd), whole on ``model``."""
+    cfg, hd = ctx.cfg, ctx.cfg.hd()
+    B = x.shape[0]
+    rows, cn = ("batch", None, None, None), ("batch", SEQ_SHARDS, None, None)
+    q = split_heads(linear(p.wq, x, ctx), cfg.n_heads, hd, ctx, rows)
+    k = split_heads(linear(p.wk, kv_in, ctx), cfg.kv_heads, hd, ctx, rows)
+    v = split_heads(linear(p.wv, kv_in, ctx), cfg.kv_heads, hd, ctx, rows)
+    pos_names = (None if positions is None or positions.shape[0] != B
+                 else ("batch", None))
+    region = functools.partial(_decode_shard, ctx=ctx, use_rope=use_rope,
+                               start=cache["len"])
+    return seq_shard_region(ctx).local(
+        region, [q, k, v, positions, cache["k"], cache["v"]],
+        [rows, rows, rows, pos_names, cn, cn], rows)
+
+
+def _decode_shard(q, k, v, positions, ck, cv, *, ctx: Ctx, use_rope: bool,
+                  start: int):
+    """RoPE, the cache write and this rank's share of the decode attention
+    of :func:`_decode_over_seq_shards` on its rows ``ck``, ``cv``."""
+    cfg = ctx.cfg
+    B, S, H, D = q.shape
+    Tl, KH = ck.shape[1], ck.shape[2]
+    G = H // KH
+    if use_rope:
+        if positions is None:
+            positions = start + torch.arange(S, device=q.device)[None, :]
+        q = rope(q, positions, theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
+    lo = shard_offset(ctx, Tl)
+    if lo <= start < lo + Tl:
+        ck[:, start - lo:start - lo + S] = k
+        cv[:, start - lo:start - lo + S] = v
+    kc, vc = ck.to(q.dtype), cv.to(q.dtype)
+    s = torch.einsum("bqhgd,bkhd->bqghk", q.reshape(B, S, KH, G, D).float(),
+                     kc.float()) * (1.0 / math.sqrt(D))
+    k_pos = lo + torch.arange(Tl, device=q.device)
+    s = torch.where(k_pos <= start, s, NEG)
+    out = combine_over_model(
+        ctx, *decode_partials(s, vc, "bqghk,bkhd->bqghd"))
+    return out.permute(0, 1, 3, 2, 4).reshape(B, S, H, -1).to(q.dtype)
 
 
 def split_heads(y: torch.Tensor, n: int, hd: int, ctx: Ctx,

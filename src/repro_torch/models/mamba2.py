@@ -109,40 +109,182 @@ def _ssd_chunked(x, dt, A, B_in, C_in, cfg: ModelConfig, h0,
     """x: (B, S, H, P), dt: (B, S, H), A: (H,), B_in/C_in: (B, S, G, N),
     h0: (B, H, P, N) float32 → (y (B, S, H, P) float32, h_final).  On a
     shard the H heads are the model's ``heads``, whose B and C are taken
-    from the groups' (None: the H heads are all of them)."""
-    Bsz, S, H, P = x.shape
-    L = min(cfg.ssm_chunk, S)
-    nc = -(-S // L)
-    pad = nc * L - S
+    from the groups' (None: the H heads are all of them).
+
+    Under autograd the loop is one :class:`_SSDChunked`: it keeps the
+    inputs and the state entering each chunk, and its backward reruns each
+    chunk step from its state (the reference's scan of a
+    ``jax.checkpoint``-ed chunk step)."""
+    args = (x, dt, A, B_in, C_in, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SSDChunked.apply(*args, cfg, heads)
+    return _ssd_loop(*args, cfg, heads)[:2]
+
+
+def _ssd_chunk(x, dt, B_in, C_in, c: int, L: int, cfg: ModelConfig, heads,
+               H: int):
+    """Chunk ``c``'s x, dt, and B and C at the H heads, float32 and padded
+    to ``L`` positions."""
+    sl = slice(c * L, (c + 1) * L)
+    xc, dtc, Bc, Cc = x[:, sl], dt[:, sl], B_in[:, sl], C_in[:, sl]
+    pad = L - xc.shape[1]
     if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B_in = F.pad(B_in, (0, 0, 0, 0, 0, pad))
-        C_in = F.pad(C_in, (0, 0, 0, 0, 0, pad))
-    Bh, Ch = (_head_rows(t, cfg, heads, H, dim=2).float()    # (B, S, H, N)
-              for t in (B_in, C_in))
-    x, dt = x.float(), dt.float()
+        xc = F.pad(xc, (0, 0, 0, 0, 0, pad))
+        dtc = F.pad(dtc, (0, 0, 0, pad))
+        Bc = F.pad(Bc, (0, 0, 0, 0, 0, pad))
+        Cc = F.pad(Cc, (0, 0, 0, 0, 0, pad))
+    Bc, Cc = (_head_rows(t, cfg, heads, H, dim=2).float()    # (B, L, H, N)
+              for t in (Bc, Cc))
+    return xc.float(), dtc.float(), Bc, Cc
+
+
+def _ssd_step(h, xc, dtc, Bc, Cc, A, mask):
+    """One chunk of the SSD recurrence from the state ``h``: (y (B, L, H,
+    P), the state after the chunk)."""
+    cum = torch.cumsum(dtc * A, dim=1)                       # (B, L, H) ≤ 0
+    cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
+    # intra-chunk: scores[t,s] = (C_t·B_s)·exp(cum_t−cum_s)·dt_s, s ≤ t
+    cb = torch.einsum("blhn,bshn->blsh", Cc, Bc)
+    decay = torch.exp(cum[:, :, None, :] - cum_cl[:, None, :, :])
+    scores = torch.where(mask[None, :, :, None], cb * decay, 0.0)
+    scores = scores * dtc[:, None, :, :]
+    y_intra = torch.einsum("blsh,bshp->blhp", scores, xc)
+    # inter-chunk: what the carried state contributes
+    y_inter = torch.einsum("blhn,bhpn->blhp",
+                           Cc * torch.exp(cum)[..., None], h)
+    decay_to_end = torch.exp(cum[:, -1:, :] - cum_cl)        # (B, L, H)
+    dBx = torch.einsum("blh,blhn,blhp->bhpn", dtc * decay_to_end, Bc, xc)
+    h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + dBx
+    return y_intra + y_inter, h
+
+
+def _ssd_loop(x, dt, A, B_in, C_in, h0, cfg: ModelConfig, heads):
+    """The chunk loop: (y (B, S, H, P) float32, the final state, the state
+    entering each chunk)."""
+    S, H = x.shape[1], x.shape[2]
+    L = min(cfg.ssm_chunk, S)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    h, ys = h0, []
-    for c in range(nc):
-        sl = slice(c * L, (c + 1) * L)
-        xc, dtc, Bc, Cc = x[:, sl], dt[:, sl], Bh[:, sl], Ch[:, sl]
-        cum = torch.cumsum(dtc * A, dim=1)                   # (B, L, H) ≤ 0
-        cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
-        # intra-chunk: scores[t,s] = (C_t·B_s)·exp(cum_t−cum_s)·dt_s, s ≤ t
-        cb = torch.einsum("blhn,bshn->blsh", Cc, Bc)
-        decay = torch.exp(cum[:, :, None, :] - cum_cl[:, None, :, :])
-        scores = torch.where(mask[None, :, :, None], cb * decay, 0.0)
-        scores = scores * dtc[:, None, :, :]
-        y_intra = torch.einsum("blsh,bshp->blhp", scores, xc)
-        # inter-chunk: what the carried state contributes
-        y_inter = torch.einsum("blhn,bhpn->blhp",
-                               Cc * torch.exp(cum)[..., None], h)
-        decay_to_end = torch.exp(cum[:, -1:, :] - cum_cl)    # (B, L, H)
-        dBx = torch.einsum("blh,blhn,blhp->bhpn", dtc * decay_to_end, Bc, xc)
-        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + dBx
-        ys.append(y_intra + y_inter)
-    return torch.cat(ys, dim=1)[:, :S], h
+    h, ys, carries = h0, [], []
+    for c in range(-(-S // L)):
+        carries.append(h)
+        y, h = _ssd_step(h, *_ssd_chunk(x, dt, B_in, C_in, c, L, cfg, heads,
+                                        H), A, mask)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S], h, carries
+
+
+def _floor_grad(cum: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``cum`` through ``torch.maximum(cum, CUM_FLOOR)``:
+    all of ``g`` above the floor, half at a tie, none below."""
+    return torch.where(cum > CUM_FLOOR, g,
+                       torch.where(cum == CUM_FLOOR, g * 0.5, 0.0))
+
+
+def _reverse_cumsum(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The cotangent of the input of ``torch.cumsum(·, dim)``."""
+    return g.flip(dim).cumsum(dim).flip(dim)
+
+
+def _ssd_step_grads(h, xc, dtc, Bc, Cc, A, mask, gy, gh):
+    """The cotangents of :func:`_ssd_step`'s ``(h, xc, dtc, Bc, Cc, A)``
+    from those of its outputs, ``gy`` (B, L, H, P) and ``gh`` (B, H, P,
+    N), by hand: the scores recomputed (one product), then the nine
+    products of their vjp and the elementwise chain back to ``dt`` and
+    ``A``, as the reference's ``jax.checkpoint``-ed chunk step computes
+    them."""
+    cum = torch.cumsum(dtc * A, dim=1)                       # (B, L, H)
+    cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
+    m = mask[None, :, :, None]                               # (1, t, s, 1)
+    cb = torch.einsum("blhn,bshn->blsh", Cc, Bc)
+    decay = torch.exp(cum[:, :, None, :] - cum_cl[:, None, :, :])
+    cbd = torch.where(m, cb * decay, 0.0)
+    dt_s = dtc[:, None, :, :]
+    e = torch.exp(cum)
+    eC = Cc * e[..., None]
+    end = torch.exp(cum[:, -1, :])                           # (B, H)
+    dte = torch.exp(cum[:, -1:, :] - cum_cl)                 # (B, L, H)
+    w = dtc * dte
+    wB = w[..., None] * Bc
+    # y = scores·x + (C·e^cum)·h
+    g_sc = torch.einsum("blhp,bshp->blsh", gy, xc)
+    g_x = torch.einsum("blsh,blhp->bshp", cbd * dt_s, gy)
+    g_eC = torch.einsum("blhp,bhpn->blhn", gy, h)
+    g_h = torch.einsum("blhn,blhp->bhpn", eC, gy) + gh * end[:, :, None, None]
+    # h' = h·e^cum_end + Σ_l (dt·dte·B) ⊗ x
+    g_wB = torch.einsum("bhpn,blhp->blhn", gh, xc)
+    g_x = g_x + torch.einsum("blhn,bhpn->blhp", wB, gh)
+    g_w = torch.einsum("blhn,blhn->blh", g_wB, Bc)
+    g_B = g_wB * w[..., None]
+    # scores = where(mask, cb·decay, 0)·dt_s
+    g_cbd = g_sc * dt_s
+    g_dt = (g_sc * cbd).sum(1) + g_w * dte
+    g_cb = torch.where(m, g_cbd * decay, 0.0)
+    g_exp = torch.where(m, g_cbd * cb * decay, 0.0)          # of cum_t - cl_s
+    g_C = torch.einsum("blsh,bshn->blhn", g_cb, Bc) + g_eC * e[..., None]
+    g_B = g_B + torch.einsum("blsh,blhn->bshn", g_cb, Cc)
+    g_dte = g_w * w                                          # of the exponent
+    g_cl = -g_exp.sum(1) - g_dte
+    g_end = g_dte.sum(1) + (gh * h).sum((-2, -1)) * end      # of cum_end
+    g_cum = g_exp.sum(2) + (g_eC * eC).sum(-1) + _floor_grad(cum, g_cl)
+    g_cum = torch.cat([g_cum[:, :-1], (g_cum[:, -1] + g_end)[:, None]], 1)
+    g_la = _reverse_cumsum(g_cum, 1)                         # of dt·A
+    return (g_h, g_x, g_dt + g_la * A, g_B, g_C, (g_la * dtc).sum((0, 1)))
+
+
+def _head_rows_grad(g: torch.Tensor, cfg: ModelConfig, heads: slice | None,
+                    G: int) -> torch.Tensor:
+    """The cotangent of the groups' rows (B, L, G, N) from that of
+    :func:`_head_rows`' (B, L, H, N): each head's summed into its
+    group."""
+    if heads is not None:
+        n_heads = _dims(cfg)[1]
+        g = F.pad(g, (0, 0, heads.start, n_heads - heads.stop))
+    return g.unflatten(2, (G, -1)).sum(3)
+
+
+class _SSDChunked(torch.autograd.Function):
+    """:func:`_ssd_chunked` under autograd: the forward is
+    :func:`_ssd_loop`, keeping the inputs and the state entering each
+    chunk; the backward goes through the chunks in reverse and takes each
+    chunk's cotangents from its state with :func:`_ssd_step_grads`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_in, C_in, h0, cfg, heads):
+        y, h, carries = _ssd_loop(x, dt, A, B_in, C_in, h0, cfg, heads)
+        ctx.cfg, ctx.heads = cfg, heads
+        ctx.save_for_backward(x, dt, A, B_in, C_in, *carries)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, B_in, C_in, *carries = ctx.saved_tensors
+        cfg, heads = ctx.cfg, ctx.heads
+        S, H, G = x.shape[1], x.shape[2], B_in.shape[2]
+        L = min(cfg.ssm_chunk, S)
+        mask = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                     device=x.device))
+        dy = dy.float()
+        dA = torch.zeros_like(A, dtype=torch.float32)
+        # each chunk's cotangents written into its rows
+        grads = [torch.empty(t.shape, dtype=torch.float32, device=t.device)
+                 for t in (x, dt, B_in, C_in)]
+        for c in reversed(range(len(carries))):
+            sl = slice(c * L, (c + 1) * L)
+            gy = dy[:, sl]
+            n = gy.shape[1]
+            if n < L:
+                gy = F.pad(gy, (0, 0, 0, 0, 0, L - n))
+            dh, g_x, g_dt, g_B, g_C, g_A = _ssd_step_grads(
+                carries[c], *_ssd_chunk(x, dt, B_in, C_in, c, L, cfg, heads,
+                                        H), A, mask, gy, dh)
+            for out, g in zip(grads, (g_x, g_dt,
+                                      _head_rows_grad(g_B, cfg, heads, G),
+                                      _head_rows_grad(g_C, cfg, heads, G))):
+                out[:, sl] = g[:, :n]
+            dA = dA + g_A
+        g_x, g_dt, g_B, g_C = grads
+        return (g_x.to(x.dtype), g_dt.to(dt.dtype), dA.to(A.dtype),
+                g_B.to(B_in.dtype), g_C.to(C_in.dtype), dh, None, None)
 
 
 def _head_rows(t: torch.Tensor, cfg: ModelConfig, heads: slice | None,

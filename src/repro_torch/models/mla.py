@@ -27,9 +27,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 from . import layers
-from .layers import (NEG, Ctx, Linear, Norm, _model_rank, flash_attention,
-                     linear, merge_heads, rmsnorm, rope, split_heads,
-                     torch_dtype)
+from .layers import (NEG, SEQ_SHARDS, Ctx, Linear, Norm, _model_rank,
+                     combine_over_model, decode_partials, flash_attention,
+                     linear, merge_heads, rmsnorm, rope, seq_shard_region,
+                     seq_sharded, shard_offset, split_heads, torch_dtype)
 
 __all__ = ["MLA", "mla_attention", "init_mla_cache"]
 
@@ -69,7 +70,9 @@ def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
     """Returns ``(out (B, S, d), cache)``; ``cache`` (None uncached) is
     written in place at ``len``.  Under a mesh RoPE, the cache write and
     the attention run in the head-parallel region (:meth:`Ctx.local`), seq
-    unsharded (the SP boundary)."""
+    unsharded (the SP boundary), but for a decode step over the latent
+    cache, whose sequence is sharded on ``model``: that cache stays
+    sharded (:func:`_decode_shard`)."""
     cfg = ctx.cfg
     B, S, _ = x.shape
     h, nope, rp, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
@@ -79,9 +82,10 @@ def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
     c_kv = rmsnorm(p.kv_norm, kv_a[..., :cfg.kv_lora])
     k_rope_new = kv_a[..., cfg.kv_lora:]                  # (B, S, rp), 1 head
     qn, rows = ("batch", None, "heads", None), ("batch", None, None)
-    q = split_heads(linear(p.wq, x, ctx), h, nope + rp, ctx, qn)
+    q_proj = linear(p.wq, x, ctx)
 
     if cache is None:
+        q = split_heads(q_proj, h, nope + rp, ctx, qn)
         kv = split_heads(linear(p.wkv_b, c_kv, ctx), h, nope + vd, ctx, qn)
         out = ctx.local(functools.partial(_uncached, cfg=cfg),
                         [q, kv, k_rope_new], [qn, qn, rows], qn)
@@ -94,6 +98,21 @@ def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
         raise ValueError(f"the cache holds {cache['c_kv'].shape[1]} "
                          f"positions; {start} are taken and {S} more do not "
                          f"fit")
+    if S == 1 and seq_sharded(ctx, cache["c_kv"]):
+        # decode over the latent cache's seq shards: every head's q, the
+        # cache in its own layout, the shards' softmax pieces combined
+        heads = ("batch", None, None, None)
+        out = seq_shard_region(ctx).local(
+            functools.partial(_decode_shard, ctx=ctx, start=start),
+            [split_heads(q_proj, h, nope + rp, ctx, heads),
+             c_kv, k_rope_new, cache["c_kv"], cache["k_rope"],
+             ctx.cast(p.wkv_b.w)],
+            [heads, rows, rows, ("batch", SEQ_SHARDS, None),
+             ("batch", SEQ_SHARDS, None), (None, None)], heads)
+        cache["len"] = start + S
+        return linear(p.wo, merge_heads(out, ctx), ctx,
+                      out_logical="embed"), cache
+    q = split_heads(q_proj, h, nope + rp, ctx, qn)
     out, c, kr = ctx.local(
         functools.partial(_cached, ctx=ctx, start=start,
                           model_rank=_model_rank(ctx)),
@@ -101,8 +120,8 @@ def mla_attention(p: MLA, x: torch.Tensor, ctx: Ctx, *,
          ctx.cast(p.wkv_b.w)],
         [qn, rows, rows, rows, rows, (None, None)], (qn, rows, rows))
     if ctx.mesh is not None:
-        # the latent cache's own layout (seq over 'model') takes the
-        # written copy back
+        # a seq-sharded latent cache (a prefill) takes the written copy
+        # back in its own layout
         for key, new in (("c_kv", c), ("k_rope", kr)):
             if tuple(cache[key].placements) != tuple(new.placements):
                 cache[key] = new.redistribute(ctx.mesh, cache[key].placements)
@@ -182,3 +201,37 @@ def _cached(q, c_kv, k_rope_new, c, kr, w, *, ctx: Ctx, start: int,
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
     ctx_c = torch.einsum("bsht,btl->bshl", attn, cc)
     return torch.einsum("bshl,lhv->bshv", ctx_c, w_vb), c, kr
+
+
+def _decode_shard(q, c_kv, k_rope_new, c, kr, w, *, ctx: Ctx, start: int):
+    """The absorbed decode on this rank's rows of the seq-sharded latent
+    caches ``c``, ``kr``: the rank holding position ``start`` writes the
+    latent and the rotated key there, every rank scores its rows for
+    every head, and :func:`layers.combine_over_model` joins the shards'
+    latent contexts."""
+    cfg = ctx.cfg
+    B, S, h, _ = q.shape
+    nope, rp, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    positions = start + torch.arange(S, device=q.device)[None, :]
+    q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
+    k_rope_new = rope(k_rope_new[:, :, None, :], positions,
+                      theta=cfg.rope_theta)[:, :, 0]
+    Tl = c.shape[1]
+    lo = shard_offset(ctx, Tl)
+    if lo <= start < lo + Tl:
+        c[:, start - lo:start - lo + S] = c_kv
+        kr[:, start - lo:start - lo + S] = k_rope_new
+    cc, krc = ctx.cast(c), ctx.cast(kr)
+    w_b = w.reshape(cfg.kv_lora, h, nope + vd)
+    w_kb, w_vb = w_b[..., :nope], w_b[..., nope:]
+    q_c = torch.einsum("bshn,lhn->bshl", q_nope, w_kb)
+    scale = 1.0 / math.sqrt(nope + rp)
+    scores = (torch.einsum("bshl,btl->bsht", q_c, cc)
+              + torch.einsum("bshr,btr->bsht", q_rope, krc)) * scale
+    k_pos = lo + torch.arange(Tl, device=q.device)[None, None, None, :]
+    ok = (k_pos < start + S) & (k_pos <= positions[:, :, None, None])
+    scores = torch.where(ok, scores.float(), NEG)
+    ctx_c = combine_over_model(
+        ctx, *decode_partials(scores, cc, "bsht,btl->bshl"))
+    return torch.einsum("bshl,lhv->bshv", ctx_c.to(q.dtype), w_vb)

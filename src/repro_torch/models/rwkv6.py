@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 
 from .layers import (Ctx, Linear, Norm, _param, flat_safe, linear, rmsnorm,
                      torch_dtype)
+from .mamba2 import _floor_grad, _reverse_cumsum
 
 __all__ = ["RWKV6", "rwkv6_block", "init_rwkv6_state"]
 
@@ -129,39 +130,148 @@ def _shifted(ctx: Ctx, x: torch.Tensor,
 
 def _wkv_chunked(r, k, v, w_log, u, chunk: int, S0):
     """r, k, v: (B, T, H, K); w_log: (B, T, H, K) = log w ≤ 0; u: (H, K);
-    S0: (B, H, K, K) float32 → (y (B, T, H, K) float32, S_final)."""
-    B, T, H, K = r.shape
+    S0: (B, H, K, K) float32 → (y (B, T, H, K) float32, S_final).
+
+    Under autograd the loop is one :class:`_WKVChunked`: it keeps the
+    inputs and the state entering each chunk, and its backward reruns each
+    chunk step from its state (the reference's scan of a
+    ``jax.checkpoint``-ed chunk step)."""
+    args = (r, k, v, w_log, u, S0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _WKVChunked.apply(*args, chunk)
+    return _wkv_loop(*args, chunk)[:2]
+
+
+def _wkv_chunk(t: torch.Tensor, c: int, L: int) -> torch.Tensor:
+    """Chunk ``c`` of ``t`` (B, T, H, K) in float32, padded to ``L``."""
+    tc = t[:, c * L:(c + 1) * L].float()
+    pad = L - tc.shape[1]
+    return F.pad(tc, (0, 0, 0, 0, 0, pad)) if pad else tc
+
+
+def _wkv_step(S, rc, kc, vc, lw, u, mask_strict):
+    """One chunk of the WKV recurrence from the state ``S``: (y (B, L, H,
+    K), the state after the chunk)."""
+    cum = torch.cumsum(lw, dim=1)                            # ≤ 0
+    cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
+    cum_prev = F.pad(cum, (0, 0, 0, 0, 1, 0))[:, :-1]        # exclusive
+    r_sc = rc * torch.exp(cum_prev)                          # ≤ rc
+    k_sc = kc * torch.exp(-cum_cl)                           # ≤ e^30 kc
+    scores = torch.einsum("blhk,bshk->bhls", r_sc, k_sc)
+    scores = torch.where(mask_strict[None, None], scores, 0.0)
+    y = torch.einsum("bhls,bshk->blhk", scores, vc)
+    # the current token's bonus
+    bonus = torch.einsum("blhk,blhk->blh", rc, u[None, None] * kc)
+    y = y + bonus[..., None] * vc
+    # the carried state
+    y = y + torch.einsum("blhk,bhkv->blhv", r_sc, S)
+    k_end = kc * torch.exp(cum[:, -1:] - cum_cl)
+    S = S * torch.exp(cum[:, -1])[..., None] + \
+        torch.einsum("bshk,bshv->bhkv", k_end, vc)
+    return y, S
+
+
+def _strict_lower(L: int, device) -> torch.Tensor:
+    return torch.tril(torch.ones((L, L), dtype=torch.bool, device=device), -1)
+
+
+def _wkv_loop(r, k, v, w_log, u, S0, chunk: int):
+    """The chunk loop: (y (B, T, H, K) float32, the final state, the state
+    entering each chunk)."""
+    T = r.shape[1]
     L = min(chunk, T)
-    nc = -(-T // L)
-    pad = nc * L - T
-    r, k, v, w_log = (t.float() for t in (r, k, v, w_log))
-    if pad:
-        r, k, v, w_log = (F.pad(t, (0, 0, 0, 0, 0, pad))
-                          for t in (r, k, v, w_log))
-    mask_strict = torch.tril(torch.ones((L, L), dtype=torch.bool,
-                                        device=r.device), -1)
-    S, ys = S0, []
-    for c in range(nc):
-        sl = slice(c * L, (c + 1) * L)
-        rc, kc, vc, lw = r[:, sl], k[:, sl], v[:, sl], w_log[:, sl]
-        cum = torch.cumsum(lw, dim=1)                        # ≤ 0
-        cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
-        cum_prev = F.pad(cum, (0, 0, 0, 0, 1, 0))[:, :-1]    # exclusive
-        r_sc = rc * torch.exp(cum_prev)                      # ≤ rc
-        k_sc = kc * torch.exp(-cum_cl)                       # ≤ e^30 kc
-        scores = torch.einsum("blhk,bshk->bhls", r_sc, k_sc)
-        scores = torch.where(mask_strict[None, None], scores, 0.0)
-        y = torch.einsum("bhls,bshk->blhk", scores, vc)
-        # the current token's bonus
-        bonus = torch.einsum("blhk,blhk->blh", rc, u[None, None] * kc)
-        y = y + bonus[..., None] * vc
-        # the carried state
-        y = y + torch.einsum("blhk,bhkv->blhv", r_sc, S)
-        k_end = kc * torch.exp(cum[:, -1:] - cum_cl)
-        S = S * torch.exp(cum[:, -1])[..., None] + \
-            torch.einsum("bshk,bshv->bhkv", k_end, vc)
+    mask_strict = _strict_lower(L, r.device)
+    S, ys, carries = S0, [], []
+    for c in range(-(-T // L)):
+        carries.append(S)
+        y, S = _wkv_step(S, *(_wkv_chunk(t, c, L) for t in (r, k, v, w_log)),
+                         u, mask_strict)
         ys.append(y)
-    return torch.cat(ys, dim=1)[:, :T], S
+    return torch.cat(ys, dim=1)[:, :T], S, carries
+
+
+def _wkv_step_grads(S, rc, kc, vc, lw, u, mask_strict, gy, gS):
+    """The cotangents of :func:`_wkv_step`'s ``(S, rc, kc, vc, lw, u)``
+    from those of its outputs, ``gy`` (B, L, H, K) and ``gS`` (B, H, K,
+    K), by hand: the scores and the bonus recomputed (two products), then
+    the eight products of their vjp and the elementwise chain back to
+    ``lw``, as the reference's ``jax.checkpoint``-ed chunk step computes
+    them."""
+    cum = torch.cumsum(lw, dim=1)
+    cum_cl = torch.maximum(cum, cum.new_full((), CUM_FLOOR))
+    e_prev = torch.exp(F.pad(cum, (0, 0, 0, 0, 1, 0))[:, :-1])
+    r_sc = rc * e_prev
+    e_neg = torch.exp(-cum_cl)
+    k_sc = kc * e_neg
+    m = mask_strict[None, None]
+    scores = torch.where(m, torch.einsum("blhk,bshk->bhls", r_sc, k_sc), 0.0)
+    uk = u[None, None] * kc
+    bonus = torch.einsum("blhk,blhk->blh", rc, uk)
+    end = torch.exp(cum[:, -1])                              # (B, H, K)
+    e_end = torch.exp(cum[:, -1:] - cum_cl)
+    k_end = kc * e_end
+    # y = scores·v + bonus·v + r_sc·S
+    g_sc = torch.where(m, torch.einsum("blhk,bshk->bhls", gy, vc), 0.0)
+    g_v = torch.einsum("bhls,blhk->bshk", scores, gy) + bonus[..., None] * gy
+    g_bonus = (gy * vc).sum(-1)
+    g_rsc = torch.einsum("blhv,bhkv->blhk", gy, S) + \
+        torch.einsum("bhls,bshk->blhk", g_sc, k_sc)
+    g_ksc = torch.einsum("bhls,blhk->bshk", g_sc, r_sc)
+    g_S = torch.einsum("blhk,blhv->bhkv", r_sc, gy) + gS * end[..., None]
+    # S' = S·e^cum_end + k_endᵀ·v
+    g_kend = torch.einsum("bhkv,bshv->bshk", gS, vc)
+    g_v = g_v + torch.einsum("bshk,bhkv->bshv", k_end, gS)
+    g_uk = g_bonus[..., None] * rc
+    g_r = g_bonus[..., None] * uk + g_rsc * e_prev
+    g_k = g_ksc * e_neg + g_kend * e_end + g_uk * u[None, None]
+    # the exponents: cum_prev, -cum_cl, cum_end - cum_cl
+    g_cl = -g_ksc * k_sc - g_kend * k_end
+    g_end = (g_kend * k_end).sum(1) + (gS * S).sum(-1) * end
+    g_cum = _floor_grad(cum, g_cl) + F.pad((g_rsc * r_sc)[:, 1:],
+                                           (0, 0, 0, 0, 0, 1))
+    g_cum = torch.cat([g_cum[:, :-1], (g_cum[:, -1] + g_end)[:, None]], 1)
+    return (g_S, g_r, g_k, g_v, _reverse_cumsum(g_cum, 1),
+            (g_uk * kc).sum((0, 1)))
+
+
+class _WKVChunked(torch.autograd.Function):
+    """:func:`_wkv_chunked` under autograd: the forward is
+    :func:`_wkv_loop`, keeping the inputs and the state entering each
+    chunk; the backward goes through the chunks in reverse and takes each
+    chunk's cotangents from its state with :func:`_wkv_step_grads`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, S0, chunk):
+        y, S, carries = _wkv_loop(r, k, v, w_log, u, S0, chunk)
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, w_log, u, *carries)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        r, k, v, w_log, u, *carries = ctx.saved_tensors
+        L = min(ctx.chunk, r.shape[1])
+        mask_strict = _strict_lower(L, r.device)
+        dy, uf = dy.float(), u.float()
+        du = torch.zeros_like(uf)
+        # each chunk's cotangents written into its rows
+        grads = [torch.empty(t.shape, dtype=torch.float32, device=t.device)
+                 for t in (r, k, v, w_log)]
+        for c in reversed(range(len(carries))):
+            sl = slice(c * L, (c + 1) * L)
+            gy = dy[:, sl]
+            n = gy.shape[1]
+            if n < L:
+                gy = F.pad(gy, (0, 0, 0, 0, 0, L - n))
+            dS, *chunk_grads, g_u = _wkv_step_grads(
+                carries[c], *(_wkv_chunk(t, c, L) for t in (r, k, v, w_log)),
+                uf, mask_strict, gy, dS)
+            for out, g in zip(grads, chunk_grads):
+                out[:, sl] = g[:, :n]
+            du = du + g_u
+        dr, dk, dv, dw = (g.to(t.dtype)
+                          for g, t in zip(grads, (r, k, v, w_log)))
+        return dr, dk, dv, dw, du.to(u.dtype), dS, None
 
 
 def _wkv(r, k, v, w_log, u, S0=None, *, chunk: int, decode: bool):

@@ -7,9 +7,11 @@ has not ended within ``JOIN_S``.
 
 Held against the port's own unsharded path on the same seed: a (2, 2)
 DP x TP ``TrainLoop``, a (2, 2) expert-parallel MoE loss, a (1, 2)
-prefill and decode, a (2, 1) step with int8 compression, GPipe over 4
-stages, a checkpoint saved by a world of 4 restored by a world of 2, and
-``main --model-parallel 2`` in a world of 2.  The DP x TP loop and the EP
+prefill and decode (llama3-8b's, and granite-20b's and
+deepseek-v2-lite's over a cache whose sequence stays sharded on model),
+a (2, 1) step with int8 compression, GPipe over 4 stages, a checkpoint
+saved by a world of 4 restored by a world of 2, and ``main
+--model-parallel 2`` in a world of 2.  The DP x TP loop and the EP
 loss are also held against the reference package on the same weights
 (the port's seed-0 model carried across with ``to_reference``) and
 batches: its ``jax.value_and_grad(loss_fn)`` and its ``TrainLoop``.  JAX
@@ -17,6 +19,7 @@ is imported only inside those reference helpers, which run in the test
 process: a spawned rank imports only this module's own dependencies.
 """
 
+import contextlib
 import dataclasses
 import multiprocessing as mp
 import time
@@ -272,6 +275,8 @@ def _two_ranks(rank, world, root):
     (1, 2) serve, the (2, 1) compressed steps, the restore of the world of
     4's checkpoint, ``main --model-parallel 2``."""
     return {"serve": _serve_rank(rank, world, _prompts()),
+            "sp_serve": {arch: _sp_serve_rank(rank, world, arch, _prompts())
+                         for arch in SP_ARCHS},
             "compressed": _compressed_rank(rank, world, f"{root}/c", 2),
             "restore": _restore_rank(rank, world, f"{root}/ck"),
             "main": _main_rank(rank, world, f"{root}/m")}
@@ -385,15 +390,19 @@ def test_expert_parallel_moe_loss_matches_the_reference(worlds):
 # (1, 2) serving
 # ---------------------------------------------------------------------------
 
-def _serve(cfg, model, mesh, rules, prompts, steps=4):
+def _serve(cfg, model, mesh, rules, prompts, steps=4, max_len=None,
+           layouts=None, counter=None):
     """Greedy prefill + ``steps`` decode steps: (the logits of each call
-    whole, the tokens)."""
+    whole, the tokens).  ``layouts`` (a list) gets, after each call, the
+    placements of every cache tensor by its path; ``counter`` (a
+    ``CollectiveCounter``) is on during the decode steps."""
     from repro_torch.data import make_global_batch
     from repro_torch.distributed import reshard
     from repro_torch.launch.specs import cache_leaf_spec
     from repro_torch.models import decode_step, init_decode_state, prefill
-    caches = init_decode_state(cfg, B, S + steps + 1, dtype=torch.float32,
-                               device="cpu")
+    from repro_torch.models.sharding import map_tensors
+    caches = init_decode_state(cfg, B, max_len or S + steps + 1,
+                               dtype=torch.float32, device="cpu")
     axes = None
     if mesh is not None:
         caches = reshard(caches, mesh, lambda p, t: cache_leaf_spec(
@@ -403,16 +412,26 @@ def _serve(cfg, model, mesh, rules, prompts, steps=4):
     def place(x):
         return make_global_batch({"x": x}, mesh, axes, device="cpu")["x"]
 
+    def record():
+        if layouts is not None:
+            found = {}
+            map_tensors(lambda p, t: found.setdefault(
+                p, tuple(getattr(t, "placements", ()))), caches)
+            layouts.append(found)
+
     kw = dict(mesh=mesh, rules=rules)
     with torch.no_grad():
         logits, _ = prefill(model, {"tokens": place(prompts)}, caches, cfg,
                             **kw)
+        record()
         out, toks = [_whole(logits)], []
         for _ in range(steps):
             tok = out[-1][:, -1].argmax(-1, keepdim=True)
             toks.append(tok)
-            logits, _ = decode_step(model, place(tok.numpy()), caches, cfg,
-                                    **kw)
+            with counter or contextlib.nullcontext():
+                logits, _ = decode_step(model, place(tok.numpy()), caches,
+                                        cfg, **kw)
+            record()
             out.append(_whole(logits))
     return out, torch.cat(toks, dim=1)
 
@@ -458,6 +477,67 @@ def test_sharded_prefill_and_decode_match_the_unsharded(worlds):
     np.testing.assert_array_equal(got["generated"],
                                   sess.generate(prompts, max_new=4))
     np.testing.assert_array_equal(got["generated"], toks.numpy())
+
+
+#: a seq-sharded cache: granite-20b's MQA (kv_heads 1 does not divide
+#: model = 2, the SP fallback of ``cache_logical_names``) and
+#: deepseek-v2-lite's MLA latent cache (always seq-sharded)
+SP_ARCHS = ("granite_20b", "deepseek_v2_lite")
+#: the cache's positions: even, so that its sequence splits over model = 2
+SP_MAX_LEN = S + 8
+
+
+def _sp_serve_rank(rank, world, arch, prompts):
+    from repro_torch.distributed import reshard
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import param_specs, rules_for
+    from repro_torch.models import init_params
+    from repro_torch.roofline.collectives import CollectiveCounter
+    cfg = _cfg(arch)
+    mesh = make_host_mesh(1, 2)
+    rules = rules_for(mesh, "decode", cfg)
+    model = init_params(0, cfg, device="cpu")
+    specs = param_specs(cfg, model, rules, mesh)
+    reshard(model, mesh, lambda name, _: specs[name])
+    layouts, counter = [], CollectiveCounter()
+    logits, toks = _serve(cfg, model, mesh, rules, prompts,
+                          max_len=SP_MAX_LEN, layouts=layouts,
+                          counter=counter)
+    return {"logits": logits, "tokens": toks, "layouts": layouts,
+            "events": [(e.kind, e.shapes, e.operand_bytes)
+                       for e in counter.events]}
+
+
+@pytest.mark.parametrize("arch", SP_ARCHS)
+def test_seq_sharded_cache_decodes_sharded_and_matches_the_unsharded(
+        worlds, arch):
+    """A cache whose sequence is sharded over model (1, 2): prefill and 4
+    decode steps' logits within 1e-5 of their max against the unsharded
+    run, the greedy tokens equal; after every call each attention cache
+    (k, v or c_kv, k_rope) keeps its sequence sharded on model; no
+    collective of the decode steps takes a cache shard (the region scores
+    each shard where it lies), and their combine is an all-reduce."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.models import init_params
+    got = worlds["sp_serve"][arch]
+    cfg = _cfg(arch)
+    model = init_params(0, cfg, device="cpu")
+    logits, toks = _serve(cfg, model, None, None, _prompts(),
+                          max_len=SP_MAX_LEN)
+    for g, w in zip(got["logits"], logits, strict=True):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    assert torch.equal(got["tokens"], toks)
+    # the mesh is ("data", "model"): a placement's last entry is model's
+    attn = ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
+    for found in got["layouts"]:
+        cached = [pl for p, pl in found.items() if p.split("/")[-1] in attn]
+        assert cached and all(pl[-1] == Shard(1) for pl in cached), found
+    rows = (B, SP_MAX_LEN // 2)
+    shards = ({rows + (cfg.kv_lora,), rows + (cfg.qk_rope_dim,)}
+              if cfg.use_mla else {rows + (cfg.kv_heads, cfg.hd())})
+    kinds = {kind for kind, _, _ in got["events"]}
+    assert "all-reduce" in kinds                     # the shards' combine
+    assert not [e for e in got["events"] if shards & set(e[1])], shards
 
 
 # ---------------------------------------------------------------------------

@@ -18,23 +18,19 @@ reference package's and against counts made by hand.
   contracted dim (Mamba2's and RWKV6's state updates) is an elementwise
   product, which ``torch.einsum`` multiplies and torch's formulas do not
   count: it is printed beside the count and left out of it.  Prefill and
-  decode exact.  The train step within 1 % of the reference traced with
-  its chunk steps' ``jax.checkpoint`` taken out (the flash kv step, the
-  SSD and WKV chunk steps), since the port's chunk loops save their
-  intermediates where the reference recomputes them; the rest of the gap
-  is the backward of those elementwise products, which JAX contracts and
-  torch multiplies and sums.  The gap to the reference as it runs, with
-  its recompute, is printed.  No loop of these programs has a trip count
-  that is not static.
+  decode exact.  The train step within 1 % of the reference as it runs,
+  its chunk steps (the flash kv step, the SSD and WKV chunk steps) under
+  ``jax.checkpoint``: the port's chunk loops recompute what those
+  checkpoints recompute, five products a flash block in the backward
+  pass, ten an SSD or WKV chunk.  No loop of these programs has a trip
+  count that is not static.
 - ``argument_bytes`` of every architecture x {train, prefill, decode} x
   {16x16, 2x16x16}, from the port's specs with no world, against the
   shard bytes of the reference's abstract state
   (``NamedSharding(AbstractMesh, spec).shard_shape``).
 """
 
-import contextlib
 import dataclasses
-import functools
 import importlib
 import os
 
@@ -273,32 +269,6 @@ def _dot_flops(jaxpr, mult: int = 1) -> tuple[int, int]:
     return total, outer
 
 
-#: the reference's chunk steps under ``jax.checkpoint``: the flash kv step
-#: (``models/layers.py``) and the SSD and WKV chunk steps
-#: (``models/mamba2.py``, ``models/rwkv6.py``)
-CHUNK_STEPS = ("kv_step", "chunk_step")
-
-
-@contextlib.contextmanager
-def _chunk_steps_saved():
-    """The reference traced with its chunk steps' ``jax.checkpoint`` taken
-    out: the port's chunk loops save their intermediates for the backward
-    pass, where the reference's recompute them.  Every other checkpoint
-    (the CE chunk, the layer remat) stays, as the port's do."""
-    real = jax.checkpoint
-
-    def checkpoint(fun=None, **kw):
-        if fun is None:
-            return functools.partial(checkpoint, **kw)
-        return fun if fun.__name__ in CHUNK_STEPS else real(fun, **kw)
-
-    jax.checkpoint = checkpoint
-    try:
-        yield
-    finally:
-        jax.checkpoint = real
-
-
 B_PAR, S_PAR = 2, 64
 
 
@@ -381,8 +351,7 @@ def test_counted_flops_match_the_reference_jaxpr(arch):
                 lambda q: rmodels.loss_fn(q, b, rcfg)[0])(p))(
                     rparams, rb).jaxpr)
 
-    with _chunk_steps_saved():
-        want, outer = ref_train()
+    want, outer = ref_train()
     model.requires_grad_(True)
     tb = _torch_batch(batch, list(batch))
 
@@ -392,11 +361,9 @@ def test_counted_flops_match_the_reference_jaxpr(arch):
 
     got = count_step(step)["flops"]
     gap = got / want - 1.0
-    as_run = sum(ref_train())
-    print(f"{arch}: train FLOPs {got} vs the reference's {want} with its "
-          f"chunk steps saved ({gap:+.4%}; + {outer} of products without "
-          f"contraction); as the reference runs, recomputed: {as_run} "
-          f"({got / as_run - 1.0:+.4%})")
+    print(f"{arch}: train FLOPs {got} vs the reference's {want} as it runs, "
+          f"its chunk steps recomputed ({gap:+.4%}; + {outer} of products "
+          f"without contraction)")
     assert abs(gap) <= 0.01
 
 
