@@ -6,13 +6,15 @@ calls, and fails (non-zero exit) if any phase fails:
 
 1. environment: the card's name and power limit, CUDA, nvcc;
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
-   ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``, ``trsm``), all
-   nvcc runs started together, with nvcc's ``-Xptxas -v`` report
-   (registers, shared memory, spills).  Fails if any instantiation of the
-   kernels spills, or if the launch parameters they were built with
-   (threads, stages, shared bytes, passes; trsm's inverse kernel and
-   workspace too) or the GEMM's split-k plan differ from their Python
-   mirrors (``kernels/gemm.py::mainloop_params``, ``split_plan``,
+   ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``, ``trsm``,
+   ``gemm_bf16``), all nvcc runs started together, with nvcc's
+   ``-Xptxas -v`` report (registers, shared memory, spills).  Fails if any
+   instantiation of the kernels spills, or if the launch parameters they
+   were built with (threads, stages, shared bytes, passes; trsm's inverse
+   kernel and workspace too; the bf16 GEMM's warp grid) or the GEMMs'
+   split-k plan differ from their Python mirrors
+   (``kernels/gemm.py::mainloop_params`` at float32 and bfloat16,
+   ``split_plan``,
    ``kernels/syrk.py::rank_k_params``, ``kernels/trsm.py::trsm_params``);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
@@ -20,6 +22,12 @@ calls, and fails (non-zero exit) if any phase fails:
    the GEMM on ragged, aligned and decode (split-k) shapes, ``alpha``/``beta``
    with C, stacks with per-item and shared B, and operands with unaligned
    leading strides equal bit for bit to aligned copies of the same values;
+   the bf16 GEMM (``gemm_bf16``) under every tile on the same shapes and
+   deepseek-v2-lite's expert stacks against ``gemm_plain`` on the same
+   bf16 operands within ``BF16_TOL`` (one bf16 ulp), a bf16 accumulator
+   at k = 4096 reading above it, stacked == per-item, odd-stride operands
+   == aligned copies and ``run_op`` == the padded run bit for bit, every
+   recorded grid equal to ``full_grid_for``;
    symm, syrk/syr2k, trmm (every variant) and trsm through the port's
    conformance harness on its ragged dims and one aligned shape, with and
    without C, single and stacked (the error taken
@@ -129,6 +137,21 @@ calls, and fails (non-zero exit) if any phase fails:
    routed and the plain run, and the reckoning from the config (bytes a
    decode step reads, as launched, the prefill's operations, the KV
    cache);
+6g. bf16, in phase 6's process after its float32 checks: the same
+   float32 parameters served at ``compute_dtype="bfloat16"``, routed (each
+   linear casts its weight at the call, as the reference's ``linear``),
+   the same requests.  It fails unless the generate launches the bf16
+   GEMM 7,425 times and nothing else, every decision is the default knob
+   (no bf16 artifact) with no model evaluation, over a prefill and 4
+   teacher-forced steps every GEMM call lies within ``BF16_TOL`` of
+   ``gemm_plain`` on its operands, and the logits' distance from the
+   float32 plain model lies below ``BF16_MODEL_FACTOR`` times the plain
+   bf16 model's (reduced-precision reduction off), with every routed
+   product done with a bf16 accumulator above that limit.  It prints the
+   prefill's time and tokens/s, the median decode step and its host time,
+   the device profile (the bf16 GEMM's share, the weights' casts' share,
+   idle), every layer routed vs plain bf16 on its captured input, the
+   logits' distances and the greedy tokens of both runs;
 6b. the MoE model: a third fresh process, after phase 6's has exited,
    loads the installed ``hopper__gemm_b4`` artifact into a new runtime and
    serves deepseek-v2-lite-16b at full width and depth (27 layers: MLA,
@@ -276,7 +299,10 @@ calls, and fails (non-zero exit) if any phase fails:
    device times from ``torch.profiler``: the inverses take less than their
    call's host time); and
    the host's time per call of the GEMM wrapper against ``torch.matmul``
-   at a product too small to time the card.
+   at a product too small to time the card; the bf16 GEMM at phase 5's
+   linear shapes under the default tile (every bf16 call's) and the best
+   of its space, against ``gemm_plain``, ``torch.matmul`` in bf16 and the
+   bf16 bound (989.4 TFLOP/s, 3.35 TB/s at 2 bytes an element).
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
 (the ``run_op`` calls, the service, each model's generate) is driven with
@@ -297,6 +323,7 @@ prints no result line.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -319,7 +346,7 @@ SEED = 0
 
 #: the kernel sources of the main paths, built side by side
 KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm",
-                  "trmm_packed", "trsm")
+                  "trmm_packed", "trsm", "gemm_bf16")
 
 #: the reference conformance harness's ragged GEMM dims
 #: (src/repro/backends/conformance.py RAGGED_DIMS["gemm"]) and one aligned
@@ -346,6 +373,16 @@ STACK = 3
 #: what TF32 inputs (a 10-bit mantissa, unit roundoff 2**-11) give, so a
 #: TF32 path fails it.  Phase 3 checks that TF32-rounded inputs exceed it.
 F32_TOL = 2e-5
+#: max |got - plain| / max |plain| of the bf16 GEMM against ``gemm_plain``
+#: on the same bf16 operands (both sum in float32 and round once): one bf16
+#: ulp at the top binade, 2**-7.  Phase 3 checks that the same products
+#: with a bf16 accumulator (rounded every BF16_STEP contraction indices, an
+#: mma's depth and the default knob's bk) read above it at k = 4096
+BF16_TOL = 2.0 ** -7
+BF16_STEP = 16
+#: deepseek-v2-lite-16b's expert stack (64 experts, d_model 2048, expert
+#: width 1408) at the decode and prefill rows a phase-6b expert sees
+BF16_EXPERT_STACKS = ((64, 4, 2048, 1408), (64, 256, 2048, 1408))
 
 #: llama3-8b (src/repro/configs/llama3_8b.py): the (k, n) of its linears
 D_MODEL, KV_WIDTH, D_FF = 4096, 8 * 128, 14336
@@ -509,6 +546,17 @@ NEAR_TIE = 1e-5
 PROFILE_ATTEMPTS = 3
 #: the GEMM kernel's name in a profile (csrc/gemm.cu's ``gemm_kernel``)
 GEMM_KERNEL = re.compile(r"(^|[\s:])gemm_kernel<")
+#: the bf16 GEMM kernel's (csrc/gemm_bf16.cu's ``gemm_bf16_kernel``)
+GEMM_BF16_KERNEL = re.compile(r"(^|[\s:])gemm_bf16_kernel<")
+#: phase 6g: the bf16 model's teacher-forced logits are held to the
+#: float32 plain model's, as ||got - f32|| / ||f32|| (the max over the
+#: passes): the routed model's distance must lie below this many times the
+#: plain bf16 model's own (unrouted, the library's bf16 products with
+#: reduced-precision reduction off), and a bf16 accumulator's above it.  At
+#: 32 layers the routed and the plain bf16 model part by about as much as
+#: either parts from float32 (bf16's rounding noise saturates: 0.0194
+#: against 0.0212 on the H100, 700 W), so no limit between those two holds
+BF16_MODEL_FACTOR = 1.25
 
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 F32_PEAK_FLOPS = 67e12
@@ -546,7 +594,12 @@ KERNELS = {
              "src/repro/kernels/trsm.py:41"),
     "trsm_inv": ("cuda", "src/repro_torch/kernels/csrc/trsm.cu",
                  "src/repro/kernels/trsm.py:58"),
+    "gemm_bf16": ("cuda", "src/repro_torch/kernels/csrc/gemm_bf16.cu",
+                  "src/repro/kernels/gemm.py:55"),
 }
+#: the kernels whose main path is a model's generate (phase 6g) and not
+#: phase 5's run_op calls
+MODEL_ONLY_KERNELS = ("gemm_bf16",)
 
 
 def serve_cases() -> list[dict]:
@@ -604,11 +657,11 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _work(op: str, shapes, kw) -> tuple[float, float]:
+def _work(op: str, shapes, kw, itemsize: int = 4) -> tuple[float, float]:
     """Operations and bytes of one call: its BLAS operation count (gemm
     2mnk, symm 2m^2n, syrk n^2k, syr2k 2n^2k, trmm and trsm m^2n) and each
     input read once and the output written once (a triangular or symmetric
-    A counted as its lower triangle)."""
+    A counted as its lower triangle), ``itemsize`` bytes an element."""
     first = shapes[0]
     batch = first[0] if len(first) == 3 else 1
     with_c = kw.get("beta", 0.0) != 0.0
@@ -627,14 +680,16 @@ def _work(op: str, shapes, kw) -> tuple[float, float]:
         flops = batch * n * n * k * (2.0 if two else 1.0)
         words = batch * ((2 if two else 1) * n * k + n * n
                          + (n * (n + 1) / 2 if with_c else 0))
-    return flops, 4.0 * words
+    return flops, float(itemsize) * words
 
 
-def _bound(op: str, shapes, kw) -> tuple[float, str]:
+def _bound(op: str, shapes, kw, bf16: bool = False) -> tuple[float, str]:
     """Least ms the card needs for one call: :func:`_work`'s operations at
-    the f32 CUDA-core peak against its bytes at the HBM rate."""
-    flops, nbytes = _work(op, shapes, kw)
-    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    the f32 CUDA-core peak (bf16: the dense bf16 tensor-core peak) against
+    its bytes (4 an element; bf16 2) at the HBM rate."""
+    flops, nbytes = _work(op, shapes, kw, 2 if bf16 else 4)
+    peak = BF16_PEAK_TFLOPS * 1e12 if bf16 else F32_PEAK_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -682,9 +737,11 @@ def _device_ms(torch, fn, sets, iters: int) -> float:
                      f"{PROFILE_ATTEMPTS} profiles")
 
 
-def kernel_of(op: str, knob: dict) -> str:
+def kernel_of(op: str, knob: dict, dtype=None) -> str:
     """The kernel (a key of :data:`KERNELS`) a call of ``op`` under
-    ``knob`` runs."""
+    ``knob`` on operands of ``dtype`` (None: float32) runs."""
+    if op == "gemm" and str(dtype) == "torch.bfloat16":
+        return "gemm_bf16"
     if op in ("syrk", "syr2k"):
         return "rank_k_packed" if knob["variant"] == "tri_packed" \
             else "rank_k"
@@ -1641,9 +1698,11 @@ def _teacher_forced(torch, tf, model, cfg, rt, prompts, forced, steps: int,
     host never waiting on the card.  Returns the logits of every pass, the
     prefill's ms and each step's ms (CUDA events between consecutive
     passes), and each step's host ms (the time its ``decode_step`` call
-    takes to return)."""
+    takes to return).  The caches have the config's compute dtype, as
+    ``ServeSession`` makes them."""
     caches = tf.init_decode_state(cfg, prompts.shape[0], max_len,
-                                  dtype=torch.float32, device="cuda")
+                                  dtype=getattr(torch, cfg.compute_dtype),
+                                  device="cuda")
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
     host = []
     torch.cuda.synchronize()
@@ -1671,9 +1730,16 @@ def _logits_err(got: list, want: list) -> float:
                / w.double().abs().max().item() for g, w in zip(got, want))
 
 
-def _device_profile(torch, fn, label=None) -> dict:
+def _logits_rms(got: list, want: list) -> float:
+    """Largest ||got - want|| / ||want|| (2-norms) over every pass."""
+    return max(((g.double() - w.double()).norm() / w.double().norm()).item()
+               for g, w in zip(got, want))
+
+
+def _device_profile(torch, fn, label=None, kernel=GEMM_KERNEL) -> dict:
     """``fn`` under ``torch.profiler`` (device activity only): the device
-    time by kernel name, the GEMM kernel's share of it, and the device's
+    time by kernel name, the GEMM kernel's share of it (``kernel`` matches
+    its name: the float32 kernel's by default), and the device's
     idle share between its first and its last operation (1 - the union of
     the operations' intervals over that span).  With ``label`` (a launch
     grid -> a name), also the GEMM kernel's time by the label of each
@@ -1705,7 +1771,7 @@ def _device_profile(torch, fn, label=None) -> dict:
     busy += hi - lo
     window = spans[-1][1] - spans[0][0]
     total = sum(by_name.values())
-    gemm = sum(us for name, us in by_name.items() if GEMM_KERNEL.search(name))
+    gemm = sum(us for name, us in by_name.items() if kernel.search(name))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:MODEL_TOP_OPS]
     by_label = None
     if label is not None:
@@ -2215,6 +2281,11 @@ def model_main(registry_dir: str, arch: str) -> None:
                     mock.patch.object(rwkv6, "CUM_FLOOR", -math.inf):
                 free_floor = _logits_err(
                     _one_ulp(torch, weights, plain_logits), plain_logits())
+        # 6g: the same float32 parameters served in bf16, before the TF32
+        # rounding below changes them
+        bf16 = (model_bf16(torch, tf, model, cfg, artifact, prompts, stub,
+                           check, want, max_len, extra)
+                if arch == "llama3-8b" else None)
         # the precision the limits must reject: the same plain passes, and
         # each layer's and the head's, with those weights rounded to TF32's
         # 10-bit mantissa, in place (the model's last use)
@@ -2245,9 +2316,280 @@ def model_main(registry_dir: str, arch: str) -> None:
         "head_tf32": head_tf32, "head_floor": head_floor, "peak_gb": peak_gb,
         "parity": parity, "flips": flips, "stacks": stacks, "ssm": ssm,
         "profile": profile, "decode_profile": decode_profile,
-        "encoder_profile": encoder_profile,
+        "encoder_profile": encoder_profile, "bf16": bf16,
         "reckoning": _reckoning(cfg, MODEL_REQUESTS, MODEL_PROMPT,
                                 max_len)}), flush=True)
+
+
+def model_bf16(torch, tf, model, cfg, artifact, prompts, stub, check, want,
+               max_len: int, extra: dict) -> dict:
+    """Phase 6g, in phase 6's process after its float32 checks: the same
+    float32 parameters served at ``compute_dtype="bfloat16"``, routed (each
+    linear casts its weight to bf16 at the call, as the reference's
+    ``linear`` does), from a fresh runtime holding the installed float32
+    artifact (``artifact``; None holds nothing), which has no bf16 model:
+    one ``generate`` (its launches and decisions), the teacher-forced
+    prefill and decode times, a device profile (the bf16 GEMM's share and
+    idle) and one with the host (the weight casts' share), every GEMM call
+    of a prefill + :data:`MODEL_CHECK_STEPS` steps forced on the float32
+    plain model's tokens ``check`` against ``gemm_plain`` on its operands,
+    those passes' logits, the plain bf16 model's and a control's (every
+    routed product with a bf16 accumulator) against each other and the
+    float32 plain logits ``want``, and each layer routed vs plain bf16 on
+    its captured input.  The library's bf16 products run with
+    reduced-precision reduction off, as phase 6 runs them with TF32 off."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import AdsalaRuntime
+    from repro_torch.core.registry import load_subroutine
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import introspect
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models import layers
+
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    cfg_b = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    plain_b = dataclasses.replace(cfg_b, use_pallas_gemm=False)
+    rt = AdsalaRuntime()
+    if artifact is not None:
+        rt.register(load_subroutine(artifact))
+    default = kops.default_knob("gemm")
+    knobs = collections.Counter()
+    select = rt.select_or_default
+
+    def recording(op, dims, dtype_bytes, dflt, *, backend="hopper"):
+        knob = select(op, dims, dtype_bytes, dflt, backend=backend)
+        knobs[(op, int(dtype_bytes), knob == default)] += 1
+        return knob
+
+    try:
+        rt.select_or_default = recording
+        sess = ServeSession(cfg=cfg_b, params=model, max_len=max_len,
+                            runtime=rt, device="cuda")
+        introspect.reset_launches()
+        t0 = time.perf_counter()
+        tokens = sess.generate(prompts, max_new=MODEL_NEW, **stub)
+        generate_s = time.perf_counter() - t0
+        launches = introspect.launch_counts()
+        del rt.select_or_default
+        stats = rt.stats.for_backend("hopper")
+        decisions = {"calls": stats.calls,
+                     "default_calls": stats.default_calls,
+                     "model_evals": stats.model_evals,
+                     "eval_failures": rt.stats.eval_failures,
+                     "knobs": [[*key, n] for key, n in sorted(knobs.items())]}
+        p_t = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+        forced = torch.as_tensor(tokens, dtype=torch.long, device="cuda")
+        cast = layers.Ctx.cast
+
+        def annotated(self, x):
+            if not isinstance(x, torch.nn.Parameter):
+                return cast(self, x)
+            with torch.profiler.record_function("weight_cast"):
+                return cast(self, x)
+
+        with torch.inference_mode():
+            _, prefill_ms, step_ms, host_ms = _teacher_forced(
+                torch, tf, model, cfg_b, rt, p_t, forced, MODEL_NEW, max_len,
+                extra)
+
+            def passes():
+                return _teacher_forced(torch, tf, model, cfg_b, rt, p_t,
+                                       forced, MODEL_CHECK_STEPS, max_len,
+                                       extra)
+
+            prof = _device_profile(torch, passes, kernel=GEMM_BF16_KERNEL)
+            # the weights' casts: their record_function ranges, with the
+            # host traced too (which slows it: idle is read above)
+            with mock.patch.object(layers.Ctx, "cast", annotated), \
+                    profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as hprof:
+                passes()
+                torch.cuda.synchronize()
+            cast_ms = _annotated_ms(hprof, "weight_cast")
+            cast_device_ms = sum(
+                e.time_range.end - e.time_range.start
+                for e in hprof.events()
+                if e.device_type == DeviceType.CUDA) / 1e3
+            plain_tokens = ServeSession(
+                cfg=plain_b, params=model, max_len=max_len,
+                device="cuda").generate(prompts, max_new=MODEL_NEW, **stub)
+            # every routed GEMM call against gemm_plain on its operands
+            calls = []
+            run_op = kops.run_op
+
+            def checked(op, operands, **kw):
+                out = run_op(op, operands, **kw)
+                calls.append(_rel_err(out, G.gemm_plain(*operands)))
+                return out
+
+            with mock.patch.object(kops, "run_op", checked):
+                routed = _teacher_forced(torch, tf, model, cfg_b, rt, p_t,
+                                         check, MODEL_CHECK_STEPS, max_len,
+                                         extra)[0]
+            plain = _teacher_forced(torch, tf, model, plain_b, None, p_t,
+                                    check, MODEL_CHECK_STEPS, max_len,
+                                    extra)[0]
+            # the control: every routed product with a bf16 accumulator
+            with mock.patch.object(kops, "run_op",
+                                   lambda op, xs, **kw:
+                                   _bf16_accumulated(torch, *xs)):
+                control = _teacher_forced(torch, tf, model, cfg_b, rt, p_t,
+                                          check, MODEL_CHECK_STEPS, max_len,
+                                          extra)[0]
+            readings = {name: (_logits_err(g, w), _logits_rms(g, w))
+                        for name, g, w in (("routed_plain", routed, plain),
+                                           ("routed_f32", routed, want),
+                                           ("plain_f32", plain, want),
+                                           ("control_f32", control, want))}
+            # each layer routed and plain on the plain bf16 run's captured
+            # input and cache (a reading: how far one layer parts)
+            seen, _, remove = _layer_inputs(torch, model)
+            _teacher_forced(torch, tf, model, plain_b, None, p_t, check,
+                            MODEL_CHECK_STEPS, max_len, extra)
+            remove()
+            layer = [(_rel_err(x, y), (x == y).double().mean().item())
+                     for x, y in zip(_layer_outputs(model, cfg_b, rt, seen),
+                                     _layer_outputs(model, plain_b, None,
+                                                    seen))]
+            del seen
+            dtypes = sorted({str(x.dtype) for x in routed + plain})
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    return {"launches": launches, "decisions": decisions,
+            "generate_s": generate_s, "tokens": tokens.tolist(),
+            "plain_tokens": plain_tokens.tolist(), "prefill_ms": prefill_ms,
+            "step_ms": step_ms, "host_ms": host_ms, "profile": prof,
+            "cast_ms": cast_ms, "cast_device_ms": cast_device_ms,
+            "calls": len(calls), "call_err": max(calls),
+            "readings": readings, "logit_dtypes": dtypes,
+            "layer_err": max(e for e, _ in layer),
+            "layer_equal": min(q for _, q in layer), "layers": len(layer),
+            "expected": _gemm_calls(cfg, False)
+            + MODEL_NEW * _gemm_calls(cfg, True)}
+
+
+def report_model_bf16(card: str, res: dict) -> None:
+    """Print phase 6g's lines and fail unless the bf16 generate launched
+    the bf16 GEMM once a linear and pass and nothing else, every decision
+    took the default knob with no model evaluation, every GEMM call lay
+    within :data:`BF16_TOL` of ``gemm_plain`` on its operands and the
+    logits' distance from the float32 model below
+    :data:`BF16_MODEL_FACTOR` times the plain bf16 model's, with a bf16
+    accumulator's above that limit."""
+    steps = sorted(res["step_ms"])
+    mid = len(steps) // 2
+    prof = res["profile"]
+    dec = res["decisions"]
+    tokens = MODEL_REQUESTS * MODEL_PROMPT
+    print(f"[model:bf16] [{card}] llama3-8b at full width and depth, the "
+          f"same float32 parameters at compute_dtype bfloat16, routed (each "
+          f"linear casts its weight at the call): generate {MODEL_REQUESTS} "
+          f"x {MODEL_PROMPT} prompt tokens, {MODEL_NEW} new (greedy) in "
+          f"{res['generate_s']:.3f} s; launches {res['launches']} (expected "
+          f"gemm_bf16 {res['expected']}); decisions {dec}", flush=True)
+    print(f"[model:bf16] [{card}] prefill {res['prefill_ms']:.3f} ms "
+          f"({tokens / res['prefill_ms'] * 1e3:.1f} tokens/s) | decode per "
+          f"step median {steps[mid]:.3f} ms over {len(steps)} (min "
+          f"{steps[0]:.3f}, max {steps[-1]:.3f}) | host per step median "
+          f"{sorted(res['host_ms'])[mid]:.3f} ms", flush=True)
+    print(f"[model:bf16] [{card}] profile of one prefill + "
+          f"{MODEL_CHECK_STEPS} decode steps (torch.profiler, device "
+          f"activity): window {prof['window_ms']:.3f} ms, busy "
+          f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.4f}; "
+          f"gemm_bf16 {prof['gemm_ms']:.3f} ms = {prof['gemm_share']:.4f} "
+          f"of device time {prof['device_ms']:.3f} ms; the weights' casts "
+          f"(host traced too) {res['cast_ms']:.3f} ms = "
+          f"{res['cast_ms'] / res['cast_device_ms']:.4f} of device time "
+          f"{res['cast_device_ms']:.3f} ms", flush=True)
+    for name, ms in prof["top"]:
+        print(f"[model:bf16:top] [{card}] {ms:10.3f} ms  {name}", flush=True)
+    print(f"[model:bf16] [{card}] every GEMM call of the routed "
+          f"teacher-forced passes against gemm_plain on its operands "
+          f"({res['calls']} calls): max |got - plain| / max |plain| "
+          f"{res['call_err']:.3e}, limit BF16_TOL {BF16_TOL:.3e}", flush=True)
+    rd = res["readings"]
+    limit = BF16_MODEL_FACTOR * rd["plain_f32"][1]
+    print(f"[model:bf16] [{card}] every layer routed vs plain bf16 on the "
+          f"plain bf16 run's captured input and cache ({res['layers']} layer "
+          f"passes; a reading): max rel err {res['layer_err']:.3e}, least "
+          f"share of bit-equal outputs {res['layer_equal']:.4f}", flush=True)
+    print(f"[model:bf16] [{card}] teacher-forced logits "
+          f"({', '.join(res['logit_dtypes'])}), prefill + {MODEL_CHECK_STEPS} "
+          f"decode steps on the float32 plain model's greedy tokens, as "
+          f"max |d| / max |ref| and ||d|| / ||ref||: " + "; ".join(
+              f"{name.replace('_', ' vs ')} {mx:.3e}, {rms:.3e}"
+              for name, (mx, rms) in rd.items())
+          + f" (plain: torch.matmul in bf16, reduced-precision reduction "
+          f"off; f32: phase 6's plain model; control: every routed product "
+          f"with a bf16 accumulator); limit {BF16_MODEL_FACTOR:g} x plain "
+          f"vs f32 = {limit:.3e} (||d|| / ||ref||): routed vs f32 below it, "
+          f"the control above", flush=True)
+    agree = [sum(a == b for a, b in zip(r, p))
+             for r, p in zip(res["tokens"], res["plain_tokens"])]
+    for r, p, n in zip(res["tokens"], res["plain_tokens"], agree):
+        print(f"[model:bf16:tokens] routed {r}\n[model:bf16:tokens] plain  "
+              f"{p} ({n}/{MODEL_NEW} agree)", flush=True)
+    want = {k: 0 for k in KERNELS}
+    want["gemm_bf16"] = res["expected"]
+    if res["launches"] != want:
+        raise SystemExit(f"[model:bf16] launches {res['launches']}, expected "
+                         f"{want}")
+    if dec["model_evals"] or dec["eval_failures"] \
+            or dec["default_calls"] != dec["calls"] \
+            or dec["knobs"] != [["gemm", 2, True, res["expected"]]]:
+        raise SystemExit(f"[model:bf16] decisions other than the default "
+                         f"knob at 2 bytes: {dec}")
+    if not res["call_err"] <= BF16_TOL:
+        raise SystemExit(f"[model:bf16] GEMM calls {res['call_err']:.3e} "
+                         f"from gemm_plain, limit {BF16_TOL:.3e}")
+    if not rd["routed_f32"][1] < limit < rd["control_f32"][1]:
+        raise SystemExit(f"[model:bf16] logits {rd['routed_f32'][1]:.3e} "
+                         f"from the float32 model, the bf16 accumulator's "
+                         f"{rd['control_f32'][1]:.3e}, limit {limit:.3e} "
+                         f"({BF16_MODEL_FACTOR:g} x the plain bf16 model's "
+                         f"{rd['plain_f32'][1]:.3e})")
+
+
+def bf16_model_main() -> None:
+    """Phase 6g alone, without phase 4's install (every decision the
+    default all the same): llama3-8b at full width and depth drawn from
+    the seed, the float32 plain model's greedy tokens and teacher-forced
+    logits, then :func:`model_bf16` and its report."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeSession, stub_inputs
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()[0]
+    cfg = dataclasses.replace(get_config("llama3-8b"), use_pallas_gemm=True,
+                              compute_dtype="float32")
+    plain = dataclasses.replace(cfg, use_pallas_gemm=False)
+    max_len = MODEL_PROMPT + MODEL_NEW + 8
+    model = tf.init_params(SEED, cfg, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (MODEL_REQUESTS, MODEL_PROMPT),
+                           dtype=np.int32)
+    stub = stub_inputs(cfg, MODEL_REQUESTS, rng)
+    p_t = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        check = torch.as_tensor(ServeSession(
+            cfg=plain, params=model, max_len=max_len,
+            device="cuda").generate(prompts, max_new=MODEL_NEW, **stub),
+            dtype=torch.long, device="cuda")
+        want = _teacher_forced(torch, tf, model, plain, None, p_t, check,
+                               MODEL_CHECK_STEPS, max_len, {})[0]
+    report_model_bf16(card, model_bf16(torch, tf, model, cfg, None, prompts,
+                                       stub, check, want, max_len, {}))
 
 
 def report_model(card: str, arch: str, res: dict) -> None:
@@ -3440,6 +3782,8 @@ def check_build() -> None:
     parameters and split-k plan compiled into the kernels equal their
     Python mirrors."""
     import ctypes
+
+    import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import symm as S
@@ -3453,7 +3797,7 @@ def check_build() -> None:
                         ("rank_k_packed", len(K.TILES)),
                         ("trmm", len(TM.TILES)),
                         ("trmm_packed", len(TM.TILES)),
-                        ("trsm", trsm_count)):
+                        ("trsm", trsm_count), ("gemm_bf16", len(G.TILES))):
         entries = _ptxas_entries(name)
         spilled = [e for e in entries if e[2] != 0]
         if len(entries) != count or spilled:
@@ -3505,9 +3849,29 @@ def check_build() -> None:
             raise SystemExit(f"[build:gemm] split at {(m, k, n)} tile "
                              f"{bm}x{bn}: C {(out[0], out[1])}, Python "
                              f"{G.split_plan(m, n, k, bm, bn)}")
-    print(f"[build] launch parameters of {len(configs) + len(T.TILES)} "
-          f"tiles and the split plan at {len(dims)} dims x {len(G.TILES)} "
-          f"tiles equal their Python mirrors", flush=True)
+    # the bf16 GEMM: its parameters (and warp grid) and its split plan
+    bf16 = _build.load("gemm_bf16")
+    out6 = (ctypes.c_int * 6)()
+    for bm, bk, bn in sorted(G.TILES):
+        p = G.mainloop_params(bm, bk, bn, torch.bfloat16)
+        want = [p["threads"], p["stages"], p["smem"], p["passes"],
+                *p["warps"]]
+        if bf16.repro_gemm_bf16_config(bm, bk, bn, out6) != 0 \
+                or list(out6) != want:
+            raise SystemExit(f"[build:gemm_bf16] tile {(bm, bk, bn)}: built "
+                             f"with {list(out6)}, mainloop_params {want}")
+    bf16_dims = [*dims, *((e, m, k) for e, m, k, _ in BF16_EXPERT_STACKS)]
+    for (m, k, n), (bm, _bk, bn) in itertools.product(bf16_dims,
+                                                       sorted(G.TILES)):
+        bf16.repro_gemm_bf16_split(m, n, k, bm, bn, out)
+        if (out[0], out[1]) != G.split_plan(m, n, k, bm, bn):
+            raise SystemExit(f"[build:gemm_bf16] split at {(m, k, n)} tile "
+                             f"{bm}x{bn}: C {(out[0], out[1])}, Python "
+                             f"{G.split_plan(m, n, k, bm, bn)}")
+    print(f"[build] launch parameters of "
+          f"{len(configs) + len(T.TILES) + len(G.TILES)} tiles and the "
+          f"split plans at {len(dims)} dims x {len(G.TILES)} tiles (bf16: "
+          f"{len(bf16_dims)} dims) equal their Python mirrors", flush=True)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -3582,6 +3946,136 @@ def check_gemm(torch, rand) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[kernel:gemm] torch.matmul with TF32 allowed at (256,512,384): "
           f"rel err {lib_tf32:.3e}", flush=True)
+
+
+def _bf16_accumulated(torch, a, b):
+    """``a @ b`` (``a`` may be stacked, ``b`` 2-D) with a bf16
+    accumulator: the running sum rounded to bf16 after every
+    :data:`BF16_STEP` contraction indices (the control that
+    :data:`BF16_TOL` and phase 6g's limit must reject)."""
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.bfloat16,
+                      device=a.device)
+    for k0 in range(0, a.shape[-1], BF16_STEP):
+        acc = (acc.float() + a[..., k0:k0 + BF16_STEP].float()
+               @ b[k0:k0 + BF16_STEP].float()).bfloat16()
+    return acc
+
+
+def check_gemm_bf16(torch, rand) -> None:
+    """The bf16 GEMM under every tile against ``gemm_plain`` on the same
+    bf16 operands, held to :data:`BF16_TOL`: ragged, aligned and decode
+    (split-k) shapes, ``alpha``/``beta`` with C, stacks with per-item and
+    shared B and deepseek's expert stacks, each launch's recorded grid
+    equal to ``full_grid_for``; stacked == per-item, odd-stride operands ==
+    aligned copies and ``run_op`` == the padded run bit for bit; the bf16
+    accumulator's reading above the limit."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.padded_ref import block_knob, padded_run
+
+    def brand(*shape):
+        return rand(*shape).bfloat16()
+
+    space = ops.knob_space_for("gemm")
+    worst, worst_abs, checks, control = 0.0, 0.0, 0, math.inf
+    cases = []
+    for m, k, n in KERNEL_DIMS:
+        a, b, c = brand(m, k), brand(k, n), brand(m, n)
+        sa, sb, sc = brand(STACK, m, k), brand(STACK, k, n), brand(STACK, m, n)
+        cases += [((a, b, None), 1.0, 0.0), ((a, b, c), 0.5, 2.0),
+                  ((sa, sb, sc), 0.5, 2.0), ((sa, b, sc), 0.5, 2.0)]
+        if k == 4096:
+            plain = G.gemm_plain(a, b)
+            control = min(control, _rel_err(_bf16_accumulated(torch, a, b),
+                                            plain))
+    for e, m, k, n in BF16_EXPERT_STACKS:
+        cases.append(((brand(e, m, k), brand(e, k, n), None), 1.0, 0.0))
+    if not control > BF16_TOL:
+        raise SystemExit(f"[kernel:gemm_bf16] a bf16 accumulator at k = 4096 "
+                         f"passes the limit ({control:.3e})")
+    for (x, y, z), alpha, beta in cases:
+        plain = G.gemm_plain(x, y, z, alpha=alpha, beta=beta)
+        (m, k), n = x.shape[-2:], y.shape[-1]
+        batch = x.shape[0] if x.dim() == 3 else 1
+        # every item of a stack of STACK, three of an expert stack
+        items = sorted({0, batch // 2, batch - 1}) if x.dim() == 3 else []
+        for knob in space:
+            tile = {key: knob[key] for key in ("bm", "bk", "bn")}
+            with I.capture_launches() as launched:
+                got = G.gemm(x, y, z, alpha=alpha, beta=beta, **tile)
+            grid = I.full_grid_for("gemm_bf16", (m, k, n), tile["bm"],
+                                   tile["bn"], batch=batch)
+            if launched != [("gemm_bf16", grid)] \
+                    or got.dtype != torch.bfloat16:
+                raise SystemExit(f"[kernel:gemm_bf16] {tile} "
+                                 f"{tuple(x.shape)}: launched {launched}, "
+                                 f"formula {grid}, dtype {got.dtype}")
+            err = _rel_err(got, plain)
+            worst = max(worst, err)
+            worst_abs = max(worst_abs,
+                            (got.float() - plain.float()).abs().max().item())
+            checks += 1
+            if not err <= BF16_TOL:
+                raise SystemExit(f"[kernel:gemm_bf16] {tile} "
+                                 f"{tuple(x.shape)}@{tuple(y.shape)}: rel "
+                                 f"err {err:.3e} vs plain")
+            for i in items:
+                one = G.gemm(x[i], y[i] if y.dim() == 3 else y,
+                             None if z is None else z[i], alpha=alpha,
+                             beta=beta, **tile)
+                if not torch.equal(one.view(torch.int16),
+                                   got[i].view(torch.int16)):
+                    raise SystemExit(f"[kernel:gemm_bf16] {tile} "
+                                     f"{tuple(x.shape)}: stacked item {i} "
+                                     f"differs from per-item")
+    # odd leading strides (2-byte loads) == aligned copies (16-byte)
+    for m, k, n in UNALIGNED_DIMS:
+        a, b, c = brand(m, k), brand(k, n), brand(m, n)
+        ua, ub = _unaligned(torch, a), _unaligned(torch, b)
+        if not G.vec_aligned((a, k, 0), (b, n, 0)) \
+                or G.vec_aligned((ua, k + 1, 0)):
+            raise SystemExit(f"[kernel:gemm_bf16] {(m, k, n)}: the aligned "
+                             f"and odd-stride copies do not take the two "
+                             f"paths")
+        for knob in space:
+            tile = {key: knob[key] for key in ("bm", "bk", "bn")}
+            aligned = G.gemm(a, b, c, alpha=0.5, beta=2.0, **tile)
+            for x, y in ((ua, b), (a, ub), (ua, ub)):
+                checks += 1
+                got = G.gemm(x, y, c, alpha=0.5, beta=2.0, **tile)
+                if not torch.equal(got.view(torch.int16),
+                                   aligned.view(torch.int16)):
+                    raise SystemExit(f"[kernel:gemm_bf16] {tile} at "
+                                     f"{(m, k, n)}: odd strides differ from "
+                                     f"aligned bit for bit")
+    # run_op == the padded run, no copy on its dispatch path
+    knob = block_knob("gemm", 128)
+    for m, k, n in CONTRACT_DIMS["gemm"]:
+        xs = (brand(m, k), brand(k, n))
+        counts = I.copy_op_counts(ops.run_op, "gemm", xs, knob=knob)
+        with I.capture_launches() as launched:
+            got = ops.run_op("gemm", xs, knob=knob)
+        want = padded_run("gemm", xs)
+        checks += 1
+        grid = I.full_grid_for("gemm_bf16", (m, k, n), 128, 128)
+        if counts or launched != [(kernel_of("gemm", knob.dict, got.dtype),
+                                   grid)] \
+                or not torch.equal(got.view(torch.int16),
+                                   want.view(torch.int16)):
+            raise SystemExit(f"[contract:gemm_bf16] at {(m, k, n)}: copies "
+                             f"{counts}, launched {launched} (formula "
+                             f"{grid}), or masked != padded bit for bit")
+    torch.cuda.synchronize()
+    print(f"[kernel:gemm_bf16] {checks} checks over {len(space)} tiles: max "
+          f"|got - plain| / max |plain| {worst:.3e} (<= BF16_TOL "
+          f"{BF16_TOL:.3e}, one bf16 ulp), max abs err vs plain "
+          f"{worst_abs:.3e}; deepseek expert stacks {BF16_EXPERT_STACKS} "
+          f"included; recorded grids == full_grid_for; stacked == per-item, "
+          f"odd strides == aligned at {UNALIGNED_DIMS} and run_op == padded "
+          f"run at {CONTRACT_DIMS['gemm']} (no copy op) bit for bit; a bf16 "
+          f"accumulator (rounded every {BF16_STEP} k) at k = 4096: "
+          f"{control:.3e} (> {BF16_TOL:.3e})", flush=True)
 
 
 def check_2d_ops(torch, rand) -> None:
@@ -3660,9 +4154,11 @@ def check_2d_ops(torch, rand) -> None:
 
 
 def _unaligned(torch, x):
-    """``x``'s values in a view whose leading stride is one float longer:
-    not a multiple of 4 where x's is, so the kernels take 4-byte copies."""
-    wide = torch.zeros(*x.shape[:-1], x.shape[-1] + 1, device=x.device)
+    """``x``'s values in a view whose leading stride is one element longer:
+    not a multiple of 16 bytes where x's is, so the kernels take their
+    narrow copies (4-byte copies of float32, 2-byte loads of bf16)."""
+    wide = torch.zeros(*x.shape[:-1], x.shape[-1] + 1, dtype=x.dtype,
+                       device=x.device)
     wide[..., :x.shape[-1]] = x
     return wide[..., :x.shape[-1]]
 
@@ -4097,6 +4593,80 @@ def time_rows(torch, card: str, rows: list[dict]) -> dict:
     return totals
 
 
+def time_bf16_rows(torch, card: str) -> tuple[dict, float]:
+    """Phase 7's bf16 GEMM rows: phase 5's linear shapes (T = 8 and 2048
+    against each llama3-8b weight) in bf16, the default tile (every bf16
+    call's knob: no install has a bf16 model) and the best of the space (a
+    reading), ``gemm_plain``, ``torch.matmul`` in bf16 with
+    reduced-precision reduction off (the library's yardstick) and the bf16
+    bound (989.4 TFLOP/s, 3.35 TB/s at 2 bytes an element).  Returns the
+    kernel's totals over the rows and its largest |kernel - plain|."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import ops
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    default = ops.default_knob("gemm").dict
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+             "ops_bound_ms": 0.0}
+    abs_err = 0.0
+    try:
+        for t in TOKENS:
+            for k, n in LINEARS:
+                shapes = [[t, k], [k, n]]
+                per_set = 2 * sum(math.prod(x) for x in shapes)
+                sets = [[torch.randn(x, generator=gen,
+                                     device="cuda").bfloat16()
+                         for x in shapes]
+                        for _ in range(max(1, math.ceil(120e6 / per_set)))]
+                ms = _time_ms(torch, _kernel_fn("gemm", default, {}), sets)
+                best_ms, best = min(
+                    ((_time_ms(torch, _kernel_fn("gemm", kn.dict, {}), sets,
+                               iters=3), kn.dict)
+                     for kn in ops.knob_space_for("gemm")),
+                    key=lambda v: v[0])
+                plain_ms = _time_ms(torch, G.gemm_plain, sets)
+                library_ms = _time_ms(torch, torch.matmul, sets)
+                bound_ms, bound_by = _bound("gemm", shapes, {}, bf16=True)
+                x, y = sets[0]
+                abs_err = max(abs_err, (_kernel_fn("gemm", default, {})(x, y)
+                                        .float() - G.gemm_plain(x, y).float())
+                              .abs().max().item())
+                del sets
+                total["ms"] += ms
+                total["plain_ms"] += plain_ms
+                total["library_ms"] += library_ms
+                total["bound_ms"] += bound_ms
+                if bound_by == "operations":
+                    total["ops_bound_ms"] += bound_ms
+                flops, nbytes = _work("gemm", shapes, {}, 2)
+                label = f"T={t} ({t},{k})@({k},{n}) bf16"
+                print(f"[times:gemm_bf16] [{card}] {label}: default "
+                      f"{_knob_str('gemm', default)} {ms:.4f} ms | best "
+                      f"{_knob_str('gemm', best)} {best_ms:.4f} ms "
+                      f"(best/default {ms / best_ms:.3f}x) | plain "
+                      f"{plain_ms:.4f} ms | library (torch.matmul bf16) "
+                      f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms "
+                      f"({bound_by})", flush=True)
+                rate = ("{:.2f} TFLOP/s".format(flops / ms / 1e9)
+                        if bound_by == "operations" else
+                        "{:.1f} GB/s".format(nbytes / ms / 1e6))
+                print(f"[rate] [{card}] {label}: default {rate}, "
+                      f"{100 * bound_ms / ms:.1f} % of bound; best "
+                      f"{100 * bound_ms / best_ms:.1f} %; library "
+                      f"{100 * bound_ms / library_ms:.1f} % (split "
+                      f"{G.split_plan(t, n, k, default['bm'], default['bn'])}"
+                      f")", flush=True)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    print(f"[times:gemm_bf16] [{card}] {2 * len(LINEARS)} calls: default "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library "
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms",
+          flush=True)
+    return total, abs_err
+
+
 def _inverse_work(m: int, bm: int, batch: int) -> tuple[float, float]:
     """Operations and bytes of the diagonal-block inverses: r^3 / 3 for a
     lower-triangular r x r block solved against I, its lower triangle read
@@ -4281,6 +4851,7 @@ def main(argv: list[str]) -> int:
             faulthandler.dump_traceback_later(120, exit=True)
             t0 = time.perf_counter()
             check_gemm(torch, rand)
+            check_gemm_bf16(torch, rand)
             check_2d_ops(torch, rand)
             check_trmm_paths(torch, rand)
             check_rank_k_paths(torch, rand)
@@ -4291,6 +4862,7 @@ def main(argv: list[str]) -> int:
         faulthandler.cancel_dump_traceback_later()
         return 0
     check_gemm(torch, rand)
+    check_gemm_bf16(torch, rand)
     check_2d_ops(torch, rand)
     check_trmm_paths(torch, rand)
     check_rank_k_paths(torch, rand)
@@ -4421,7 +4993,8 @@ def main(argv: list[str]) -> int:
         if not row["rel_err"] < F32_TOL:
             raise SystemExit(f"[serve] {row['label']}: rel err "
                              f"{row['rel_err']:.3e}")
-    unlaunched = [k for k in KERNELS if served["launches"][k] < 1]
+    unlaunched = [k for k in KERNELS if served["launches"][k] < 1
+                  and k not in MODEL_ONLY_KERNELS]
     if unlaunched:
         raise SystemExit(f"[serve] the main paths never launched "
                          f"{unlaunched}")
@@ -4463,15 +5036,20 @@ def main(argv: list[str]) -> int:
     report_retune(card, served["retune"])
     report_fleet(card, served["fleet"])
 
-    model_launches = {}
+    model_launches, bf16_model = {}, None
     for arch, (stdout, seconds) in models.items():
         res = json.loads(next(line for line in stdout.splitlines()
                               if line.startswith("MODEL_RESULT "))
                          .split(" ", 1)[1])
         report_model(card, arch, res)
         model_launches[arch] = res["launches"]["gemm"]
+        if res["bf16"] is not None:
+            report_model_bf16(card, res["bf16"])
+            bf16_model = res["bf16"]
         print(f"[{MODEL_PHASES[arch][0]}] phase {seconds:.1f} s (a fresh "
               f"process)", flush=True)
+    if bf16_model is None:
+        raise SystemExit("[model:bf16] phase 6g did not run")
 
     for tag, stdout, seconds in training:
         lines = stdout.splitlines()
@@ -4497,8 +5075,10 @@ def main(argv: list[str]) -> int:
           f"{TRAIN_BATCH * TRAIN_SEQ / (one_ms / 1e3):.1f}; 9a bit-equal "
           f"{meshed['bit_equal']}", flush=True)
 
-    # 7. times on the main paths' shapes
+    # 7. times on the main paths' shapes (the bf16 GEMM at phase 5's
+    # linear shapes)
     totals = time_rows(torch, card, served["rows"])
+    totals["gemm_bf16"], bf16_abs_err = time_bf16_rows(torch, card)
     # 10b, 10c: host work on fake tensors and numpy, after the last timed
     # phase, in a fresh process with the host to itself
     t0 = time.perf_counter()
@@ -4520,13 +5100,18 @@ def main(argv: list[str]) -> int:
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         t = totals[name]
-        # trsm_inv: its inverses against their plain version, per call
+        # trsm_inv: its inverses against their plain version, per call;
+        # gemm_bf16: phase 7's calls and phase 6g's generate
         errs = [r["inv_abs_err"] if name == "trsm_inv" else r["abs_err"]
                 for r in served["rows"]
                 if r["kernel"] == (name if name != "trsm_inv" else "trsm")]
+        launches = served["launches"][name]
+        if name == "gemm_bf16":
+            errs, launches = [bf16_abs_err], \
+                bf16_model["launches"]["gemm_bf16"]
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": served["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(errs), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": ("operations" if 2 * t["ops_bound_ms"]

@@ -32,8 +32,11 @@ class HopperBackend(Backend):
         return knob_space_for(op, sizes=tuple(sizes) if sizes else None)
 
     def supports_dtype(self, dtype) -> bool:
-        """The kernels take float32 only (as the reference's Pallas backend,
-        which reports float64 unsupported)."""
+        """float32 only (the reference's Pallas backend reports float64
+        unsupported).  The GEMM also takes bfloat16 (``csrc/gemm_bf16.cu``)
+        and symm, syrk/syr2k, trmm and trsm do not yet, so bfloat16 stays
+        unsupported here until every op takes it; calibration and
+        conformance ask only for what this reports."""
         if isinstance(dtype, torch.dtype):
             return dtype == torch.float32
         return np.dtype(dtype) == np.float32

@@ -79,12 +79,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launcher(name: str, argtypes: list, *, source: str | None = None):
-    """The launcher ``repro_{name}_f32`` of ``csrc/{source}.cu`` (``source``
-    defaults to ``name``), its argument types set once under the build
-    lock, so threads that launch together at first use never call it half
-    configured.  Every launcher returns a ``cudaError_t`` and takes, last,
-    an ``int[3]`` it writes the launched grid to (:func:`launch_grid`)."""
+def launcher(name: str, argtypes: list, *, source: str | None = None,
+             symbol: str | None = None):
+    """The launcher ``symbol`` (default ``repro_{name}_f32``) of
+    ``csrc/{source}.cu`` (``source`` defaults to ``name``), its argument
+    types set once under the build lock, so threads that launch together
+    at first use never call it half configured.  Every launcher returns a
+    ``cudaError_t`` and takes, last, an ``int[3]`` it writes the launched
+    grid to (:func:`launch_grid`)."""
     fn = _FUNCS.get(name)
     if fn is not None:
         return fn
@@ -92,7 +94,7 @@ def launcher(name: str, argtypes: list, *, source: str | None = None):
     with _LOCK:
         fn = _FUNCS.get(name)
         if fn is None:
-            fn = getattr(lib, f"repro_{name}_f32")
+            fn = getattr(lib, symbol or f"repro_{name}_f32")
             fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
             _FUNCS[name] = fn

@@ -1,5 +1,6 @@
-"""GEMM on the H100: ``O = alpha * A @ B + beta * C`` with a CUDA C++ kernel
-written for Hopper (``csrc/gemm.cu``), tiled by the knob ``(bm, bk, bn)``.
+"""GEMM on the H100: ``O = alpha * A @ B + beta * C`` with CUDA C++ kernels
+written for Hopper, tiled by the knob ``(bm, bk, bn)``: ``csrc/gemm.cu`` for
+float32 operands, ``csrc/gemm_bf16.cu`` (the tensor cores) for bfloat16.
 
 It takes the place of the reference package's Pallas kernel
 (``src/repro/kernels/gemm.py::gemm_pallas``) with the same semantics:
@@ -9,19 +10,22 @@ It takes the place of the reference package's Pallas kernel
   model-serving linear), read with batch stride 0 and never copied.
 * Ragged m/n/k need no padding: the kernel masks its edge tiles.
 * C is read only when ``beta != 0`` and a C was given; it has the output's
-  shape.  The output has A's dtype (float32, the only dtype the kernel
-  takes) and is accumulated in float32.
+  shape.  A, B and C are all float32 or all bfloat16; the output has A's
+  dtype and is accumulated in float32 either way (bf16 rounded once, at
+  the store, as the reference's ``_flush``).
 
-:func:`gemm` launches the kernel for CUDA tensors and records the launch
-and its grid with :func:`~repro_torch.kernels.introspect.record_launch`; for
-CPU tensors it computes :func:`gemm_plain`, the plain PyTorch version the
-tests and the chip smoke compare the kernel with.
+:func:`gemm` launches the kernel of the operands' dtype for CUDA tensors
+and records the launch and its grid with
+:func:`~repro_torch.kernels.introspect.record_launch` (as ``gemm`` or
+``gemm_bf16``); for CPU tensors it computes :func:`gemm_plain`, the plain
+PyTorch version the tests and the chip smoke compare the kernels with.
 
 A grid of fewer output tiles than the card has SMs splits the contraction
 (:func:`split_plan`, mirrored by the kernel): each slice sums its part into
 a per-call workspace and the last slice of a tile adds them in slice order,
 inside the same launch.  :func:`mainloop_params` gives the launch
-parameters ``csrc/sgemm_mainloop.cuh`` derives from a tile.
+parameters ``csrc/sgemm_mainloop.cuh`` and ``csrc/bf16_mainloop.cuh``
+derive from a tile.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ from repro_torch.core.knobs import HOPPER_TILES_K, HOPPER_TILES_MN
 from . import _build
 from .introspect import launch_events, record_launch
 
-__all__ = ["gemm", "gemm_plain", "TILES", "split_plan", "mainloop_params",
-           "ring_stages", "vec_aligned", "HOPPER_SMS"]
+__all__ = ["gemm", "gemm_plain", "TILES", "KERNEL_OF", "split_plan",
+           "mainloop_params", "ring_stages", "vec_aligned", "HOPPER_SMS"]
 
 #: the ``(bm, bk, bn)`` tiles ``csrc/gemm.cu`` is instantiated for
 TILES = frozenset(itertools.product(HOPPER_TILES_MN, HOPPER_TILES_K,
@@ -58,6 +62,11 @@ SMEM_MAX = 232448
 RING_BUDGET = SMEM_MAX // 2
 #: accumulators of one pass of the mainloop (256 threads x 8 x 8)
 MAX_PASS = 128 * 128
+#: the operand dtypes a GEMM kernel takes: dtype -> (kernel, C launcher)
+KERNEL_OF = {torch.float32: ("gemm", "repro_gemm_f32"),
+             torch.bfloat16: ("gemm_bf16", "repro_gemm_bf16")}
+#: elements a row of the bf16 mainloop's shared tiles is padded by
+BF16_PAD = 8
 
 
 def split_plan(m: int, n: int, k: int, bm: int, bn: int) -> tuple[int, int]:
@@ -84,15 +93,31 @@ def ring_stages(stage_bytes: int) -> int:
     return next((s for s in (4, 3) if s * stage_bytes <= RING_BUDGET), 2)
 
 
-def mainloop_params(bm: int, bk: int, bn: int) -> dict:
-    """The launch parameters ``csrc/sgemm_mainloop.cuh`` derives from the
-    tile ``(bm, bk, bn)`` (symm: ``bk`` = 64): the pass (at most 128 x 128
+def mainloop_params(bm: int, bk: int, bn: int,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """The launch parameters ``csrc/sgemm_mainloop.cuh`` (float32) or
+    ``csrc/bf16_mainloop.cuh`` (bfloat16) derives from the tile
+    ``(bm, bk, bn)`` (symm: ``bk`` = 64): the pass (at most 128 x 128
     accumulators; a larger tile runs its passes one after the other),
-    threads (128-256), the register tile, the stages of the cp.async ring
-    (as many of 2-4 as fit in :data:`RING_BUDGET`, else 2) and the dynamic
-    shared bytes."""
+    threads (128-256), the register tile (float32) or the warp grid and a
+    warp's tile (bfloat16: its A and B rows padded by :data:`BF16_PAD`
+    elements in shared memory), the stages of the cp.async ring (as many
+    of 2-4 as fit in :data:`RING_BUDGET`, else 2) and the dynamic shared
+    bytes."""
     pm, pn = (bm, bn) if bm * bn <= MAX_PASS else (min(bm, 128), min(bn, 128))
     threads = min(256, max(128, pm * pn // 64))
+    if dtype == torch.bfloat16:
+        warps = threads // 32
+        warps_n = 4 if pn >= 128 and warps == 8 else 2
+        warps_m = warps // warps_n
+        stage = 2 * (pm * (bk + BF16_PAD) + bk * (pn + BF16_PAD))
+        stages = ring_stages(stage)
+        return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
+                "threads": threads, "warps": (warps_m, warps_n),
+                "warp_tile": (pm // warps_m, pn // warps_n),
+                "stages": stages, "smem": stages * stage}
+    if dtype != torch.float32:
+        raise TypeError(f"no GEMM mainloop for {dtype}")
     stage = 4 * bk * (pm + pn)
     stages = ring_stages(stage)
     return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
@@ -103,8 +128,9 @@ def mainloop_params(bm: int, bk: int, bn: int) -> dict:
 def vec_aligned(*operands: tuple[torch.Tensor, int, int]) -> bool:
     """Whether every ``(tensor, leading stride, batch stride)`` allows the
     kernels' 16-byte copies: the data pointer 16-byte aligned and both
-    strides multiples of 4 floats."""
-    return all(t.data_ptr() % 16 == 0 and ld % 4 == 0 and sb % 4 == 0
+    strides multiples of 16 bytes (4 float32 or 8 bfloat16 elements)."""
+    return all(t.data_ptr() % 16 == 0 and (ld * t.element_size()) % 16 == 0
+               and (sb * t.element_size()) % 16 == 0
                for t, ld, sb in operands)
 
 _C_LL = ctypes.c_longlong
@@ -148,11 +174,13 @@ def _check(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None,
         raise ValueError(f"inner dims differ: A {tuple(a.shape)}, "
                          f"B {tuple(b.shape)}")
     tensors = (a, b) if c is None else (a, b, c)
+    if a.dtype not in KERNEL_OF or any(t.dtype != a.dtype for t in tensors):
+        raise TypeError("the GEMM kernels take float32 or bfloat16 operands, "
+                        "all of one dtype; got "
+                        + ", ".join(str(t.dtype) for t in tensors))
     for t in tensors:
         if t.device != a.device:
             raise ValueError(f"operands on {t.device} and {a.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the GEMM kernel takes float32, got {t.dtype}")
         if t.numel() and t.stride(-1) != 1:
             raise ValueError("the GEMM kernel needs rows with unit inner "
                              f"stride, got strides {t.stride()}")
@@ -174,9 +202,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     stride, such as a block row of a larger matrix; it may not overlap the
     operands), else into a new tensor.
 
-    On CUDA tensors this launches ``csrc/gemm.cu`` on the current stream
-    (no synchronisation) and raises if the launch is refused; on CPU
-    tensors it returns :func:`gemm_plain`."""
+    On CUDA tensors this launches the kernel of the operands' dtype
+    (``csrc/gemm.cu`` for float32, ``csrc/gemm_bf16.cu`` for bfloat16) on
+    the current stream (no synchronisation) and raises if the launch is
+    refused; on CPU tensors it returns :func:`gemm_plain`."""
     m, k, n, batch = _check(a, b, c, bm, bk, bn)
     shape = a.shape[:-1] + (n,)
     if out is not None and (tuple(out.shape) != tuple(shape)
@@ -214,7 +243,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             ws_ptr = ws.data_ptr()
             tickets_ptr = ws_ptr + 4 * n_ws
         stream = torch.cuda.current_stream().cuda_stream
-        launch = _build.launcher("gemm", _ARGTYPES)
+        kernel, symbol = KERNEL_OF[a.dtype]
+        launch = _build.launcher(kernel, _ARGTYPES, symbol=symbol)
         events = launch_events()
         rc = launch(
             bm, bk, bn, a.data_ptr(), b.data_ptr(),
@@ -227,8 +257,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             float(alpha), float(beta), int(has_c), int(vec), slices, length,
             stream, *events, grid)
     if rc != 0:
-        raise RuntimeError(f"GEMM kernel launch failed with CUDA error {rc} "
-                           f"(tile {bm}x{bk}x{bn}, A {tuple(a.shape)}, "
-                           f"B {tuple(b.shape)})")
-    record_launch("gemm", grid)
+        raise RuntimeError(f"GEMM kernel {kernel} launch failed with CUDA "
+                           f"error {rc} (tile {bm}x{bk}x{bn}, A "
+                           f"{tuple(a.shape)}, B {tuple(b.shape)})")
+    record_launch(kernel, grid)
     return out

@@ -53,9 +53,10 @@ __all__ = ["KERNELS", "record_launch", "launch_counts", "reset_launches",
            "packed_slot_ratio"]
 
 #: the kernels whose launches are recorded (``trsm`` the substitution of
-#: ``csrc/trsm.cu``, ``trsm_inv`` its diagonal-block inverses)
+#: ``csrc/trsm.cu``, ``trsm_inv`` its diagonal-block inverses,
+#: ``gemm_bf16`` the GEMM on bfloat16 operands, ``csrc/gemm_bf16.cu``)
 KERNELS = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm", "trmm_packed",
-           "trsm", "trsm_inv")
+           "trsm", "trsm_inv", "gemm_bf16")
 
 _LOCK = threading.Lock()
 _COUNTS: collections.Counter = collections.Counter()
@@ -208,11 +209,12 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     that one) of ``op`` at ``dims`` under the output tile ``bm x bn``
     (syrk/syr2k: the square tile ``bm``; ``bn`` is their contraction block
     and not part of the grid).  The GEMM's grid x counts the n-tiles of
-    every slice of :func:`~repro_torch.kernels.gemm.split_plan`.  ``trsm``
+    every slice of :func:`~repro_torch.kernels.gemm.split_plan`; the bf16
+    GEMM (``gemm_bf16``) launches the same grid.  ``trsm``
     is its substitution kernel, one block per column strip and item;
     ``trsm_inv`` its inverse kernel, one block per diagonal block, chunk of
     :data:`~repro_torch.kernels.trsm.INV_COLS` columns and item."""
-    if op == "gemm":
+    if op in ("gemm", "gemm_bf16"):
         # the n-tiles times the slices of a split contraction (grid x)
         from .gemm import split_plan
         m, k, n = dims

@@ -1,0 +1,256 @@
+"""The port's GEMM on bfloat16 operands against the reference package's
+(``gemm_pallas`` in interpret mode: bf16 in, a float32 accumulator, the
+output in A's dtype), and the routed smoke models at their configs' own
+``compute_dtype="bfloat16"`` against the reference's on the same weights.
+
+On the CPU the port's ``run_op`` computes the kernel's plain version
+(``gemm_plain``: float32 products and sums, one rounding to bf16); the
+tensor-core kernel itself (``csrc/gemm_bf16.cu``) is held to the same
+plain version on the card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
+The other five ops take float32 only and raise on bf16 until their bf16
+slice lands.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as rconfigs
+import repro.kernels.ops as ref_ops
+from repro.core.runtime import AdsalaRuntime as RefRuntime
+from repro.models import transformer as rtf
+import repro_torch.configs as pconfigs
+from repro_torch.core import AdsalaRuntime
+from repro_torch.kernels import gemm as G
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as ptf
+
+#: one bf16 ulp at the top binade: two roundings of float32 sums that
+#: differ only in their order land at most one ulp apart
+RTOL = 2.0 ** -7
+#: the reference's own bound for its bf16 kernels against float32
+#: (tests/test_kernels.py::test_pallas_bf16)
+REF_TOL = 0.05
+#: test_pallas_bf16's dims, a ragged shape (the reference's padding case)
+DIMS = ((128, 128, 128), (100, 50, 130))
+CASES = ("plain", "beta", "stack", "shared_b")
+
+
+def _operands(case, dims, seed=3):
+    """Seeded float32 numpy operands and the call's keywords; both
+    packages round the same values to bf16 (round to nearest even)."""
+    rng = np.random.default_rng(seed)
+    m, k, n = dims
+
+    def rand(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    if case == "plain":
+        return (rand(m, k), rand(k, n)), {}
+    if case == "beta":
+        return (rand(m, k), rand(k, n), rand(m, n)), {"alpha": 0.5,
+                                                      "beta": 2.0}
+    if case == "stack":
+        return (rand(3, m, k), rand(3, k, n), rand(3, m, n)), {"alpha": 1.5,
+                                                               "beta": -1.0}
+    if case == "shared_b":
+        return (rand(3, m, k), rand(k, n)), {}
+    raise ValueError(case)
+
+
+def _both(operands):
+    """The operands as bf16 tensors for the port and bf16 arrays for the
+    reference, checked to hold the same values."""
+    port = tuple(torch.from_numpy(x).to(torch.bfloat16) for x in operands)
+    ref = tuple(jnp.asarray(x, jnp.bfloat16) for x in operands)
+    for p, r in zip(port, ref):
+        assert np.array_equal(p.float().numpy(),
+                              np.asarray(r.astype(jnp.float32)))
+    return port, ref
+
+
+def _oracle(operands, alpha=1.0, beta=0.0):
+    """float64 of the bf16-rounded operands."""
+    xs = [x.double().numpy() for x in operands]
+    out = alpha * (xs[0] @ xs[1])
+    if len(xs) == 3 and beta != 0.0:
+        out = out + beta * xs[2]
+    return out
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("case", CASES)
+def test_gemm_bf16_matches_reference_pallas(case, dims):
+    operands, kw = _operands(case, dims)
+    port, ref = _both(operands)
+    got = ops.run_op("gemm", port, device="cpu", **kw)
+    want = ref_ops.run_op("gemm", ref, backend="pallas", interpret=True,
+                          **kw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert tuple(got.shape) == want.shape
+    got = got.double().numpy()
+    want = np.asarray(want.astype(jnp.float32), np.float64)
+    k = dims[1]
+    a, b = (x.double().abs().max().item() for x in port[:2])
+    atol = k * 2.0 ** -22 * a * b
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("case", CASES)
+def test_gemm_bf16_within_the_reference_tolerance_of_float64(case, dims):
+    operands, kw = _operands(case, dims)
+    port, ref = _both(operands)
+    want = _oracle(port, **kw)
+    scale = np.abs(want).max()
+    got = ops.run_op("gemm", port, device="cpu", **kw).double().numpy()
+    assert np.abs(got - want).max() / scale < REF_TOL
+    out = ref_ops.run_op("gemm", ref, backend="pallas", interpret=True, **kw)
+    out = np.asarray(out.astype(jnp.float32), np.float64)
+    assert np.abs(out - want).max() / scale < REF_TOL
+
+
+def test_gemm_rejects_mixed_and_other_dtypes():
+    a = torch.randn(4, 8).bfloat16()
+    b = torch.randn(8, 3).bfloat16()
+    with pytest.raises(TypeError, match="all of one dtype"):
+        G.gemm(a, b.float(), bm=64, bk=16, bn=64)
+    with pytest.raises(TypeError, match="all of one dtype"):
+        G.gemm(a, b, torch.zeros(4, 3), beta=1.0, bm=64, bk=16, bn=64)
+    with pytest.raises(TypeError):
+        G.gemm(a.half(), b.half(), bm=64, bk=16, bn=64)
+    assert G.gemm(a, b, bm=64, bk=16, bn=64).dtype == torch.bfloat16
+
+
+#: operands of the five ops that keep their float32-only kernels
+_F32_ONLY = {"symm": ((6, 6), (6, 5)), "syrk": ((6, 5),),
+             "syr2k": ((6, 5), (6, 5)), "trmm": ((6, 6), (6, 5)),
+             "trsm": ((6, 6), (6, 5))}
+
+
+@pytest.mark.parametrize("op", sorted(_F32_ONLY))
+def test_other_ops_raise_on_bf16(op):
+    xs = tuple(torch.randn(s).bfloat16() for s in _F32_ONLY[op])
+    with pytest.raises(TypeError, match="float32"):
+        ops.run_op(op, xs, device="cpu")
+
+
+def test_vec_aligned_counts_bytes():
+    """16-byte copies take strides of 8 bf16 elements, 4 float32 ones."""
+    x = torch.zeros(8, 64, dtype=torch.bfloat16)
+    assert G.vec_aligned((x, 64, 0), (x, 8, 512))
+    assert not G.vec_aligned((x, 4, 0))
+    assert G.vec_aligned((x.float(), 4, 0))
+    assert not G.vec_aligned((x, 65, 0))
+
+
+def test_bf16_mainloop_params_fit_the_card():
+    """Every tile's bf16 ring fits the shared memory a block may use, its
+    warps cover the pass, and its warp tile is made of m16n8 tiles in
+    pairs of n8 (the mirror of ``csrc/bf16_mainloop.cuh``)."""
+    for bm, bk, bn in sorted(G.TILES):
+        p = G.mainloop_params(bm, bk, bn, torch.bfloat16)
+        pm, pn = p["pass"]
+        wm, wn = p["warps"]
+        tm, tn = p["warp_tile"]
+        assert wm * wn * 32 == p["threads"] and (wm * tm, wn * tn) == (pm, pn)
+        assert tm % 16 == 0 and tn % 16 == 0
+        assert 2 <= p["stages"] <= 4 and p["smem"] <= G.SMEM_MAX
+        assert p["passes"] == G.mainloop_params(bm, bk, bn)["passes"]
+
+
+# ---------------------------------------------------------------------------
+# the routed smoke models at their own bf16 compute dtype
+# ---------------------------------------------------------------------------
+
+B, S = 2, 16
+
+
+def _cfgs(arch, **kw):
+    kw = dict(use_pallas_gemm=True, **kw)
+    return (dataclasses.replace(rconfigs.get_smoke_config(arch), **kw),
+            dataclasses.replace(pconfigs.get_smoke_config(arch), **kw))
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x), dtype=torch.long)
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _reference_passes(params, cfg, toks, dtype, nxt=None):
+    """The reference's routed forward, prefill and one decode step under
+    ``cfg``, caches in ``dtype``; the step is fed ``nxt``, or the
+    prefill's greedy token when None."""
+    batch = {"tokens": jnp.asarray(toks)}
+    rt = RefRuntime()
+    logits, _ = rtf.forward(params, batch, cfg, runtime=rt)
+    caches = rtf.init_decode_state(cfg, B, S + 4, dtype=dtype)
+    last, caches = rtf.prefill(params, batch, caches, cfg, runtime=rt)
+    if nxt is None:
+        nxt = np.asarray(jnp.argmax(last[:, -1:], -1).astype(jnp.int32))
+    step, _ = rtf.decode_step(params, jnp.asarray(nxt), caches, cfg,
+                              runtime=rt)
+    assert rt.stats.for_backend("pallas").default_calls > 0     # routed
+    return {"forward": logits, "prefill": last, "decode": step}, nxt
+
+
+@pytest.fixture(scope="module", params=("llama3_8b", "deepseek_v2_lite"))
+def bf16_pair(request):
+    """Per arch: the reference's routed passes at the config's bf16 and at
+    float32 on one seeded set of weights, and the port's model on them."""
+    rcfg, pcfg = _cfgs(request.param)
+    assert rcfg.compute_dtype == pcfg.compute_dtype == "bfloat16"
+    params = rtf.init_params(jax.random.PRNGKey(0), rcfg)
+    toks = np.random.default_rng(0).integers(0, rcfg.vocab, (B, S),
+                                             dtype=np.int32)
+    ref, nxt = _reference_passes(params, rcfg, toks, jnp.bfloat16)
+    f32 = dataclasses.replace(rcfg, compute_dtype="float32")
+    ref32, _ = _reference_passes(params, f32, toks, jnp.float32, nxt)
+    return {"pcfg": pcfg, "toks": toks, "next": nxt,
+            "model": ptf.from_reference(pcfg, jax.tree.map(np.asarray,
+                                                           params),
+                                        device="cpu"),
+            "ref": {k: np.asarray(v.astype(jnp.float32))
+                    for k, v in ref.items()},
+            "ref32": {k: np.asarray(v) for k, v in ref32.items()}}
+
+
+def _limit(pair, name):
+    """2 x the reference's own bf16-vs-float32 distance on this pass."""
+    return 2.0 * _rel(pair["ref"][name], pair["ref32"][name])
+
+
+def test_bf16_forward_matches_reference_routed(bf16_pair):
+    rt = AdsalaRuntime()
+    got, _ = ptf.forward(bf16_pair["model"], {"tokens": _t(bf16_pair["toks"])},
+                         bf16_pair["pcfg"], runtime=rt)
+    assert got.dtype == torch.bfloat16
+    assert rt.stats.for_backend("hopper").default_calls > 0     # routed
+    assert _rel(got.float(), bf16_pair["ref"]["forward"]) \
+        < _limit(bf16_pair, "forward")
+
+
+def test_bf16_prefill_and_decode_match_reference_routed(bf16_pair):
+    cfg = bf16_pair["pcfg"]
+    caches = ptf.init_decode_state(cfg, B, S + 4, dtype=torch.bfloat16,
+                                   device="cpu")
+    last, caches = ptf.prefill(bf16_pair["model"],
+                               {"tokens": _t(bf16_pair["toks"])}, caches,
+                               cfg, runtime=AdsalaRuntime())
+    assert last.dtype == torch.bfloat16
+    assert _rel(last.float(), bf16_pair["ref"]["prefill"]) \
+        < _limit(bf16_pair, "prefill")
+    step, _ = ptf.decode_step(bf16_pair["model"], _t(bf16_pair["next"]),
+                              caches, cfg, runtime=AdsalaRuntime())
+    assert step.dtype == torch.bfloat16
+    assert _rel(step.float(), bf16_pair["ref"]["decode"]) \
+        < _limit(bf16_pair, "decode")

@@ -9,13 +9,17 @@ shape, its unaligned-stride path equal to the aligned one bit for bit (symm,
 syrk/syr2k and trmm too), ``tri``'s rank-k output symmetric bit for bit,
 trmm's A read nowhere above its diagonal, a TRSM call launching its two
 kernels and nothing else, and the launch parameters built into the
-kernels equal to their Python mirrors; the dense, MoE, zamba2 and rwkv6
+kernels equal to their Python mirrors; the bf16 GEMM under every tile
+within one bf16 ulp of its plain version, stacked == per-item, odd
+strides == aligned and masked == padded bit for bit; the dense, MoE,
+zamba2 and rwkv6
 smoke models routed on the card against their plain versions; a retune
 step on the card's telemetry and a one-executor fleet on the card; two
 train steps of the llama3 smoke model on the card, and one on a (1, 1)
 mesh in a world of one under NCCL against the unsharded step.  The card's
 tests skip where there is none; the check that their limit rejects TF32
-runs anywhere.  This file imports nothing of the reference
+runs anywhere, as does the check that the bf16 limit rejects a bf16
+accumulator.  This file imports nothing of the reference
 package, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -147,9 +151,11 @@ def test_split_k_masked_equals_padded_bitwise():
 
 
 def _unaligned(x):
-    """``x``'s values in a view whose leading stride is one float longer:
-    not a multiple of 4 when x's is, so the kernels take 4-byte copies."""
-    wide = torch.zeros(*x.shape[:-1], x.shape[-1] + 1, device=x.device)
+    """``x``'s values in a view whose leading stride is one element longer:
+    not a multiple of 16 bytes when x's is, so the kernels take their
+    narrow copies (4-byte copies of float32, 2-byte loads of bf16)."""
+    wide = torch.zeros(*x.shape[:-1], x.shape[-1] + 1, dtype=x.dtype,
+                       device=x.device)
     wide[..., :x.shape[-1]] = x
     return wide[..., :x.shape[-1]]
 
@@ -1012,3 +1018,142 @@ def test_sharded_step_on_a_world_of_one_matches_the_unsharded_step(tmp_path):
     finally:
         close_world()
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# -- the bf16 GEMM (csrc/gemm_bf16.cu, the tensor cores) ----------------------
+
+#: max |got - plain| / max |plain| of the bf16 kernel against gemm_plain on
+#: the same bf16 operands: one bf16 ulp at the top binade.  Both sum in
+#: float32 and round once, so they part only where their summation orders
+#: put an output on two sides of a rounding boundary.
+BF16_TOL = 2.0 ** -7
+#: the contraction indices between roundings of the control's bf16
+#: accumulator: an mma's depth and the default knob's bk
+BF16_STEP = 16
+#: ragged, aligned and split-k dims of the bf16 cases
+BF16_DIMS = ((129, 65, 257), (1, 300, 384), (256, 512, 384), SPLIT_DIMS,
+             (8, 4096, 1024))
+
+
+def _bf16_err(got, want) -> float:
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def _bf16_accumulated(a, b):
+    """``a @ b`` with its accumulator rounded to bf16 after every
+    :data:`BF16_STEP` contraction indices."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.bfloat16,
+                      device=a.device)
+    for k0 in range(0, a.shape[1], BF16_STEP):
+        acc = (acc.float() + a[:, k0:k0 + BF16_STEP].float()
+               @ b[k0:k0 + BF16_STEP].float()).bfloat16()
+    return acc
+
+
+def test_bf16_tolerance_rejects_a_bf16_accumulator():
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(8, 4096, generator=gen).bfloat16()
+    b = torch.randn(4096, 1024, generator=gen).bfloat16()
+    plain = G.gemm_plain(a, b)
+    assert plain.dtype == torch.bfloat16
+    assert _bf16_err(_bf16_accumulated(a, b), plain) > BF16_TOL
+
+
+def _brand(gen, *shape):
+    return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_matches_plain_over_the_knob_space():
+    """Every tile, single with and without C, stacked with per-item and
+    shared B (split-k at the decode shapes), within ``BF16_TOL`` of
+    ``gemm_plain``; the stacks equal their items bit for bit."""
+    _need_card()
+    from repro_torch.kernels import introspect as I
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for m, k, n in BF16_DIMS:
+        a, b, c = _brand(gen, m, k), _brand(gen, k, n), _brand(gen, m, n)
+        sa, sb = _brand(gen, STACK, m, k), _brand(gen, STACK, k, n)
+        sc = _brand(gen, STACK, m, n)
+        cases = [((a, b, None), 1.0, 0.0), ((a, b, c), 0.5, 2.0),
+                 ((sa, sb, sc), 0.5, 2.0), ((sa, b, sc), 0.5, 2.0)]
+        for knob in ops.knob_space_for("gemm"):
+            tile = {key: knob[key] for key in ("bm", "bk", "bn")}
+            for (x, y, z), alpha, beta in cases:
+                with I.capture_launches() as launched:
+                    got = G.gemm(x, y, z, alpha=alpha, beta=beta, **tile)
+                batch = x.shape[0] if x.dim() == 3 else 1
+                assert launched == [("gemm_bf16", I.full_grid_for(
+                    "gemm_bf16", (m, k, n), tile["bm"], tile["bn"],
+                    batch=batch))]
+                assert got.dtype == torch.bfloat16
+                plain = G.gemm_plain(x, y, z, alpha=alpha, beta=beta)
+                err = _bf16_err(got, plain)
+                assert err <= BF16_TOL, (tile, (m, k, n), err)
+                if x.dim() == 3:
+                    for i in range(STACK):
+                        one = G.gemm(x[i], y[i] if y.dim() == 3 else y, z[i],
+                                     alpha=alpha, beta=beta, **tile)
+                        assert torch.equal(one.view(torch.int16),
+                                           got[i].view(torch.int16)), tile
+
+
+@pytest.mark.gpu
+def test_bf16_unaligned_strides_equal_aligned_bitwise():
+    """An odd leading stride (2-byte loads) gives the bits of the 16-byte
+    copies of the same values."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for m, k, n in ((129, 256, 384), (8, 4096, 1024)):
+        a, b, c = _brand(gen, m, k), _brand(gen, k, n), _brand(gen, m, n)
+        ua, ub = _unaligned(a), _unaligned(b)
+        assert G.vec_aligned((a, k, 0), (b, n, 0))
+        assert not G.vec_aligned((ua, k + 1, 0))
+        for knob in ops.knob_space_for("gemm"):
+            tile = {key: knob[key] for key in ("bm", "bk", "bn")}
+            aligned = G.gemm(a, b, c, alpha=0.5, beta=2.0, **tile)
+            for x, y in ((ua, b), (a, ub), (ua, ub)):
+                got = G.gemm(x, y, c, alpha=0.5, beta=2.0, **tile)
+                assert torch.equal(got.view(torch.int16),
+                                   aligned.view(torch.int16)), (tile, m)
+
+
+@pytest.mark.gpu
+def test_bf16_masked_equals_padded_bitwise():
+    """``run_op`` on ragged bf16 operands (a split-k shape too) equals the
+    padded run bit for bit, with no copy op on its dispatch path and the
+    recorded grid equal to its formula."""
+    _need_card()
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels.padded_ref import block_knob, padded_run
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    knob = block_knob("gemm", 128)
+    for m, k, n in ((129, 65, 257), (1, 300, 384), SPLIT_DIMS):
+        xs = (_brand(gen, m, k), _brand(gen, k, n))
+        assert I.copy_op_counts(ops.run_op, "gemm", xs, knob=knob) == {}
+        with I.capture_launches() as launched:
+            got = ops.run_op("gemm", xs, knob=knob)
+        assert launched == [("gemm_bf16", I.full_grid_for(
+            "gemm_bf16", (m, k, n), 128, 128))]
+        want = padded_run("gemm", xs)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_is_built_with_its_python_mirror():
+    """The launch parameters compiled into gemm_bf16.cu and its split plan
+    equal ``mainloop_params(..., torch.bfloat16)`` and ``split_plan``."""
+    _need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("gemm_bf16")
+    out = (ctypes.c_int * 6)()
+    for bm, bk, bn in sorted(G.TILES):
+        assert lib.repro_gemm_bf16_config(bm, bk, bn, out) == 0
+        p = G.mainloop_params(bm, bk, bn, torch.bfloat16)
+        assert list(out) == [p["threads"], p["stages"], p["smem"],
+                             p["passes"], *p["warps"]], (bm, bk, bn)
+        for m, k, n in (*BF16_DIMS, (4, 4096, 14336), (256, 2048, 1408)):
+            lib.repro_gemm_bf16_split(m, n, k, bm, bn, out)
+            assert (out[0], out[1]) == G.split_plan(m, n, k, bm, bn)
