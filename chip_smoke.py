@@ -7,11 +7,12 @@ calls, and fails (non-zero exit) if any phase fails:
 1. environment: the card's name and power limit, CUDA, nvcc;
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
    ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``, ``trsm``,
-   ``gemm_bf16``), all nvcc runs started together, with nvcc's
+   ``gemm_bf16``, ``symm_bf16``, ``trmm_bf16``, ``trmm_packed_bf16``),
+   all nvcc runs started together, with nvcc's
    ``-Xptxas -v`` report (registers, shared memory, spills).  Fails if any
    instantiation of the kernels spills, or if the launch parameters they
    were built with (threads, stages, shared bytes, passes; trsm's inverse
-   kernel and workspace too; the bf16 GEMM's warp grid) or the GEMMs'
+   kernel and workspace too; the bf16 kernels' warp grid) or the GEMMs'
    split-k plan differ from their Python mirrors
    (``kernels/gemm.py::mainloop_params`` at float32 and bfloat16,
    ``split_plan``,
@@ -27,7 +28,16 @@ calls, and fails (non-zero exit) if any phase fails:
    bf16 operands within ``BF16_TOL`` (one bf16 ulp), a bf16 accumulator
    at k = 4096 reading above it, stacked == per-item, odd-stride operands
    == aligned copies and ``run_op`` == the padded run bit for bit, every
-   recorded grid equal to ``full_grid_for``;
+   recorded grid equal to ``full_grid_for``; the bf16 symm and trmm
+   (``symm_bf16``, ``trmm_bf16``, ``trmm_packed_bf16``) under every knob
+   of their spaces (trmm: 8 tiles x 3 variants) against ``symm_plain`` /
+   ``trmm_plain`` on the same bf16 operands within ``BF16_TOL``, symm
+   with ``alpha``/``beta`` and C, stacks of 3, at the (k, n) of the GEMM
+   dims and the trmm path dims; bit for bit: tri_packed == tri, stacked ==
+   per-item, odd strides == aligned copies, ``run_op`` == the padded run,
+   and NaN above A's diagonal == zeros there, for both ops; trmm's full
+   against tri printed as a reading, and a bf16 accumulator on sym(A) @ B
+   and tril(A) @ B at m = 4096 reading above ``BF16_TOL``;
    symm, syrk/syr2k, trmm (every variant) and trsm through the port's
    conformance harness on its ragged dims and one aligned shape, with and
    without C, single and stacked (the error taken
@@ -104,6 +114,22 @@ calls, and fails (non-zero exit) if any phase fails:
    naming this card, a warm join with no model evaluation, an executor
    SIGKILLed and respawned with no future lost, and requests/s of the
    fleet, the in-process service and one ``run_op`` each, alternated;
+5b. bf16, a fresh process after phase 5's (``bf16_precond_main``): phase
+   4's registry in a new runtime, and the preconditioner's symm of sym(A)
+   (4096, 4096) against G (4096, 14336), its trmm of tril(L) against G
+   and the (8, 512, 512) stack of each, on bf16 operands through
+   ``run_op``.  It fails unless every decision is the default knob at 2
+   bytes with no model evaluation (installs are float32 only), each call
+   launches exactly the bf16 kernel its knob names and lies within
+   ``BF16_TOL`` of its plain version, and, with both trmm calls run once
+   more under each variant at the default tile, tri_packed == tri bit for
+   bit; then a ``BlasService`` on the card under the same runtime: 4
+   threads, each submitting 8 bf16 symm, 8 bf16 trmm and 8 float32 symm
+   requests at (512, 512), one window, every future within its dtype's
+   tolerance of its plain version, the recorded launches equal to the
+   buckets executed, no bucket of mixed dtypes, nothing failed.  It
+   prints each call's knob, device ms, launches and error, and fails if
+   one of the three bf16 kernels was not launched;
 6. model: another fresh process loads the installed ``hopper__gemm_b4``
    artifact into a new ``AdsalaRuntime``, builds llama3-8b at full width
    and depth (32 layers, 8,030,261,248 float32 parameters) on the card
@@ -302,10 +328,14 @@ calls, and fails (non-zero exit) if any phase fails:
    at a product too small to time the card; the bf16 GEMM at phase 5's
    linear shapes under the default tile (every bf16 call's) and the best
    of its space, against ``gemm_plain``, ``torch.matmul`` in bf16 and the
-   bf16 bound (989.4 TFLOP/s, 3.35 TB/s at 2 bytes an element).
+   bf16 bound (989.4 TFLOP/s, 3.35 TB/s at 2 bytes an element); and the
+   bf16 symm and trmm (each trmm variant) at phase 5b's calls in the same
+   way, the library ``torch.matmul`` in bf16 of sym(A) or tril(A)
+   materialised.
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
-(the ``run_op`` calls, the service, each model's generate) is driven with
+(the ``run_op`` calls, phase 5b's, the service, each model's generate)
+is driven with
 the counts set to 0 just before it and read just after; launches made by
 the comparisons of phase 3 and the models' checks do not count.  Phases
 8c and 9b read them around their training steps, which must launch none.
@@ -346,7 +376,8 @@ SEED = 0
 
 #: the kernel sources of the main paths, built side by side
 KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm",
-                  "trmm_packed", "trsm", "gemm_bf16")
+                  "trmm_packed", "trsm", "gemm_bf16", "symm_bf16",
+                  "trmm_bf16", "trmm_packed_bf16")
 
 #: the reference conformance harness's ragged GEMM dims
 #: (src/repro/backends/conformance.py RAGGED_DIMS["gemm"]) and one aligned
@@ -402,6 +433,8 @@ SERVICE_MAX_BATCH, SERVICE_WORKERS = 8, 2
 SERVICE_WINDOWS = 5
 #: seconds the fresh serving process may take
 SERVE_TIMEOUT_S = 600
+#: seconds phase 5b's process may take (its bf16 calls and service)
+BF16_PRECOND_TIMEOUT_S = 240
 #: the prewarm phase: the oracle's dominance band for the pruned-space
 #: reading, and scripts/torch_prewarm_model.py's install of llama3-8b's
 #: harvested keys, timed on the card, with the seconds it may take
@@ -596,10 +629,20 @@ KERNELS = {
                  "src/repro/kernels/trsm.py:58"),
     "gemm_bf16": ("cuda", "src/repro_torch/kernels/csrc/gemm_bf16.cu",
                   "src/repro/kernels/gemm.py:55"),
+    "symm_bf16": ("cuda", "src/repro_torch/kernels/csrc/symm_bf16.cu",
+                  "src/repro/kernels/symm.py:38"),
+    "trmm_bf16": ("cuda", "src/repro_torch/kernels/csrc/trmm_bf16.cu",
+                  "src/repro/kernels/trmm.py:57"),
+    "trmm_packed_bf16": ("cuda",
+                         "src/repro_torch/kernels/csrc/trmm_packed_bf16.cu",
+                         "src/repro/kernels/trmm.py:85"),
 }
 #: the kernels whose main path is a model's generate (phase 6g) and not
 #: phase 5's run_op calls
 MODEL_ONLY_KERNELS = ("gemm_bf16",)
+#: the kernels whose main path is phase 5b's bf16 preconditioner and not
+#: phase 5's float32 calls
+PRECOND_BF16_KERNELS = ("symm_bf16", "trmm_bf16", "trmm_packed_bf16")
 
 
 def serve_cases() -> list[dict]:
@@ -740,20 +783,20 @@ def _device_ms(torch, fn, sets, iters: int) -> float:
 def kernel_of(op: str, knob: dict, dtype=None) -> str:
     """The kernel (a key of :data:`KERNELS`) a call of ``op`` under
     ``knob`` on operands of ``dtype`` (None: float32) runs."""
-    if op == "gemm" and str(dtype) == "torch.bfloat16":
-        return "gemm_bf16"
+    bf16 = "_bf16" if str(dtype) == "torch.bfloat16" else ""
     if op in ("syrk", "syr2k"):
         return "rank_k_packed" if knob["variant"] == "tri_packed" \
             else "rank_k"
     if op == "trmm":
-        return "trmm_packed" if knob["variant"] == "tri_packed" else "trmm"
-    return op
+        return ("trmm_packed" if knob["variant"] == "tri_packed"
+                else "trmm") + bf16
+    return op + bf16 if op in ("gemm", "symm") else op
 
 
-def _expected_launches(op: str, knob: dict) -> dict:
+def _expected_launches(op: str, knob: dict, dtype=None) -> dict:
     if op == "trsm":
         return {"trsm_inv": 1, "trsm": 1}
-    return {kernel_of(op, knob): 1}
+    return {kernel_of(op, knob, dtype): 1}
 
 
 def make_operands(torch, gen, op: str, shapes):
@@ -1006,6 +1049,232 @@ def serve_service(torch, rt) -> dict:
             "model_evals": after.model_evals - before.model_evals,
             "default_calls": after.default_calls - before.default_calls,
             "eval_failures": after.eval_failures - before.eval_failures}
+
+
+# -- phase 5b, in a fresh process after phase 5 ------------------------------
+
+def bf16_precond_cases() -> list[dict]:
+    """Phase 5b's calls: the preconditioner's symm and trmm at its big
+    shape (A (4096, 4096) against G (4096, 14336)) and the (8, 512, 512)
+    stack of each, on bf16 operands."""
+    big = [[D_MODEL, D_MODEL], [D_MODEL, D_FF]]
+    bt, m, n = STACKED_2D
+    stack = [[bt, m, m], [bt, m, n]]
+    return [
+        {"label": f"symm sym(A) ({D_MODEL},{D_MODEL}) B ({D_MODEL},{D_FF}) "
+                  f"bf16", "op": "symm", "shapes": big, "kw": {}},
+        {"label": f"trmm tril(L) ({D_MODEL},{D_MODEL}) G ({D_MODEL},{D_FF}) "
+                  f"bf16", "op": "trmm", "shapes": big, "kw": {}},
+        {"label": f"symm stacked {STACKED_2D} bf16", "op": "symm",
+         "shapes": stack, "kw": {}},
+        {"label": f"trmm stacked {STACKED_2D} bf16", "op": "trmm",
+         "shapes": stack, "kw": {}},
+    ]
+
+
+def bf16_precond_main(registry_dir: str) -> None:
+    """Phase 5b: phase 4's registry loaded into a new runtime, the
+    preconditioner's symm and trmm on bf16 operands through ``run_op``
+    (every decision the default knob at 2 bytes: installs are float32
+    only), trmm's calls once more under each variant at the default tile,
+    then a ``BlasService`` on the card taking bf16 symm, bf16 trmm and
+    float32 symm requests together (:func:`bf16_service`).  Fails unless
+    every call launches exactly the kernel its knob and dtype name, within
+    ``BF16_TOL`` of its plain version, with no model evaluation, and
+    ``tri_packed`` == ``tri`` bit for bit; prints one ``[bf16:precond]``
+    line a call and one ``BF16_PRECOND_RESULT {json}`` line."""
+    faulthandler.dump_traceback_later(BF16_PRECOND_TIMEOUT_S - 20, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import AdsalaRuntime, ModelRegistry
+    from repro_torch.core.knobs import Knob
+    from repro_torch.kernels import introspect, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()[0]
+    rt = AdsalaRuntime()
+    loaded = ModelRegistry(registry_dir).load_into(rt, backend="hopper")
+    if loaded != len(ops.HOPPER_OPS):
+        raise SystemExit(f"[bf16:precond] loaded {loaded} artifacts from "
+                         f"{registry_dir}, expected {len(ops.HOPPER_OPS)}")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows, pinned = [], []
+
+    def call(case, operands, knob=None):
+        op = case["op"]
+        kd = (knob or ops.default_knob(op)).dict
+        with introspect.capture_launches() as launched, \
+                introspect.launch_window() as window:
+            out = ops.run_op(op, tuple(operands), backend="hopper",
+                             runtime=rt, knob=knob, **case["kw"])
+        ms = 1e3 * window.seconds()
+        plain = plain_of(op, kd)(*operands, **case["kw"])
+        batch = operands[0].shape[0] if operands[0].dim() == 3 else 1
+        dims = (operands[0].shape[-1], operands[1].shape[-1])
+        packed = kd.get("variant") == "tri_packed"
+        grid = (introspect.packed_grid_for if packed
+                else introspect.full_grid_for)(op, dims, kd["bm"], kd["bn"],
+                                               batch=batch)
+        want = [(kernel_of(op, kd, bf16), grid)]
+        launches = dict(collections.Counter(k for k, _ in launched))
+        rel = _rel_err(out, plain)
+        row = {**case, "knob": kd, "pinned": knob is not None, "ms": ms,
+               "launches": launches, "kernel": kernel_of(op, kd, bf16),
+               "rel_err": rel,
+               "abs_err": (out.float() - plain.float()).abs().max().item()}
+        rows.append(row)
+        print(f"[bf16:precond] [{card}] {case['label']}"
+              f"{' pinned' if knob is not None else ''}: knob "
+              f"{_knob_str(op, kd)}{'' if knob is not None else ' (default)'}"
+              f", {ms:.4f} ms (the kernel's device time), launches "
+              f"{launches}, max |got - plain| / max |plain| {rel:.3e}",
+              flush=True)
+        if out.dtype != bf16 or tuple(out.shape) != tuple(plain.shape) \
+                or not bool(torch.isfinite(out).all()):
+            raise SystemExit(f"[bf16:precond] {case['label']}: bad output "
+                             f"{out.dtype} {tuple(out.shape)}")
+        if launched != want:
+            raise SystemExit(f"[bf16:precond] {case['label']}: launched "
+                             f"{launched}, expected {want}")
+        if not rel <= BF16_TOL:
+            raise SystemExit(f"[bf16:precond] {case['label']}: rel err "
+                             f"{rel:.3e} vs plain (BF16_TOL {BF16_TOL:.3e})")
+        return out
+
+    # the run_op path: counts from 0 just before, read just after
+    before = rt.stats
+    introspect.reset_launches()
+    for case in bf16_precond_cases():
+        operands = [x.to(bf16) for x in make_operands(torch, gen, case["op"],
+                                                      case["shapes"])]
+        call(case, operands)
+        if case["op"] == "trmm":
+            pinned.append((case, operands))
+        del operands
+    after = rt.stats
+    served = len(rows)
+    # a caller that pins the variant: both trmm calls under each variant at
+    # the default tile
+    default = ops.default_knob("trmm").dict
+    for case, operands in pinned:
+        outs = {}
+        for variant in ("full", "tri", "tri_packed"):
+            knob = Knob(tuple(sorted({**default, "variant": variant}
+                                     .items())))
+            outs[variant] = call(case, operands, knob)
+        if not torch.equal(outs["tri"].view(torch.int16),
+                           outs["tri_packed"].view(torch.int16)):
+            raise SystemExit(f"[bf16:precond] {case['label']}: tri_packed "
+                             f"!= tri bit for bit")
+    launches = introspect.launch_counts()
+    del pinned
+    evals = after.model_evals - before.model_evals
+    defaults = after.default_calls - before.default_calls
+    print(f"[bf16:precond] [{card}] {served} served calls: model_evals "
+          f"{evals}, default_calls {defaults} (every decision the default "
+          f"knob at 2 bytes); tri_packed == tri bit for bit at both trmm "
+          f"calls; launches {launches}", flush=True)
+    if evals != 0 or defaults != served \
+            or after.eval_failures != before.eval_failures:
+        raise SystemExit(f"[bf16:precond] decisions: {evals} model evals, "
+                         f"{defaults} defaults for {served} calls")
+    unlaunched = [k for k in PRECOND_BF16_KERNELS if launches[k] < 1]
+    if unlaunched:
+        raise SystemExit(f"[bf16:precond] never launched {unlaunched}")
+    service = bf16_service(torch, rt, card)
+    torch.cuda.synchronize()
+    print("BF16_PRECOND_RESULT " + json.dumps({
+        "rows": rows, "launches": launches, "service": service}),
+        flush=True)
+
+
+def bf16_service(torch, rt, card: str) -> dict:
+    """Phase 5b's service: a ``BlasService`` on the card under phase 5b's
+    runtime, :data:`SERVICE_THREADS` client threads each submitting
+    :data:`SERVICE_PER_THREAD` bf16 symm, bf16 trmm and float32 symm
+    requests at :data:`SERVICE_SHAPE` together, one window.  Fails unless
+    every future holds its request's dtype within its tolerance of the
+    plain version (``BF16_TOL``, ``F32_TOL``), the recorded launches equal
+    the buckets executed (a bucket's dtype names its kernel), every bucket
+    is of one dtype and nothing fails."""
+    from repro_torch.kernels import introspect, ops
+    from repro_torch.serving import BlasService, ServeConfig
+
+    m, n = SERVICE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    mix = (("symm", torch.bfloat16), ("trmm", torch.bfloat16),
+           ("symm", torch.float32))
+    traffic = [[(op, tuple(x.to(dtype) for x in make_operands(
+                   torch, gen, op, [[m, m], [m, n]])))
+                for _ in range(SERVICE_PER_THREAD) for op, dtype in mix]
+               for _ in range(SERVICE_THREADS)]
+    flat = [r for part in traffic for r in part]
+    torch.cuda.synchronize()
+    cfg = ServeConfig(max_batch=SERVICE_MAX_BATCH, linger_ms=2.0,
+                      workers=SERVICE_WORKERS)
+    batches0 = {key: b.batches for key, b in rt.stats.buckets.items()}
+    introspect.reset_launches()
+    t0 = time.perf_counter()
+    with BlasService(runtime=rt, config=cfg) as svc, \
+            concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+        futures = list(pool.map(
+            lambda reqs: [svc.submit(op, xs) for op, xs in reqs], traffic))
+        outs = [f.result(timeout=300) for part in futures for f in part]
+        if not svc.drain(timeout=60):
+            raise SystemExit("[bf16:service] requests still in flight")
+        st = svc.stats
+    seconds = time.perf_counter() - t0
+    launches = introspect.launch_counts()
+    worst = {}
+    for (op, xs), out in zip(flat, outs):
+        dtype = str(xs[0].dtype).removeprefix("torch.")
+        tol = BF16_TOL if xs[0].dtype == torch.bfloat16 else F32_TOL
+        err = _rel_err(out, plain_of(op, {"variant": "full"})(*xs))
+        worst[f"{op} {dtype}"] = max(worst.get(f"{op} {dtype}", 0.0), err)
+        if out.dtype != xs[0].dtype or not err <= tol:
+            raise SystemExit(f"[bf16:service] {op} {dtype}: result "
+                             f"{out.dtype}, rel err {err:.3e} (limit "
+                             f"{tol:.3e})")
+    # every launch belongs to a bucket the service executed: the bucket's
+    # key holds its dtype's bytes, which name its kernel
+    expected = {k: 0 for k in KERNELS}
+    buckets = {}
+    for key, b in rt.stats.buckets.items():
+        backend, op, nbytes, dims = key
+        n_batches = b.batches - batches0.get(key, 0)
+        if backend != "hopper" or not n_batches:
+            continue
+        dtype = torch.bfloat16 if nbytes == 2 else torch.float32
+        knob = (rt.peek(op, dims, nbytes, "hopper")
+                or ops.default_knob(op)).dict
+        buckets[f"{op} b{nbytes} {_knob_str(op, knob)}"] = n_batches
+        for kernel, count in _expected_launches(op, knob, dtype).items():
+            expected[kernel] += count * n_batches
+    print(f"[bf16:service] [{card}] {len(flat)} requests ({SERVICE_THREADS} "
+          f"threads x {SERVICE_PER_THREAD} each of bf16 symm, bf16 trmm and "
+          f"float32 symm at {SERVICE_SHAPE}) in {seconds:.3f} s: completed "
+          f"{st.completed}, failed {st.failed}, {st.batches} buckets "
+          f"(mean batch {st.completed / max(1, st.batches):.3f}): "
+          f"{buckets}; launches {dict((k, v) for k, v in launches.items() if v)}"
+          f" (expected from the buckets "
+          f"{dict((k, v) for k, v in expected.items() if v)}); max rel err "
+          f"vs plain " + ", ".join(f"{k} {v:.3e}"
+                                   for k, v in sorted(worst.items())),
+          flush=True)
+    if st.completed != len(flat) or st.failed:
+        raise SystemExit("[bf16:service] lost or failed requests")
+    if launches != expected:
+        raise SystemExit("[bf16:service] launches differ from the buckets")
+    if not any(k.startswith("symm b2") for k in buckets) \
+            or not any(k.startswith("symm b4") for k in buckets):
+        raise SystemExit(f"[bf16:service] symm's bf16 and float32 requests "
+                         f"did not bucket apart: {buckets}")
+    return {"requests": len(flat), "completed": st.completed,
+            "failed": st.failed, "batches": st.batches, "buckets": buckets,
+            "launches": launches, "max_rel_err": worst, "seconds": seconds}
+
 
 
 # -- the prewarm phase (after phase 4) ---------------------------------------
@@ -1579,13 +1848,17 @@ def _encoder_calls(cfg) -> int:
     return cfg.n_enc_layers * (4 + mlp)
 
 
-def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
+def _reckoning(cfg, batch: int, prompt: int, max_len: int,
+               itemsize: int = 4) -> dict:
     """A model phase's bounds from the config alone, before any run: the
     weight floats a decode step's GEMMs read (the experts apart; zamba2's
     shared block once a zamba_super that reads it), once and as launched
     (an expert stack reads each expert once; every other weight is read
-    by each of the ``batch`` stacked items), at the HBM rate; the
-    prefill's GEMM operations at the f32 peak (MLA's cached prefill
+    by each of the ``batch`` stacked items), at the HBM rate and
+    ``itemsize`` bytes an element (2: bf16, whose per-call casts of the
+    float32 weights read 4 bytes and write 2 of every weight element a
+    step, ``cast_ms``); the prefill's GEMM operations at the f32 peak
+    (bf16: the dense bf16 peak) (MLA's cached prefill
     expands the whole cache of ``max_len`` through ``wkv_b``; the experts
     run every capacity row; Whisper's encoder and every pass's cross K and
     V projections of its ``enc_seq`` frames; the VLM's vision projection
@@ -1655,16 +1928,19 @@ def _reckoning(cfg, batch: int, prompt: int, max_len: int) -> dict:
     decode_flop = 2.0 * (batch * (per_token + d * V) + n_moe * E * batch
                          * (capacity(cfg, 1) if n_moe else 0) * 3 * d * f) \
         + cross_flop
+    peak = BF16_PEAK_TFLOPS * 1e12 if itemsize == 2 else F32_PEAK_FLOPS
+    weights = experts + body + d * V
     return {"expert_floats": experts, "other_floats": body + d * V,
-            "decode_bytes_ms": 4.0 * (experts + body + d * V)
+            "decode_bytes_ms": itemsize * weights / HBM_BYTES_PER_S * 1e3,
+            "decode_launched_ms": itemsize * (experts + batch * (body + d * V))
             / HBM_BYTES_PER_S * 1e3,
-            "decode_launched_ms": 4.0 * (experts + batch * (body + d * V))
-            / HBM_BYTES_PER_S * 1e3,
+            "cast_ms": (0.0 if itemsize == 4 else
+                        (4 + itemsize) * weights / HBM_BYTES_PER_S * 1e3),
             "decode_flop": decode_flop,
-            "decode_ops_ms": decode_flop / F32_PEAK_FLOPS * 1e3,
+            "decode_ops_ms": decode_flop / peak * 1e3,
             "cross_flop": cross_flop, "encoder_flop": encoder_flop,
             "prefill_flop": flop,
-            "prefill_ops_ms": flop / F32_PEAK_FLOPS * 1e3,
+            "prefill_ops_ms": flop / peak * 1e3,
             "expert_flop": expert_flop, "capacity": C, "expert_rows": rows,
             "useful_rows": batch * prompt * cfg.top_k if n_moe else 0,
             "state_bytes": state,
@@ -2471,7 +2747,9 @@ def model_bf16(torch, tf, model, cfg, artifact, prompts, stub, check, want,
             "layer_err": max(e for e, _ in layer),
             "layer_equal": min(q for _, q in layer), "layers": len(layer),
             "expected": _gemm_calls(cfg, False)
-            + MODEL_NEW * _gemm_calls(cfg, True)}
+            + MODEL_NEW * _gemm_calls(cfg, True),
+            "reckoning": _reckoning(cfg, MODEL_REQUESTS, MODEL_PROMPT,
+                                    max_len, itemsize=2)}
 
 
 def report_model_bf16(card: str, res: dict) -> None:
@@ -2509,6 +2787,19 @@ def report_model_bf16(card: str, res: dict) -> None:
           f"{res['cast_device_ms']:.3f} ms", flush=True)
     for name, ms in prof["top"]:
         print(f"[model:bf16:top] [{card}] {ms:10.3f} ms  {name}", flush=True)
+    rk = res["reckoning"]
+    print(f"[model:bf16:reckoning] a decode step's GEMMs read "
+          f"{rk['other_floats']:,} weight elements at 2 bytes "
+          f"({2e-9 * rk['other_floats']:.2f} GB): {rk['decode_bytes_ms']:.3f}"
+          f" ms at {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"{rk['decode_launched_ms']:.3f} ms as launched (by each of the "
+          f"{MODEL_REQUESTS} stacked items); the per-call casts of the "
+          f"float32 weights (4 bytes read, 2 written an element) "
+          f"{rk['cast_ms']:.3f} ms a step; its operations "
+          f"{rk['decode_flop'] / 1e12:.3f} TFLOP = {rk['decode_ops_ms']:.3f} "
+          f"ms; prefill {rk['prefill_flop'] / 1e12:.3f} TFLOP = "
+          f"{rk['prefill_ops_ms']:.3f} ms at {BF16_PEAK_TFLOPS} TFLOP/s",
+          flush=True)
     print(f"[model:bf16] [{card}] every GEMM call of the routed "
           f"teacher-forced passes against gemm_plain on its operands "
           f"({res['calls']} calls): max |got - plain| / max |plain| "
@@ -3797,7 +4088,10 @@ def check_build() -> None:
                         ("rank_k_packed", len(K.TILES)),
                         ("trmm", len(TM.TILES)),
                         ("trmm_packed", len(TM.TILES)),
-                        ("trsm", trsm_count), ("gemm_bf16", len(G.TILES))):
+                        ("trsm", trsm_count), ("gemm_bf16", len(G.TILES)),
+                        ("symm_bf16", len(S.TILES)),
+                        ("trmm_bf16", len(TM.TILES)),
+                        ("trmm_packed_bf16", len(TM.TILES))):
         entries = _ptxas_entries(name)
         spilled = [e for e in entries if e[2] != 0]
         if len(entries) != count or spilled:
@@ -3868,9 +4162,24 @@ def check_build() -> None:
             raise SystemExit(f"[build:gemm_bf16] split at {(m, k, n)} tile "
                              f"{bm}x{bn}: C {(out[0], out[1])}, Python "
                              f"{G.split_plan(m, n, k, bm, bn)}")
+    # the bf16 symm and trmm kernels: the mainloop's parameters at bk 64
+    # (a stage's A region holds symm's transposed tile too)
+    bf16_2d = 0
+    for name, tiles in (("symm_bf16", S.TILES), ("trmm_bf16", TM.TILES),
+                        ("trmm_packed_bf16", TM.TILES)):
+        config = getattr(_build.load(name), f"repro_{name}_config")
+        for bm, bn in sorted(tiles):
+            p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
+            want = [p["threads"], p["stages"], p["smem"], p["passes"],
+                    *p["warps"]]
+            bf16_2d += 1
+            if config(bm, bn, out6) != 0 or list(out6) != want:
+                raise SystemExit(f"[build:{name}] tile {(bm, 64, bn)}: "
+                                 f"built with {list(out6)}, mainloop_params "
+                                 f"{want}")
     print(f"[build] launch parameters of "
-          f"{len(configs) + len(T.TILES) + len(G.TILES)} tiles and the "
-          f"split plans at {len(dims)} dims x {len(G.TILES)} tiles (bf16: "
+          f"{len(configs) + len(T.TILES) + len(G.TILES) + bf16_2d} tiles and "
+          f"the split plans at {len(dims)} dims x {len(G.TILES)} tiles (bf16: "
           f"{len(bf16_dims)} dims) equal their Python mirrors", flush=True)
 
 
@@ -4076,6 +4385,205 @@ def check_gemm_bf16(torch, rand) -> None:
           f"run at {CONTRACT_DIMS['gemm']} (no copy op) bit for bit; a bf16 "
           f"accumulator (rounded every {BF16_STEP} k) at k = 4096: "
           f"{control:.3e} (> {BF16_TOL:.3e})", flush=True)
+
+
+def _bf16_2d_call(op: str, kd: dict, x, y, z=None, alpha=0.5, beta=2.0):
+    """symm (``alpha``, ``beta``, C) or trmm (``alpha``, the knob's
+    variant) under the tile of ``kd`` on bf16 operands: the result, the
+    launches it recorded and the launch its formula gives."""
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels import symm as S
+    from repro_torch.kernels import trmm as TM
+    var = kd["variant"] if op == "trmm" else "full"
+    with I.capture_launches() as launched:
+        if op == "symm":
+            got = S.symm(x, y, z, bm=kd["bm"], bn=kd["bn"], alpha=alpha,
+                         beta=beta)
+        else:
+            got = TM.trmm(x, y, bm=kd["bm"], bn=kd["bn"], alpha=alpha,
+                          variant=var)
+    dims = (x.shape[-1], y.shape[-1])
+    batch = x.shape[0] if x.dim() == 3 else 1
+    grid = (I.packed_grid_for if var == "tri_packed" else I.full_grid_for)(
+        op, dims, kd["bm"], kd["bn"], batch=batch)
+    return got, launched, [(kernel_of(op, kd, got.dtype), grid)]
+
+
+def _bf16_plain(op: str, x, y, z=None, alpha=0.5, beta=2.0):
+    from repro_torch.kernels import symm as S
+    from repro_torch.kernels import trmm as TM
+    if op == "symm":
+        return S.symm_plain(x, y, z, alpha=alpha, beta=beta)
+    return TM.trmm_plain(x, y, alpha=alpha)
+
+
+def check_symm_trmm_bf16(torch, rand) -> None:
+    """The bf16 symm and trmm kernels under every knob of their spaces
+    against ``symm_plain``/``trmm_plain`` on the same bf16 operands, held
+    to :data:`BF16_TOL`: the (k, n) of :data:`KERNEL_DIMS` as (m, n) and
+    :data:`TRMM_PATH_DIMS`, symm with and without C, stacks of
+    :data:`STACK`, each launch's recorded grid equal to its formula.  Bit
+    for bit: stacked == per-item, trmm's ``tri_packed`` == ``tri``, odd
+    leading strides == aligned copies (:data:`UNALIGNED_DIMS`' (k, n)),
+    ``run_op`` == the padded run (no copy op on its dispatch path), and NaN
+    above A's diagonal == zeros there, for both ops.  Prints trmm's
+    ``full`` against ``tri`` as a reading, and a bf16 accumulator's
+    reading on ``sym(A) @ B`` and ``tril(A) @ B`` at m = 4096, which must
+    lie above the limit."""
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trmm as TM
+    from repro_torch.kernels.padded_ref import block_knob, padded_run
+    from repro_torch.kernels.ref import sym_lower
+
+    def brand(*shape):
+        return rand(*shape).bfloat16()
+
+    dims_list = sorted({*((k, n) for _m, k, n in KERNEL_DIMS),
+                        *TRMM_PATH_DIMS})
+    checks, worst, worst_abs = 0, {}, 0.0
+    control = {}
+    full_tri = [0.0, True]
+    for m, n in dims_list:
+        a, b, c = brand(m, m), brand(m, n), brand(m, n)
+        sa, sb, sc = brand(STACK, m, m), brand(STACK, m, n), \
+            brand(STACK, m, n)
+        if m == 4096:
+            for op in ("symm", "trmm"):
+                full = sym_lower(a) if op == "symm" else torch.tril(a)
+                control[op] = _rel_err(_bf16_accumulated(torch, full, b),
+                                       _bf16_plain(op, a, b, alpha=1.0,
+                                                   beta=0.0))
+        for op in ("symm", "trmm"):
+            cases = [((a, b, None), 1.0, 0.0), ((sa, sb, sc), 0.5, 2.0)]
+            if op == "symm":
+                cases.append(((a, b, c), 0.5, 2.0))
+            for (x, y, z), alpha, beta in cases:
+                plain = _bf16_plain(op, x, y, z, alpha, beta)
+                tri = {}
+                for knob in ops.knob_space_for(op):
+                    kd = knob.dict
+                    got, launched, want = _bf16_2d_call(op, kd, x, y, z,
+                                                        alpha, beta)
+                    checks += 1
+                    if launched != want or got.dtype != torch.bfloat16:
+                        raise SystemExit(f"[kernel:{op}_bf16] {kd} "
+                                         f"{tuple(x.shape)}: launched "
+                                         f"{launched}, formula {want}, dtype "
+                                         f"{got.dtype}")
+                    err = _rel_err(got, plain)
+                    worst[op] = max(worst.get(op, 0.0), err)
+                    worst_abs = max(worst_abs, (got.float() - plain.float())
+                                    .abs().max().item())
+                    if not err <= BF16_TOL:
+                        raise SystemExit(f"[kernel:{op}_bf16] {kd} "
+                                         f"{tuple(x.shape)}@{tuple(y.shape)}"
+                                         f": rel err {err:.3e} vs plain")
+                    if x.dim() == 3:
+                        for i in range(STACK):
+                            one = _bf16_2d_call(op, kd, x[i], y[i],
+                                                None if z is None else z[i],
+                                                alpha, beta)[0]
+                            if not torch.equal(one.view(torch.int16),
+                                               got[i].view(torch.int16)):
+                                raise SystemExit(
+                                    f"[kernel:{op}_bf16] {kd} "
+                                    f"{tuple(x.shape)}: stacked item {i} "
+                                    f"differs from per-item")
+                    if op == "trmm":
+                        tri[kd["bm"], kd["bn"], kd["variant"]] = got
+                for (bm, bn, var), got in tri.items():
+                    ref = tri[bm, bn, "tri"]
+                    if var == "full":
+                        full_tri[0] = max(full_tri[0], (got.float()
+                                          - ref.float()).abs().max().item())
+                        full_tri[1] &= torch.equal(got.view(torch.int16),
+                                                   ref.view(torch.int16))
+                    if var == "tri_packed" and not torch.equal(
+                            got.view(torch.int16), ref.view(torch.int16)):
+                        raise SystemExit(f"[kernel:trmm_bf16] tri_packed != "
+                                         f"tri at {tuple(x.shape)} tile "
+                                         f"{bm}x{bn}")
+    if not min(control.values(), default=0.0) > BF16_TOL:
+        raise SystemExit(f"[kernel:symm_bf16,trmm_bf16] a bf16 accumulator "
+                         f"at m = 4096 passes the limit: {control}")
+    # odd leading strides (2-byte loads) == aligned copies (16-byte), and
+    # NaN above A's diagonal == zeros there, on both copy paths
+    path_dims = sorted({*((k, n) for _m, k, n in UNALIGNED_DIMS),
+                        *TRMM_PATH_DIMS})
+    for m, n in path_dims:
+        upper = torch.ones(m, m, dtype=torch.bool, device="cuda").triu(1)
+        for lead in ((), (STACK,)):
+            a, b, c = brand(*lead, m, m), brand(*lead, m, n), \
+                brand(*lead, m, n)
+            nans = torch.where(upper, math.nan, a.float()).bfloat16()
+            zeros = torch.where(upper, 0.0, a.float()).bfloat16()
+            ua, ub, unans = (_unaligned(torch, t) for t in (a, b, nans))
+            sab, sbb = (m * m, m * n) if lead else (0, 0)
+            if G.vec_aligned((a, m, sab), (b, n, sbb)) != (m % 8 == 0) \
+                    or G.vec_aligned((ua, m + 1, 0)):
+                raise SystemExit(f"[kernel:symm_bf16,trmm_bf16] "
+                                 f"{(*lead, m, n)}: the aligned and "
+                                 f"odd-stride copies do not take the two "
+                                 f"paths")
+            for op in ("symm", "trmm"):
+                z = c if op == "symm" else None
+                for knob in ops.knob_space_for(op):
+                    kd = knob.dict
+                    want = _bf16_2d_call(op, kd, a, b, z)[0]
+                    zero = _bf16_2d_call(op, kd, zeros, b, z)[0]
+                    for x, y, ref, what in (
+                            (ua, b, want, "odd-stride A"),
+                            (a, ub, want, "odd-stride B"),
+                            (ua, ub, want, "odd-stride A and B"),
+                            (nans, b, zero, "NaN above the diagonal"),
+                            (unans, ub, zero, "odd strides, NaN above the "
+                             "diagonal")):
+                        checks += 1
+                        got = _bf16_2d_call(op, kd, x, y, z)[0]
+                        if not torch.equal(got.view(torch.int16),
+                                           ref.view(torch.int16)):
+                            raise SystemExit(f"[kernel:{op}_bf16] {kd} at "
+                                             f"{(*lead, m, n)}: {what} "
+                                             f"differs bit for bit")
+    # run_op == the padded run, no copy on its dispatch path
+    for op in ("symm", "trmm"):
+        for m, n in CONTRACT_DIMS[op]:
+            xs = (brand(m, m), brand(m, n))
+            for var in (("full", "tri", "tri_packed") if op == "trmm"
+                        else ("full",)):
+                knob = block_knob(op, 128, var)
+                counts = I.copy_op_counts(ops.run_op, op, xs, knob=knob)
+                with I.capture_launches() as launched:
+                    got = ops.run_op(op, xs, knob=knob)
+                want = padded_run(op, xs, variant=var)
+                checks += 1
+                grid = (I.packed_grid_for if var == "tri_packed"
+                        else I.full_grid_for)(op, (m, n), 128, 128)
+                if counts or launched != [(kernel_of(op, knob.dict,
+                                                     got.dtype), grid)] \
+                        or not torch.equal(got.view(torch.int16),
+                                           want.view(torch.int16)):
+                    raise SystemExit(f"[contract:{op}_bf16] {var} at "
+                                     f"{(m, n)}: copies {counts}, launched "
+                                     f"{launched} (formula {grid}), or "
+                                     f"masked != padded bit for bit")
+    torch.cuda.synchronize()
+    print(f"[kernel:symm_bf16,trmm_bf16] {checks} checks over "
+          f"{len(ops.knob_space_for('symm'))} symm tiles and "
+          f"{len(TM.TILES)} trmm tiles x {len(TM.VARIANTS)} variants at "
+          f"{dims_list} (single, symm with C, stack of {STACK}): max |got - "
+          f"plain| / max |plain| symm {worst['symm']:.3e}, trmm "
+          f"{worst['trmm']:.3e} (<= BF16_TOL {BF16_TOL:.3e}), max abs err "
+          f"vs plain {worst_abs:.3e}; recorded grids == formulas; stacked "
+          f"== per-item, tri_packed == tri, odd strides == aligned and NaN "
+          f"above A's diagonal == zeros at {path_dims} and run_op == padded "
+          f"run (no copy op) bit for bit; trmm full vs tri (a reading): max "
+          f"|d| {full_tri[0]:.3e}, bit-equal {full_tri[1]}; a bf16 "
+          f"accumulator (rounded every {BF16_STEP} k) at m = 4096: symm "
+          f"{control['symm']:.3e}, trmm {control['trmm']:.3e} (> "
+          f"{BF16_TOL:.3e})", flush=True)
 
 
 def check_2d_ops(torch, rand) -> None:
@@ -4667,6 +5175,88 @@ def time_bf16_rows(torch, card: str) -> tuple[dict, float]:
     return total, abs_err
 
 
+def time_bf16_precond_rows(torch, card: str) -> dict:
+    """Phase 7's bf16 symm and trmm rows: phase 5b's big call and stack of
+    each op, one row per kernel and call (symm; trmm ``full`` and ``tri``;
+    trmm ``tri_packed``), on bf16 operands.  Each variant at the default
+    tile (every bf16 call's knob: no install has a bf16 model) and the best
+    tile of the space (a reading), the plain version, ``torch.matmul`` in
+    bf16 of ``sym(A)``/``tril(A)`` materialised with reduced-precision
+    reduction off (the library's yardstick) and the bf16 bound (989.4
+    TFLOP/s, 3.35 TB/s at 2 bytes an element).  Returns each kernel's
+    totals over its calls."""
+    from repro_torch.kernels import ops
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0, "ops_bound_ms": 0.0}
+              for name in PRECOND_BF16_KERNELS}
+    forms = (("symm_bf16", "symm", (None,)),
+             ("trmm_bf16", "trmm", ("full", "tri")),
+             ("trmm_packed_bf16", "trmm", ("tri_packed",)))
+    try:
+        for case in bf16_precond_cases():
+            op, shapes = case["op"], case["shapes"]
+            per_set = 2 * sum(math.prod(s) for s in shapes)
+            sets = [[x.bfloat16() for x in make_operands(torch, gen, op,
+                                                         shapes)]
+                    for _ in range(max(1, math.ceil(120e6 / per_set)))]
+            plain_ms = _time_ms(torch, plain_of(op, {"variant": "full"}),
+                                sets)
+            lib, prep = _library_fn(torch, op, {}, shapes)
+            lib_sets = [prep(s) for s in sets]
+            library_ms = _time_ms(torch, lib, lib_sets)
+            del lib_sets
+            bound_ms, bound_by = _bound(op, shapes, {}, bf16=True)
+            flops, nbytes = _work(op, shapes, {}, 2)
+            for name, form_op, variants in forms:
+                if form_op != op:
+                    continue
+                parts = []
+                for var in variants:
+                    default = ops.default_knob(op).dict
+                    if var is not None:
+                        default = {**default, "variant": var}
+                    ms = _time_ms(torch, _kernel_fn(op, default, {}), sets)
+                    best_ms, best = min(
+                        ((_time_ms(torch, _kernel_fn(op, k.dict, {}), sets,
+                                   iters=3), k.dict)
+                         for k in ops.knob_space_for(op)
+                         if var is None or k["variant"] == var),
+                        key=lambda v: v[0])
+                    t = totals[name]
+                    t["ms"] += ms
+                    t["plain_ms"] += plain_ms
+                    t["library_ms"] += library_ms
+                    t["bound_ms"] += bound_ms
+                    if bound_by == "operations":
+                        t["ops_bound_ms"] += bound_ms
+                    rate = (f"{flops / ms / 1e9:.2f} TFLOP/s"
+                            if bound_by == "operations"
+                            else f"{nbytes / ms / 1e6:.1f} GB/s")
+                    parts.append(
+                        f"default {_knob_str(op, default)} {ms:.4f} ms "
+                        f"({rate}, {100 * bound_ms / ms:.1f} % of bound) | "
+                        f"best {_knob_str(op, best)} {best_ms:.4f} ms "
+                        f"({100 * bound_ms / best_ms:.1f} %)")
+                print(f"[times:{name}] [{card}] {case['label']}: "
+                      + " | ".join(parts) + f" | plain {plain_ms:.4f} ms | "
+                      f"library (torch.matmul bf16) {library_ms:.4f} ms "
+                      f"({100 * bound_ms / library_ms:.1f} %) | bound "
+                      f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+            del sets
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    for name, t in totals.items():
+        print(f"[times:{name}] [{card}] phase 5b's calls: default "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms",
+              flush=True)
+    return totals
+
+
 def _inverse_work(m: int, bm: int, batch: int) -> tuple[float, float]:
     """Operations and bytes of the diagonal-block inverses: r^3 / 3 for a
     lower-triangular r x r block solved against I, its lower triangle read
@@ -4852,6 +5442,7 @@ def main(argv: list[str]) -> int:
             t0 = time.perf_counter()
             check_gemm(torch, rand)
             check_gemm_bf16(torch, rand)
+            check_symm_trmm_bf16(torch, rand)
             check_2d_ops(torch, rand)
             check_trmm_paths(torch, rand)
             check_rank_k_paths(torch, rand)
@@ -4863,6 +5454,7 @@ def main(argv: list[str]) -> int:
         return 0
     check_gemm(torch, rand)
     check_gemm_bf16(torch, rand)
+    check_symm_trmm_bf16(torch, rand)
     check_2d_ops(torch, rand)
     check_trmm_paths(torch, rand)
     check_rank_k_paths(torch, rand)
@@ -4907,6 +5499,19 @@ def main(argv: list[str]) -> int:
         if proc.returncode != 0:
             raise SystemExit(f"[serve] fresh process failed "
                              f"({proc.returncode}):\n{proc.stdout[-4000:]}")
+        # 5b. the bf16 preconditioner, a fresh process on the same registry
+        t0 = time.perf_counter()
+        bproc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.bf16_precond_main("
+             f"{str(tmp / 'models')!r})"],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=BF16_PRECOND_TIMEOUT_S)
+        sys.stderr.write(bproc.stderr[-4000:])
+        if bproc.returncode != 0:
+            raise SystemExit(f"[bf16:precond] fresh process failed "
+                             f"({bproc.returncode}):\n{bproc.stdout[-4000:]}")
+        bf16_precond_s = time.perf_counter() - t0
         # 6 to 6f. each model from a fresh process of its own, once the
         # last has exited: their weights (32 GB, 62.83 GB, 4.88 GB, 6.46 GB,
         # 3.24 GB, 63.44 GB) never meet each other, phase 5's operands or
@@ -4994,7 +5599,7 @@ def main(argv: list[str]) -> int:
             raise SystemExit(f"[serve] {row['label']}: rel err "
                              f"{row['rel_err']:.3e}")
     unlaunched = [k for k in KERNELS if served["launches"][k] < 1
-                  and k not in MODEL_ONLY_KERNELS]
+                  and k not in (*MODEL_ONLY_KERNELS, *PRECOND_BF16_KERNELS)]
     if unlaunched:
         raise SystemExit(f"[serve] the main paths never launched "
                          f"{unlaunched}")
@@ -5035,6 +5640,19 @@ def main(argv: list[str]) -> int:
         raise SystemExit("[service] decisions did not come from the model")
     report_retune(card, served["retune"])
     report_fleet(card, served["fleet"])
+    # 5b (its process gated its own calls and service)
+    for line in bproc.stdout.splitlines():
+        if line.startswith(("[bf16:precond", "[bf16:service")):
+            print(line)
+    precond = json.loads(next(line for line in bproc.stdout.splitlines()
+                              if line.startswith("BF16_PRECOND_RESULT "))
+                         .split(" ", 1)[1])
+    unlaunched = [k for k in PRECOND_BF16_KERNELS
+                  if precond["launches"][k] < 1]
+    if unlaunched:
+        raise SystemExit(f"[bf16:precond] never launched {unlaunched}")
+    print(f"[bf16:precond] phase {bf16_precond_s:.1f} s (a fresh process)",
+          flush=True)
 
     model_launches, bf16_model = {}, None
     for arch, (stdout, seconds) in models.items():
@@ -5079,6 +5697,7 @@ def main(argv: list[str]) -> int:
     # linear shapes)
     totals = time_rows(torch, card, served["rows"])
     totals["gemm_bf16"], bf16_abs_err = time_bf16_rows(torch, card)
+    totals.update(time_bf16_precond_rows(torch, card))
     # 10b, 10c: host work on fake tensors and numpy, after the last timed
     # phase, in a fresh process with the host to itself
     t0 = time.perf_counter()
@@ -5109,6 +5728,10 @@ def main(argv: list[str]) -> int:
         if name == "gemm_bf16":
             errs, launches = [bf16_abs_err], \
                 bf16_model["launches"]["gemm_bf16"]
+        if name in PRECOND_BF16_KERNELS:
+            errs = [r["abs_err"] for r in precond["rows"]
+                    if r["kernel"] == name]
+            launches = precond["launches"][name]
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,

@@ -2,8 +2,10 @@
 // (sgemm_mainloop.cuh): one block computes its BM x BN tile of float32
 // accumulators over a range of the contraction from bfloat16 A and B, with
 // mma.sync m16n8k16 (bf16 in, f32 accumulate).  gemm_bf16.cu runs it; what
-// feeds the tiles is a producer, as in the float32 loop, so that symm,
-// trmm and the rank-k kernels can plug their own in.
+// feeds the tiles is a producer, as in the float32 loop: symm_bf16.cu
+// stitches sym(A) from the stored triangle (a step above the diagonal
+// staged as stored and read transposed), and trmm_tile_bf16.cuh stages
+// tril(A) with a per-row column limit (load_tile's LOWER mode).
 //
 // Replaces, with the float32 loop, the reference package's Pallas dot
 // src/repro/kernels/gemm.py::_gemm_kernel (jnp.dot(...,
@@ -35,7 +37,11 @@
 // issues MT x NT mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32.  A tile
 // beyond 128 x 128 runs its passes one after the other in the same block.
 // A warp skips the m16 tiles whose rows all lie past m (the decode grids
-// of a few rows).
+// of a few rows).  A producer may stage a step's A tile transposed, as
+// the (k, m) window it is stored in, [BK][PM + 8] (symm above the
+// diagonal): that step loads its A fragments with ldmatrix.x4.trans, which
+// hands each lane the same elements as ldmatrix.x4 of the row-major tile,
+// so a step's products do not depend on its layout.
 //
 // Order.  The sums inside one mma are the tensor core's own, not IEEE
 // sequential; across mma they add in increasing k.  Whatever the copy path
@@ -82,9 +88,10 @@ struct Tile {
   // a warp's tile, and its m16 and n8 mma tiles
   static constexpr int WM = PM / WARPS_M, WN = PN / WARPS_N;
   static constexpr int MT = WM / 16, NT = WN / 8;
-  // shared row strides in elements
-  static constexpr int LDA = BK + kPad, LDB = PN + kPad;
-  static constexpr int A_ELEMS = PM * LDA;
+  // shared row strides in elements (LDAT: an A tile staged transposed)
+  static constexpr int LDA = BK + kPad, LDB = PN + kPad, LDAT = PM + kPad;
+  // room for either A layout; PM >= BK, so the row-major one is the larger
+  static constexpr int A_ELEMS = cmax(PM * LDA, BK * LDAT);
   static constexpr int STAGE_ELEMS = A_ELEMS + BK * LDB;
   static constexpr int STAGE_BYTES = 2 * STAGE_ELEMS;
   static constexpr int STAGES = sgemm::ring_stages(STAGE_BYTES);
@@ -92,7 +99,8 @@ struct Tile {
   static_assert(WARPS_M * WARPS_N == WARPS, "warp grid covers the pass");
   static_assert(MT >= 1 && NT % 2 == 0, "m16 tiles, pairs of n8 tiles");
   static_assert(BK % 16 == 0 && 128 % BK == 0, "k16 steps that tile 128");
-  static_assert(STAGE_BYTES % 16 == 0, "16-byte aligned stages");
+  static_assert(A_ELEMS % 8 == 0 && STAGE_BYTES % 16 == 0,
+                "16-byte aligned B tiles and stages");
   static_assert(SMEM <= sgemm::kSmemMax, "227 KB of shared memory per block");
 };
 
@@ -107,8 +115,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 // Stages the R x C window starting at (i0, j0) of the row-major bf16
 // matrix p (leading stride ld, rows x cols stored) into s, row-major with
 // stride LD, in chunks of 8 elements; elements past rows or cols read zero.
-// p is a safe address for the zero-byte copies.
-template <int R, int C, int THREADS, int LD>
+// With LOWER, row gi is stored in its columns 0 .. gi only (the lower
+// triangle of a square matrix): a chunk at (gi, gj) reads clamp(min(cols,
+// gi + 1) - gj, 0, 8) elements and zero-fills the rest, so no element above
+// the diagonal is read.  p is a safe address for the zero-byte copies.
+template <int R, int C, int THREADS, int LD, bool LOWER = false>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* p,
                                           long long ld, int rows, int cols,
                                           int i0, int j0, bool vec) {
@@ -120,10 +131,12 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* p,
     if (N % THREADS != 0 && t >= N) break;
     const int i = t / CH, jc = (t % CH) * 8;
     const int gi = i0 + i, gj = j0 + jc;
+    // the end of row gi's stored columns
+    const int lim = LOWER ? cmin(cols, gi + 1) : cols;
     bf16* d = s + i * LD + jc;
     const bf16* row = p + gi * ld;
     if (vec) {
-      const int nv = gi < rows ? cmin(cmax(cols - gj, 0), 8) : 0;
+      const int nv = gi < rows ? cmin(cmax(lim - gj, 0), 8) : 0;
       cp_async16(d, nv ? row + gj : p, 2 * nv);
     } else {
       const unsigned short* src =
@@ -131,7 +144,7 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* p,
       unsigned v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        v[e] = gi < rows && gj + e < cols ? __ldg(src + e) : 0u;
+        v[e] = gi < rows && gj + e < lim ? __ldg(src + e) : 0u;
       *reinterpret_cast<uint4*>(d) =
           make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
                      v[6] | v[7] << 16);
@@ -155,6 +168,7 @@ struct GemmProducer {
     load_tile<T::BK, T::PN, T::THREADS, T::LDB>(Bs, B, ldb, k, n, k0, pcol0,
                                                 vec);
   }
+  __device__ bool transposed(int) const { return false; }
 };
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
@@ -186,10 +200,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // One step's products.  The warp's tile starts at (wm0, wn0) of the pass;
 // `live` of its MT m16 tiles hold a row inside m.  ldmatrix.x4 of A: lane
 // l addresses row l % 16 at k offset (l / 16) * 8, the four 8 x 8 matrices
-// of mma's A fragment in its register order.  ldmatrix.x4.trans of B: lane
-// l addresses k row (l % 8) + ((l / 8) % 2) * 8 at column (l / 16) * 8, the
-// (k0-7, k8-15) halves of two n8 tiles.
-template <class T>
+// of mma's A fragment in its register order (rows 0-7 and 8-15 at k 0-7,
+// then at k 8-15).  A_T, A staged [BK][LDAT]: ldmatrix.x4.trans, lane l
+// addressing k row (l % 8) + (l / 16) * 8 at row offset ((l / 8) % 2) * 8,
+// the same four matrices, each transposed into place.  ldmatrix.x4.trans
+// of B: lane l addresses k row (l % 8) + ((l / 8) % 2) * 8 at column
+// (l / 16) * 8, the (k0-7, k8-15) halves of two n8 tiles.
+template <class T, bool A_T>
 __device__ __forceinline__ void mma_step(const bf16* As, const bf16* Bs,
                                          int wm0, int wn0, int live,
                                          float (&acc)[T::MT][T::NT][4]) {
@@ -211,8 +228,12 @@ __device__ __forceinline__ void mma_step(const bf16* As, const bf16* Bs,
     for (int mt = 0; mt < T::MT; ++mt) {
       if (mt >= live) break;  // uniform in the warp
       unsigned a[4];
-      ldsm_x4(a, As + (wm0 + mt * 16 + lane % 16) * T::LDA + kk +
-                     (lane / 16) * 8);
+      if (A_T)
+        ldsm_x4_trans(a, As + (kk + lane % 8 + (lane / 16) * 8) * T::LDAT +
+                             wm0 + mt * 16 + ((lane / 8) % 2) * 8);
+      else
+        ldsm_x4(a, As + (wm0 + mt * 16 + lane % 16) * T::LDA + kk +
+                       (lane / 16) * 8);
 #pragma unroll
       for (int nt = 0; nt < T::NT; ++nt)
         mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
@@ -240,9 +261,15 @@ __device__ __forceinline__ int live_tiles(int prow0, int m) {
 // The accumulators of one pass over the contraction [kbeg, kend).  The
 // producer P supplies
 //   void load(bf16* As, bf16* Bs, int k0)  issue the copies of step k0,
-//                                          A as [PM][LDA], B as [BK][LDB].
-// `live` is live_tiles (a warp with none skips the products, never a
-// barrier).  Leaves the ring idle on return.
+//                                          A as [PM][LDA] (or [BK][LDAT]),
+//                                          B as [BK][LDB];
+//   bool transposed(int k0)                its A layout ([BK][LDAT] if
+//                                          true; a constant false folds
+//                                          the transposed step away).
+// A producer may also fill a stage with plain shared stores: the
+// cp_async_wait and __syncthreads that publish a step's copies publish
+// them too.  `live` is live_tiles (a warp with none skips the products,
+// never a barrier).  Leaves the ring idle on return.
 template <class T, class P>
 __device__ __forceinline__ void mainloop(bf16* smem, const P& prod, int kbeg,
                                          int kend, int live,
@@ -274,7 +301,10 @@ __device__ __forceinline__ void mainloop(bf16* smem, const P& prod, int kbeg,
     sgemm::cp_async_commit();
     if (live > 0) {
       const bf16* st = smem + (s % T::STAGES) * T::STAGE_ELEMS;
-      mma_step<T>(st, st + T::A_ELEMS, wm0, wn0, live, acc);
+      if (prod.transposed(kbeg + s * T::BK))
+        mma_step<T, true>(st, st + T::A_ELEMS, wm0, wn0, live, acc);
+      else
+        mma_step<T, false>(st, st + T::A_ELEMS, wm0, wn0, live, acc);
     }
   }
   sgemm::cp_async_wait<0>();

@@ -101,16 +101,19 @@ def mainloop_params(bm: int, bk: int, bn: int,
     accumulators; a larger tile runs its passes one after the other),
     threads (128-256), the register tile (float32) or the warp grid and a
     warp's tile (bfloat16: its A and B rows padded by :data:`BF16_PAD`
-    elements in shared memory), the stages of the cp.async ring (as many
-    of 2-4 as fit in :data:`RING_BUDGET`, else 2) and the dynamic shared
-    bytes."""
+    elements in shared memory; a stage's A region holds either A layout,
+    ``[pm][bk + 8]`` or symm's transposed ``[bk][pm + 8]``), the stages of
+    the cp.async ring (as many of 2-4 as fit in :data:`RING_BUDGET`, else
+    2) and the dynamic shared bytes.  The bf16 symm and trmm kernels
+    (``bk`` = 64) run the same mainloop."""
     pm, pn = (bm, bn) if bm * bn <= MAX_PASS else (min(bm, 128), min(bn, 128))
     threads = min(256, max(128, pm * pn // 64))
     if dtype == torch.bfloat16:
         warps = threads // 32
         warps_n = 4 if pn >= 128 and warps == 8 else 2
         warps_m = warps // warps_n
-        stage = 2 * (pm * (bk + BF16_PAD) + bk * (pn + BF16_PAD))
+        a_elems = max(pm * (bk + BF16_PAD), bk * (pm + BF16_PAD))
+        stage = 2 * (a_elems + bk * (pn + BF16_PAD))
         stages = ring_stages(stage)
         return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
                 "threads": threads, "warps": (warps_m, warps_n),

@@ -53,10 +53,12 @@ __all__ = ["KERNELS", "record_launch", "launch_counts", "reset_launches",
            "packed_slot_ratio"]
 
 #: the kernels whose launches are recorded (``trsm`` the substitution of
-#: ``csrc/trsm.cu``, ``trsm_inv`` its diagonal-block inverses,
-#: ``gemm_bf16`` the GEMM on bfloat16 operands, ``csrc/gemm_bf16.cu``)
+#: ``csrc/trsm.cu``, ``trsm_inv`` its diagonal-block inverses; the
+#: ``*_bf16`` kernels those of bfloat16 operands, ``csrc/{gemm_bf16,
+#: symm_bf16,trmm_bf16,trmm_packed_bf16}.cu``)
 KERNELS = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm", "trmm_packed",
-           "trsm", "trsm_inv", "gemm_bf16")
+           "trsm", "trsm_inv", "gemm_bf16", "symm_bf16", "trmm_bf16",
+           "trmm_packed_bf16")
 
 _LOCK = threading.Lock()
 _COUNTS: collections.Counter = collections.Counter()
@@ -210,7 +212,8 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     (syrk/syr2k: the square tile ``bm``; ``bn`` is their contraction block
     and not part of the grid).  The GEMM's grid x counts the n-tiles of
     every slice of :func:`~repro_torch.kernels.gemm.split_plan`; the bf16
-    GEMM (``gemm_bf16``) launches the same grid.  ``trsm``
+    GEMM (``gemm_bf16``) launches the same grid, and the bf16 symm and
+    trmm kernels those of their ops.  ``trsm``
     is its substitution kernel, one block per column strip and item;
     ``trsm_inv`` its inverse kernel, one block per diagonal block, chunk of
     :data:`~repro_torch.kernels.trsm.INV_COLS` columns and item."""
@@ -240,7 +243,7 @@ def packed_grid_for(op: str, dims: tuple[int, ...], bm: int,
     """The CUDA grid of the ``tri_packed`` kernel: the ``nb (nb + 1) / 2``
     lower tiles for syrk/syr2k (``csrc/rank_k_packed.cu``), the n-tiles
     times ``ceil(nb / 2)`` row-block pairs for trmm
-    (``csrc/trmm_packed.cu``)."""
+    (``csrc/trmm_packed.cu``, and ``csrc/trmm_packed_bf16.cu`` alike)."""
     if op in ("syrk", "syr2k"):
         nb = _cdiv(dims[0], bm)
         return (nb * (nb + 1) // 2, 1, batch)

@@ -1,7 +1,9 @@
 """SYMM on the H100: ``O = alpha * sym(A) @ B + beta * C`` with A stored in
-its lower triangle, a CUDA C++ kernel written for Hopper
-(``csrc/symm.cu``, on the GEMM's mainloop ``csrc/sgemm_mainloop.cuh``),
-tiled by the knob's ``bm x bn`` output tile.
+its lower triangle, CUDA C++ kernels written for Hopper, tiled by the
+knob's ``bm x bn`` output tile: ``csrc/symm.cu`` (on the GEMM's mainloop
+``csrc/sgemm_mainloop.cuh``) for float32 operands, ``csrc/symm_bf16.cu``
+(on the bf16 GEMM's tensor-core mainloop ``csrc/bf16_mainloop.cuh``) for
+bfloat16.
 
 It takes the place of the reference package's Pallas kernel
 (``src/repro/kernels/symm.py::symm_pallas``) with the same semantics:
@@ -11,10 +13,14 @@ It takes the place of the reference package's Pallas kernel
 * Ragged m/n need no padding: the kernel masks its edge tiles and the
   ragged contraction tail (the contraction dimension is m itself).
 * C is read only when ``beta != 0`` and a C was given; it has the output's
-  shape.  The output is float32, accumulated in float32.
+  shape.  A, B and C are all float32 or all bfloat16; the output has A's
+  dtype and is accumulated in float32 either way (bf16 rounded once, at
+  the store, as the reference's kernel writes its float32 scratch).
 
-:func:`symm` launches the kernel for CUDA tensors and records the launch
-and its grid with :func:`~repro_torch.kernels.introspect.record_launch`; for
+:func:`symm` launches the kernel of the operands' dtype for CUDA tensors
+and records the launch and its grid with
+:func:`~repro_torch.kernels.introspect.record_launch` (as ``symm`` or
+``symm_bf16``); for
 CPU tensors it computes :func:`symm_plain`, the plain PyTorch version the
 tests and the chip smoke compare the kernel with.
 """
@@ -32,10 +38,13 @@ from .gemm import vec_aligned
 from .introspect import launch_events, record_launch
 from .ref import sym_lower
 
-__all__ = ["symm", "symm_plain", "TILES"]
+__all__ = ["symm", "symm_plain", "TILES", "KERNEL_OF"]
 
-#: the ``(bm, bn)`` output tiles ``csrc/symm.cu`` is instantiated for
+#: the ``(bm, bn)`` output tiles both kernels are instantiated for
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("symm"))
+#: the operand dtypes a SYMM kernel takes: dtype -> (kernel, C launcher)
+KERNEL_OF = {torch.float32: ("symm", "repro_symm_f32"),
+             torch.bfloat16: ("symm_bf16", "repro_symm_bf16")}
 
 #: grid y and z limits of a launch (m-tiles and batch)
 _MAX_GRID_YZ = 65535
@@ -55,8 +64,8 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int,                         # bm, bn
 def symm_plain(a: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor | None = None, *, alpha: float = 1.0,
                beta: float = 0.0) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: ``alpha * sym(A) @ B +
-    beta * C`` in float32."""
+    """The plain PyTorch version of the kernels: ``alpha * sym(A) @ B +
+    beta * C`` in float32, cast to A's dtype."""
     out = alpha * torch.matmul(sym_lower(a.float()), b.float())
     if c is not None and beta != 0.0:
         out = out + beta * c.float()
@@ -75,11 +84,14 @@ def _check(a, b, c, bm, bn) -> tuple[int, int, int | None]:
     if m != m2 or m != mb or (batch is not None and b.shape[0] != batch):
         raise ValueError(f"A {tuple(a.shape)} must be square with B "
                          f"{tuple(b.shape)} of as many rows and items")
-    for t in (a, b) if c is None else (a, b, c):
+    tensors = (a, b) if c is None else (a, b, c)
+    if a.dtype not in KERNEL_OF or any(t.dtype != a.dtype for t in tensors):
+        raise TypeError("the SYMM kernels take float32 or bfloat16 operands, "
+                        "all of one dtype; got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    for t in tensors:
         if t.device != a.device:
             raise ValueError(f"operands on {t.device} and {a.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the SYMM kernel takes float32, got {t.dtype}")
         if t.numel() and t.stride(-1) != 1:
             raise ValueError("the SYMM kernel needs rows with unit inner "
                              f"stride, got strides {t.stride()}")
@@ -96,9 +108,10 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
          beta: float = 0.0) -> torch.Tensor:
     """``alpha * sym(A) @ B + beta * C`` under the output tile ``bm x bn``.
 
-    On CUDA tensors this launches ``csrc/symm.cu`` on the current stream
-    (no synchronisation) and raises if the launch is refused; on CPU
-    tensors it returns :func:`symm_plain`."""
+    On CUDA tensors this launches the kernel of the operands' dtype
+    (``csrc/symm.cu`` for float32, ``csrc/symm_bf16.cu`` for bfloat16) on
+    the current stream (no synchronisation) and raises if the launch is
+    refused; on CPU tensors it returns :func:`symm_plain`."""
     m, n, batch = _check(a, b, c, bm, bn)
     if a.device.type == "cpu":
         return symm_plain(a, b, c, alpha=alpha, beta=beta)
@@ -114,7 +127,8 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     grid = _build.launch_grid()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        launch = _build.launcher("symm", _ARGTYPES)
+        kernel, symbol = KERNEL_OF[a.dtype]
+        launch = _build.launcher(kernel, _ARGTYPES, symbol=symbol)
         events = launch_events()
         rc = launch(
             bm, bn, a.data_ptr(), b.data_ptr(),
@@ -125,8 +139,8 @@ def symm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             out.stride(0) if stacked else 0, out.stride(-2),
             float(alpha), float(beta), int(has_c), int(vec), stream, *events, grid)
     if rc != 0:
-        raise RuntimeError(f"SYMM kernel launch failed with CUDA error {rc} "
-                           f"(tile {bm}x{bn}, A {tuple(a.shape)}, "
+        raise RuntimeError(f"SYMM kernel {kernel} launch failed with CUDA "
+                           f"error {rc} (tile {bm}x{bn}, A {tuple(a.shape)}, "
                            f"B {tuple(b.shape)})")
-    record_launch("symm", grid)
+    record_launch(kernel, grid)
     return out

@@ -1,30 +1,36 @@
 """TRMM on the H100: ``O = alpha * tril(A) @ B`` (left, lower, non-unit),
-with CUDA C++ kernels written for Hopper on the GEMM's f32 mainloop
-(``csrc/sgemm_mainloop.cuh``), tiled by the knob's ``bm x bn`` output tile.
+with CUDA C++ kernels written for Hopper, tiled by the knob's ``bm x bn``
+output tile: on the GEMM's f32 mainloop (``csrc/sgemm_mainloop.cuh``) for
+float32 operands, on the bf16 GEMM's tensor-core mainloop
+(``csrc/bf16_mainloop.cuh``) for bfloat16.
 
 It takes the place of the reference package's Pallas kernels
 (``src/repro/kernels/trmm.py::trmm_pallas``) with the same semantics and
 the same three variants, which the ADSALA knob selects:
 
-* ``full`` (``csrc/trmm.cu``): every block walks the whole contraction and
-  multiplies zero-filled A tiles past the diagonal (without reading A
-  there), the reference's uniform pipeline;
-* ``tri`` (``csrc/trmm.cu``): each pass of rows stops at the end of its
+* ``full`` (``csrc/trmm.cu``; bf16 ``csrc/trmm_bf16.cu``): every block
+  walks the whole contraction and multiplies zero-filled A tiles past the
+  diagonal (without reading A there), the reference's uniform pipeline;
+* ``tri`` (the same kernels): each pass of rows stops at the end of its
   rows' stored columns, so no arithmetic is done past the diagonal;
-* ``tri_packed`` (``csrc/trmm_packed.cu``): about half of ``tri``'s blocks,
+* ``tri_packed`` (``csrc/trmm_packed.cu``; bf16
+  ``csrc/trmm_packed_bf16.cu``): about half of ``tri``'s blocks,
   each computing the tile of row block ``p`` and then that of row block
   ``nb - 1 - p``, so that every block does about the same live work.  It
   equals ``tri`` bit for bit.
 
-Both kernels stage tril(A) through one producer (``csrc/trmm_tile.cuh``):
+The kernels of a dtype stage tril(A) through one producer
+(``csrc/trmm_tile.cuh``, bf16 ``csrc/trmm_tile_bf16.cuh``):
 the GEMM's row-major copies with a per-row column limit, so A is read only
 on and below its diagonal and whatever it holds above changes no bit.  A
 is ``(m, m)`` or ``(batch, m, m)``; B is ``(m, n)`` or ``(batch, m, n)``,
 stacked as A is.  Ragged m and n need no padding: the kernels mask A's
 columns and B's rows alike past m.  When A, B and their strides are
 16-byte aligned (:func:`~repro_torch.kernels.gemm.vec_aligned`, no copy)
-the kernels move 4 floats a copy, else one, with the same bits.  The
-result is a new float32 tensor, accumulated in float32.
+the kernels move 16 bytes a copy, else one element, with the same bits.
+A and B are both float32 or both bfloat16; the result is a new tensor of
+A's dtype, accumulated in float32 (bf16 rounded once, at the store, as
+the reference's kernel writes its float32 scratch).
 
 :func:`trmm` launches a kernel for CUDA tensors and records the launch and
 its grid under the kernel's name with
@@ -45,11 +51,20 @@ from . import _build
 from .gemm import vec_aligned
 from .introspect import launch_events, record_launch
 
-__all__ = ["trmm", "trmm_plain", "TILES", "VARIANTS"]
+__all__ = ["trmm", "trmm_plain", "TILES", "VARIANTS", "KERNEL_OF"]
 
-#: the ``(bm, bn)`` output tiles both kernels are instantiated for
+#: the ``(bm, bn)`` output tiles every kernel is instantiated for
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("trmm"))
 VARIANTS = HOPPER_2D_VARIANTS["trmm"]
+#: the operand dtypes the TRMM kernels take: dtype -> {form: (kernel, C
+#: launcher)}, the form ``trmm`` (full, tri) or ``trmm_packed``
+#: (tri_packed)
+KERNEL_OF = {torch.float32: {"trmm": ("trmm", "repro_trmm_f32"),
+                             "trmm_packed": ("trmm_packed",
+                                             "repro_trmm_packed_f32")},
+             torch.bfloat16: {"trmm": ("trmm_bf16", "repro_trmm_bf16"),
+                              "trmm_packed": ("trmm_packed_bf16",
+                                              "repro_trmm_packed_bf16")}}
 
 #: grid y and z limits of a launch (m-tiles and batch)
 _MAX_GRID_YZ = 65535
@@ -69,7 +84,7 @@ _ARGTYPES = {"trmm": _COMMON + [ctypes.c_int, ctypes.c_int]     # tri, vec
 def trmm_plain(a: torch.Tensor, b: torch.Tensor, *,
                alpha: float = 1.0) -> torch.Tensor:
     """The plain PyTorch version of the kernels: ``alpha * (tril(A) @ B)``
-    in float32."""
+    in float32, cast to A's dtype."""
     out = alpha * torch.matmul(torch.tril(a.float()), b.float())
     return out.to(a.dtype)
 
@@ -88,11 +103,12 @@ def _check(a, b, bm, bn, variant) -> tuple[int, int, int | None]:
     if m != m2 or m != mb or (batch is not None and b.shape[0] != batch):
         raise ValueError(f"A {tuple(a.shape)} must be square with B "
                          f"{tuple(b.shape)} of as many rows and items")
+    if a.dtype not in KERNEL_OF or b.dtype != a.dtype:
+        raise TypeError("the TRMM kernels take float32 or bfloat16 operands, "
+                        f"all of one dtype; got {a.dtype}, {b.dtype}")
     for t in (a, b):
         if t.device != a.device:
             raise ValueError(f"operands on {t.device} and {a.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the TRMM kernels take float32, got {t.dtype}")
         if t.numel() and t.stride(-1) != 1:
             raise ValueError("the TRMM kernels need rows with unit inner "
                              f"stride, got strides {t.stride()}")
@@ -107,9 +123,10 @@ def trmm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     ``variant``.
 
     On CUDA tensors this launches ``csrc/trmm.cu`` (``full``, ``tri``) or
-    ``csrc/trmm_packed.cu`` (``tri_packed``) on the current stream (no
-    synchronisation) and raises if the launch is refused; on CPU tensors it
-    returns :func:`trmm_plain`."""
+    ``csrc/trmm_packed.cu`` (``tri_packed``) for float32 operands,
+    ``csrc/trmm_bf16.cu`` or ``csrc/trmm_packed_bf16.cu`` for bfloat16, on
+    the current stream (no synchronisation) and raises if the launch is
+    refused; on CPU tensors it returns :func:`trmm_plain`."""
     m, n, batch = _check(a, b, bm, bn, variant)
     if a.device.type == "cpu":
         return trmm_plain(a, b, alpha=alpha)
@@ -132,11 +149,12 @@ def _launch(a, b, out, m, n, batch, *, bm, bn, alpha, variant,
     stacked = batch is not None
     sab, sbb = (a.stride(0), b.stride(0)) if stacked else (0, 0)
     vec = vec_aligned((a, a.stride(-2), sab), (b, b.stride(-2), sbb))
-    kernel = "trmm_packed" if variant == "tri_packed" else "trmm"
-    flags = (int(vec),) if kernel == "trmm_packed" \
+    form = "trmm_packed" if variant == "tri_packed" else "trmm"
+    kernel, symbol = KERNEL_OF[a.dtype][form]
+    flags = (int(vec),) if form == "trmm_packed" \
         else (int(variant == "tri"), int(vec))
     grid = _build.launch_grid()
-    launch = _build.launcher(kernel, _ARGTYPES[kernel])
+    launch = _build.launcher(kernel, _ARGTYPES[form], symbol=symbol)
     events = launch_events()
     rc = launch(
         bm, bn, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,

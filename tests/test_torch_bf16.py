@@ -7,8 +7,9 @@ On the CPU the port's ``run_op`` computes the kernel's plain version
 (``gemm_plain``: float32 products and sums, one rounding to bf16); the
 tensor-core kernel itself (``csrc/gemm_bf16.cu``) is held to the same
 plain version on the card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
-The other five ops take float32 only and raise on bf16 until their bf16
-slice lands.
+symm and trmm take bf16 too (``test_torch_bf16_symm_trmm.py``); syrk,
+syr2k and trsm take float32 only and raise on bf16 until their bf16 slice
+lands.
 """
 
 import dataclasses
@@ -126,9 +127,8 @@ def test_gemm_rejects_mixed_and_other_dtypes():
     assert G.gemm(a, b, bm=64, bk=16, bn=64).dtype == torch.bfloat16
 
 
-#: operands of the five ops that keep their float32-only kernels
-_F32_ONLY = {"symm": ((6, 6), (6, 5)), "syrk": ((6, 5),),
-             "syr2k": ((6, 5), (6, 5)), "trmm": ((6, 6), (6, 5)),
+#: operands of the three ops that keep their float32-only kernels
+_F32_ONLY = {"syrk": ((6, 5),), "syr2k": ((6, 5), (6, 5)),
              "trsm": ((6, 6), (6, 5))}
 
 

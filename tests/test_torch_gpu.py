@@ -11,7 +11,8 @@ trmm's A read nowhere above its diagonal, a TRSM call launching its two
 kernels and nothing else, and the launch parameters built into the
 kernels equal to their Python mirrors; the bf16 GEMM under every tile
 within one bf16 ulp of its plain version, stacked == per-item, odd
-strides == aligned and masked == padded bit for bit; the dense, MoE,
+strides == aligned and masked == padded bit for bit; the bf16 SYMM and
+TRMM (every variant) under ``chip_smoke.py``'s phase-3 checks; the dense, MoE,
 zamba2 and rwkv6
 smoke models routed on the card against their plain versions; a retune
 step on the card's telemetry and a one-executor fleet on the card; two
@@ -1157,3 +1158,53 @@ def test_bf16_kernel_is_built_with_its_python_mirror():
         for m, k, n in (*BF16_DIMS, (4, 4096, 14336), (256, 2048, 1408)):
             lib.repro_gemm_bf16_split(m, n, k, bm, bn, out)
             assert (out[0], out[1]) == G.split_plan(m, n, k, bm, bn)
+
+
+# -- the bf16 SYMM and TRMM (csrc/symm_bf16.cu, csrc/trmm_bf16.cu,
+# csrc/trmm_packed_bf16.cu, on the bf16 GEMM's tensor-core mainloop) --------
+
+def _chip_smoke():
+    """``chip_smoke.py`` of the repo's root, loaded as a module."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+def test_bf16_symm_trmm_kernels_hold_phase_3s_checks():
+    """``chip_smoke.check_symm_trmm_bf16`` (phase 3): every knob of symm
+    and trmm (each variant), single, with C and stacked, within
+    ``BF16_TOL`` of the plain version with the recorded grids equal to
+    their formulas; bit for bit, stacked == per-item, ``tri_packed`` ==
+    ``tri``, odd strides == aligned, NaN above A's diagonal == zeros and
+    ``run_op`` == the padded run; a bf16 accumulator above the limit."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    _chip_smoke().check_symm_trmm_bf16(
+        torch, lambda *shape: torch.randn(shape, generator=gen,
+                                          device="cuda"))
+
+
+@pytest.mark.gpu
+def test_bf16_symm_trmm_are_built_with_their_python_mirror():
+    """The launch parameters compiled into symm_bf16.cu, trmm_bf16.cu and
+    trmm_packed_bf16.cu equal ``mainloop_params(bm, 64, bn,
+    torch.bfloat16)``."""
+    _need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import symm as S
+    from repro_torch.kernels import trmm as TM
+    out = (ctypes.c_int * 6)()
+    for name, tiles in (("symm_bf16", S.TILES), ("trmm_bf16", TM.TILES),
+                        ("trmm_packed_bf16", TM.TILES)):
+        config = getattr(_build.load(name), f"repro_{name}_config")
+        for bm, bn in sorted(tiles):
+            assert config(bm, bn, out) == 0, (name, bm, bn)
+            p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
+            assert list(out) == [p["threads"], p["stages"], p["smem"],
+                                 p["passes"], *p["warps"]], (name, bm, bn)

@@ -120,40 +120,46 @@ def test_knob_variant_and_tile_reach_the_wrapper(monkeypatch):
 def test_wrapper_passes_tile_variant_flag_and_vec_to_the_launcher(
         monkeypatch, variant):
     """The launch half of the wrapper, with a recording launcher in place
-    of the built library: the kernel of the variant, the tile, the ``tri``
-    flag (``trmm.cu`` only), ``vec`` true for aligned operands and false
+    of the built library: the kernel of the variant and the operands'
+    dtype with its C symbol, the tile, the ``tri`` flag (``trmm.cu`` and
+    ``trmm_bf16.cu`` only), ``vec`` true for aligned operands and false
     for a view with an unaligned leading stride, and the recorded grid."""
     from repro_torch.kernels import introspect as I
     calls = []
 
-    def launcher(name, argtypes):
+    def launcher(name, argtypes, symbol=None):
         def fn(*args):
             assert len(args) == len(argtypes) + 1     # + the grid
-            calls.append((name, args[:-1]))
+            calls.append((name, symbol, args[:-1]))
             args[-1][:] = (7, 8, 3)
             return 0
         return fn
 
     monkeypatch.setattr(TM._build, "launcher", launcher)
-    a, b = torch.randn(3, 40, 40), torch.randn(3, 40, 24)
-    wide = torch.zeros(3, 40, 41)
-    wide[..., :40] = a
-    kernel = "trmm_packed" if variant == "tri_packed" else "trmm"
-    for x, vec in ((a, 1), (wide[..., :40], 0)):
-        out = torch.empty(3, 40, 24)
-        with I.capture_launches() as launched:
-            TM._launch(x, b, out, 40, 24, 3, bm=128, bn=64, alpha=0.5,
-                       variant=variant, stream=0)
-        assert launched == [(kernel, (7, 8, 3))]
-        name, args = calls.pop()
-        assert name == kernel and args[:2] == (128, 64)
-        assert args[5:8] == (40, 24, 3)
-        assert args[8:14] == (x.stride(0), x.stride(1), 960, 24, 960, 24)
-        # alpha, then the stream and no launch events outside a window
-        assert args[14] == 0.5 and args[-3:] == (0, None, None)
-        flags = args[15:-3]
-        assert flags == ((vec,) if kernel == "trmm_packed"
-                         else (int(variant == "tri"), vec)), flags
+    form = "trmm_packed" if variant == "tri_packed" else "trmm"
+    for dtype, kernel, symbol in (
+            (torch.float32, form, f"repro_{form}_f32"),
+            (torch.bfloat16, f"{form}_bf16", f"repro_{form}_bf16")):
+        a = torch.randn(3, 40, 40).to(dtype)
+        b = torch.randn(3, 40, 24).to(dtype)
+        # one element more a row: unaligned for either dtype
+        wide = torch.zeros(3, 40, 41, dtype=dtype)
+        wide[..., :40] = a
+        for x, vec in ((a, 1), (wide[..., :40], 0)):
+            out = torch.empty(3, 40, 24, dtype=dtype)
+            with I.capture_launches() as launched:
+                TM._launch(x, b, out, 40, 24, 3, bm=128, bn=64, alpha=0.5,
+                           variant=variant, stream=0)
+            assert launched == [(kernel, (7, 8, 3))]
+            name, sym, args = calls.pop()
+            assert (name, sym) == (kernel, symbol) and args[:2] == (128, 64)
+            assert args[5:8] == (40, 24, 3)
+            assert args[8:14] == (x.stride(0), x.stride(1), 960, 24, 960, 24)
+            # alpha, then the stream and no launch events outside a window
+            assert args[14] == 0.5 and args[-3:] == (0, None, None)
+            flags = args[15:-3]
+            assert flags == ((vec,) if form == "trmm_packed"
+                             else (int(variant == "tri"), vec)), flags
 
 
 def test_space_has_24_candidates_in_blocks():
