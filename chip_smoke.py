@@ -7,8 +7,9 @@ calls, and fails (non-zero exit) if any phase fails:
 1. environment: the card's name and power limit, CUDA, nvcc;
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
    ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``, ``trsm``,
-   ``gemm_bf16``, ``symm_bf16``, ``trmm_bf16``, ``trmm_packed_bf16``),
-   all nvcc runs started together, with nvcc's
+   ``gemm_bf16``, ``symm_bf16``, ``trmm_bf16``, ``trmm_packed_bf16``,
+   ``rank_k_bf16``, ``rank_k_packed_bf16``), all nvcc runs started
+   together, with nvcc's
    ``-Xptxas -v`` report (registers, shared memory, spills).  Fails if any
    instantiation of the kernels spills, or if the launch parameters they
    were built with (threads, stages, shared bytes, passes; trsm's inverse
@@ -37,7 +38,17 @@ calls, and fails (non-zero exit) if any phase fails:
    per-item, odd strides == aligned copies, ``run_op`` == the padded run,
    and NaN above A's diagonal == zeros there, for both ops; trmm's full
    against tri printed as a reading, and a bf16 accumulator on sym(A) @ B
-   and tril(A) @ B at m = 4096 reading above ``BF16_TOL``;
+   and tril(A) @ B at m = 4096 reading above ``BF16_TOL``; the bf16 syrk
+   and syr2k (``rank_k_bf16``, ``rank_k_packed_bf16``) under every knob of
+   their spaces (6 tiles x 3 variants) at the rank-k path dims, single and
+   stacked, with and without C, against ``rank_k_plain`` on the same bf16
+   operands, each element within one bf16 ulp of plain's beside the
+   float32 slack, every recorded grid equal to its formula;
+   bit for bit: stacked == per-item, tri_packed == tri, tri and
+   tri_packed outputs equal to their transposes, odd strides == aligned
+   copies, zero-padded n and k == unpadded, and NaN in C's strict upper
+   triangle == zeros there under tri and tri_packed; a bf16 accumulator
+   on A A^T at k = 4096 reading above that limit;
    symm, syrk/syr2k, trmm (every variant) and trsm through the port's
    conformance harness on its ragged dims and one aligned shape, with and
    without C, single and stacked (the error taken
@@ -116,20 +127,25 @@ calls, and fails (non-zero exit) if any phase fails:
    fleet, the in-process service and one ``run_op`` each, alternated;
 5b. bf16, a fresh process after phase 5's (``bf16_precond_main``): phase
    4's registry in a new runtime, and the preconditioner's symm of sym(A)
-   (4096, 4096) against G (4096, 14336), its trmm of tril(L) against G
-   and the (8, 512, 512) stack of each, on bf16 operands through
-   ``run_op``.  It fails unless every decision is the default knob at 2
-   bytes with no model evaluation (installs are float32 only), each call
-   launches exactly the bf16 kernel its knob names and lies within
-   ``BF16_TOL`` of its plain version, and, with both trmm calls run once
-   more under each variant at the default tile, tri_packed == tri bit for
-   bit; then a ``BlasService`` on the card under the same runtime: 4
-   threads, each submitting 8 bf16 symm, 8 bf16 trmm and 8 float32 symm
+   (4096, 4096) against G (4096, 14336), its trmm of tril(L) against G,
+   its syrk updates of L = G G^T and R = G^T G (alpha 0.05, beta 0.95,
+   with C), its syr2k at (4096, 4096) and the (8, 512, 512) stack of each
+   op, on bf16 operands through ``run_op``.  It fails unless every
+   decision is the default knob at 2 bytes with no model evaluation
+   (installs are float32 only), each call launches exactly the bf16
+   kernel its knob names and holds each element within one bf16 ulp of
+   its plain version's beside the float32 slack (a wrong rank-k kernel,
+   the first k-step or beta C dropped, must read above that limit at
+   each rank-k call), and, with both trmm calls run once more under each
+   variant and the L = G G^T syrk and the syr2k stack under tri and
+   tri_packed at the default tile, tri_packed == tri bit for bit; then a
+   ``BlasService`` on the card under the same runtime: 4 threads, each
+   submitting 8 bf16 symm, 8 bf16 trmm, 8 bf16 syrk and 8 float32 symm
    requests at (512, 512), one window, every future within its dtype's
    tolerance of its plain version, the recorded launches equal to the
    buckets executed, no bucket of mixed dtypes, nothing failed.  It
    prints each call's knob, device ms, launches and error, and fails if
-   one of the three bf16 kernels was not launched;
+   one of the five bf16 kernels was not launched;
 6. model: another fresh process loads the installed ``hopper__gemm_b4``
    artifact into a new ``AdsalaRuntime``, builds llama3-8b at full width
    and depth (32 layers, 8,030,261,248 float32 parameters) on the card
@@ -329,9 +345,10 @@ calls, and fails (non-zero exit) if any phase fails:
    linear shapes under the default tile (every bf16 call's) and the best
    of its space, against ``gemm_plain``, ``torch.matmul`` in bf16 and the
    bf16 bound (989.4 TFLOP/s, 3.35 TB/s at 2 bytes an element); and the
-   bf16 symm and trmm (each trmm variant) at phase 5b's calls in the same
-   way, the library ``torch.matmul`` in bf16 of sym(A) or tril(A)
-   materialised.
+   bf16 symm, trmm and syrk/syr2k (each trmm and rank-k variant) at phase
+   5b's calls in the same way, the library ``torch.matmul`` in bf16 of
+   sym(A) or tril(A) materialised, ``torch.addmm``/``torch.matmul`` in bf16
+   for the rank-k calls.
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
 (the ``run_op`` calls, phase 5b's, the service, each model's generate)
@@ -377,7 +394,8 @@ SEED = 0
 #: the kernel sources of the main paths, built side by side
 KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm",
                   "trmm_packed", "trsm", "gemm_bf16", "symm_bf16",
-                  "trmm_bf16", "trmm_packed_bf16")
+                  "trmm_bf16", "trmm_packed_bf16", "rank_k_bf16",
+                  "rank_k_packed_bf16")
 
 #: the reference conformance harness's ragged GEMM dims
 #: (src/repro/backends/conformance.py RAGGED_DIMS["gemm"]) and one aligned
@@ -636,13 +654,20 @@ KERNELS = {
     "trmm_packed_bf16": ("cuda",
                          "src/repro_torch/kernels/csrc/trmm_packed_bf16.cu",
                          "src/repro/kernels/trmm.py:85"),
+    "rank_k_bf16": ("cuda", "src/repro_torch/kernels/csrc/rank_k_bf16.cu",
+                    "src/repro/kernels/syrk.py:73"),
+    "rank_k_packed_bf16": ("cuda",
+                           "src/repro_torch/kernels/csrc/"
+                           "rank_k_packed_bf16.cu",
+                           "src/repro/kernels/syrk.py:132"),
 }
 #: the kernels whose main path is a model's generate (phase 6g) and not
 #: phase 5's run_op calls
 MODEL_ONLY_KERNELS = ("gemm_bf16",)
 #: the kernels whose main path is phase 5b's bf16 preconditioner and not
 #: phase 5's float32 calls
-PRECOND_BF16_KERNELS = ("symm_bf16", "trmm_bf16", "trmm_packed_bf16")
+PRECOND_BF16_KERNELS = ("symm_bf16", "trmm_bf16", "trmm_packed_bf16",
+                        "rank_k_bf16", "rank_k_packed_bf16")
 
 
 def serve_cases() -> list[dict]:
@@ -690,6 +715,34 @@ def _rel_err(got, want) -> float:
     want = want.double()
     return ((got.double() - want).abs().max()
             / (want.abs().max() + 1e-9)).item()
+
+
+def _bf16_slack(op: str, operands, alpha: float = 1.0,
+                beta: float = 0.0) -> float:
+    """The absolute slack of :func:`_bf16_excess` for a bf16 ``op`` call
+    on ``operands`` (C last where given), ``terms`` products a sum (gemm
+    k, symm and trmm m, syrk k, syr2k 2k), each at most ``max|A| max|B|``:
+    float32 sums taken in another order, ``terms 2^-22 |alpha| max|A|
+    max|B|``, and the float32 epilogue's rounding of ``beta C``, ``2^-22
+    |beta| max|C|``."""
+    n_in = 1 if op == "syrk" else 2
+    a, b = operands[0], operands[n_in - 1]
+    c = operands[n_in] if len(operands) > n_in else None
+    terms = (2 if op == "syr2k" else 1) * a.shape[-1]
+    amax, bmax = (x.abs().max().double().item() for x in (a, b))
+    cmax = 0.0 if c is None else c.abs().max().double().item()
+    return 2.0 ** -22 * (terms * abs(alpha) * amax * bmax
+                         + abs(beta) * cmax)
+
+
+def _bf16_excess(got, want, slack: float) -> float:
+    """``max |got - want| / (BF16_TOL |want| + slack)`` over the elements:
+    at most 1 where each element of ``got`` lies within one bf16 ulp of
+    ``want``'s (two roundings of float32 sums that differ only in their
+    order), beside ``slack`` (:func:`_bf16_slack`)."""
+    want = want.double()
+    return ((got.double() - want).abs()
+            / (BF16_TOL * want.abs() + slack)).max().item()
 
 
 def _tf32(x):
@@ -785,8 +838,8 @@ def kernel_of(op: str, knob: dict, dtype=None) -> str:
     ``knob`` on operands of ``dtype`` (None: float32) runs."""
     bf16 = "_bf16" if str(dtype) == "torch.bfloat16" else ""
     if op in ("syrk", "syr2k"):
-        return "rank_k_packed" if knob["variant"] == "tri_packed" \
-            else "rank_k"
+        return ("rank_k_packed" if knob["variant"] == "tri_packed"
+                else "rank_k") + bf16
     if op == "trmm":
         return ("trmm_packed" if knob["variant"] == "tri_packed"
                 else "trmm") + bf16
@@ -1055,34 +1108,57 @@ def serve_service(torch, rt) -> dict:
 
 def bf16_precond_cases() -> list[dict]:
     """Phase 5b's calls: the preconditioner's symm and trmm at its big
-    shape (A (4096, 4096) against G (4096, 14336)) and the (8, 512, 512)
-    stack of each, on bf16 operands."""
+    shape (A (4096, 4096) against G (4096, 14336)), its syrk updates of L =
+    G G^T and R = G^T G and its syr2k at (4096, 4096) (phase 5's calls),
+    and the (8, 512, 512) stack of each op, on bf16 operands.  A case's
+    ``pin`` names the variants it runs under once more at the default
+    tile: both trmm calls, the L = G G^T syrk and the syr2k stack (the
+    rank-k kernels' ``tri`` and ``tri_packed``)."""
     big = [[D_MODEL, D_MODEL], [D_MODEL, D_FF]]
     bt, m, n = STACKED_2D
     stack = [[bt, m, m], [bt, m, n]]
+    ema = {"alpha": 0.05, "beta": 0.95}
+    trmm_pin = ("full", "tri", "tri_packed")
+    rank_k_pin = ("tri", "tri_packed")
     return [
         {"label": f"symm sym(A) ({D_MODEL},{D_MODEL}) B ({D_MODEL},{D_FF}) "
                   f"bf16", "op": "symm", "shapes": big, "kw": {}},
         {"label": f"trmm tril(L) ({D_MODEL},{D_MODEL}) G ({D_MODEL},{D_FF}) "
-                  f"bf16", "op": "trmm", "shapes": big, "kw": {}},
+                  f"bf16", "op": "trmm", "shapes": big, "kw": {},
+         "pin": trmm_pin},
         {"label": f"symm stacked {STACKED_2D} bf16", "op": "symm",
          "shapes": stack, "kw": {}},
         {"label": f"trmm stacked {STACKED_2D} bf16", "op": "trmm",
-         "shapes": stack, "kw": {}},
+         "shapes": stack, "kw": {}, "pin": trmm_pin},
+        *({"label": f"syrk L=GG^T A ({r},{k}) C ({r},{r}) bf16",
+           "op": "syrk", "shapes": [[r, k], [r, r]], "kw": ema,
+           **({"pin": rank_k_pin} if r == D_MODEL else {})}
+          for r, k in ((D_MODEL, D_FF), (D_FF, D_MODEL))),
+        {"label": f"syr2k A,B ({D_MODEL},{D_MODEL}) bf16", "op": "syr2k",
+         "shapes": [[D_MODEL, D_MODEL], [D_MODEL, D_MODEL]], "kw": {}},
+        {"label": f"syrk stacked {STACKED_2D} bf16", "op": "syrk",
+         "shapes": [[bt, m, n]], "kw": {}},
+        {"label": f"syr2k stacked {STACKED_2D} bf16", "op": "syr2k",
+         "shapes": [[bt, m, n], [bt, m, n]], "kw": {}, "pin": rank_k_pin},
     ]
 
 
 def bf16_precond_main(registry_dir: str) -> None:
     """Phase 5b: phase 4's registry loaded into a new runtime, the
-    preconditioner's symm and trmm on bf16 operands through ``run_op``
-    (every decision the default knob at 2 bytes: installs are float32
-    only), trmm's calls once more under each variant at the default tile,
-    then a ``BlasService`` on the card taking bf16 symm, bf16 trmm and
-    float32 symm requests together (:func:`bf16_service`).  Fails unless
-    every call launches exactly the kernel its knob and dtype name, within
-    ``BF16_TOL`` of its plain version, with no model evaluation, and
-    ``tri_packed`` == ``tri`` bit for bit; prints one ``[bf16:precond]``
-    line a call and one ``BF16_PRECOND_RESULT {json}`` line."""
+    preconditioner's symm, trmm, syrk and syr2k on bf16 operands through
+    ``run_op`` (every decision the default knob at 2 bytes: installs are
+    float32 only), the cases with a ``pin`` once more under each of its
+    variants at the default tile, then a ``BlasService`` on the card
+    taking bf16 symm, bf16 trmm, bf16 syrk and float32 symm requests
+    together (:func:`bf16_service`).  Fails unless every call launches
+    exactly the kernel its knob and dtype name, holds each element within
+    one bf16 ulp of its plain version's beside the float32 slack
+    (:func:`_bf16_excess` at most 1), with no model evaluation, and
+    ``tri_packed`` == ``tri`` bit for bit; and unless that limit rejects
+    what a wrong rank-k kernel would give at each rank-k call (the first
+    k-step of the default tile dropped, and beta C dropped where C is
+    given).  Prints one ``[bf16:precond]`` line a call and one
+    ``BF16_PRECOND_RESULT {json}`` line."""
     faulthandler.dump_traceback_later(BF16_PRECOND_TIMEOUT_S - 20, exit=True)
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1112,7 +1188,7 @@ def bf16_precond_main(registry_dir: str) -> None:
         ms = 1e3 * window.seconds()
         plain = plain_of(op, kd)(*operands, **case["kw"])
         batch = operands[0].shape[0] if operands[0].dim() == 3 else 1
-        dims = (operands[0].shape[-1], operands[1].shape[-1])
+        dims = ops.dims_of(op, [tuple(x.shape) for x in operands])
         packed = kd.get("variant") == "tri_packed"
         grid = (introspect.packed_grid_for if packed
                 else introspect.full_grid_for)(op, dims, kd["bm"], kd["bn"],
@@ -1120,17 +1196,20 @@ def bf16_precond_main(registry_dir: str) -> None:
         want = [(kernel_of(op, kd, bf16), grid)]
         launches = dict(collections.Counter(k for k, _ in launched))
         rel = _rel_err(out, plain)
+        slack = _bf16_slack(op, operands, **case["kw"])
+        excess = _bf16_excess(out, plain, slack)
         row = {**case, "knob": kd, "pinned": knob is not None, "ms": ms,
                "launches": launches, "kernel": kernel_of(op, kd, bf16),
-               "rel_err": rel,
+               "rel_err": rel, "slack": slack, "excess": excess,
                "abs_err": (out.float() - plain.float()).abs().max().item()}
         rows.append(row)
         print(f"[bf16:precond] [{card}] {case['label']}"
               f"{' pinned' if knob is not None else ''}: knob "
               f"{_knob_str(op, kd)}{'' if knob is not None else ' (default)'}"
               f", {ms:.4f} ms (the kernel's device time), launches "
-              f"{launches}, max |got - plain| / max |plain| {rel:.3e}",
-              flush=True)
+              f"{launches}, max |got - plain| / max |plain| {rel:.3e}, max "
+              f"|got - plain| / (BF16_TOL |plain| + {slack:.3e}) "
+              f"{excess:.4f} (<= 1)", flush=True)
         if out.dtype != bf16 or tuple(out.shape) != tuple(plain.shape) \
                 or not bool(torch.isfinite(out).all()):
             raise SystemExit(f"[bf16:precond] {case['label']}: bad output "
@@ -1138,10 +1217,35 @@ def bf16_precond_main(registry_dir: str) -> None:
         if launched != want:
             raise SystemExit(f"[bf16:precond] {case['label']}: launched "
                              f"{launched}, expected {want}")
-        if not rel <= BF16_TOL:
-            raise SystemExit(f"[bf16:precond] {case['label']}: rel err "
-                             f"{rel:.3e} vs plain (BF16_TOL {BF16_TOL:.3e})")
-        return out
+        if not excess <= 1.0:
+            raise SystemExit(f"[bf16:precond] {case['label']}: an element "
+                             f"{excess:.4f} times its limit (BF16_TOL "
+                             f"|plain| + {slack:.3e}) from plain")
+        return out, plain, slack
+
+    def controls(case, operands, plain, slack):
+        """What a wrong rank-k kernel would give at this call, held to the
+        limit ``call`` holds the kernel to: each must lie above it."""
+        op, kw = case["op"], case["kw"]
+        n_in = 1 if op == "syrk" else 2
+        xs, c = operands[:n_in], operands[n_in:]
+        kd = ops.default_knob(op).dict
+        bk = kd["bn"]
+        fn = plain_of(op, kd)
+        wrong = {f"the first k-step ({bk}) dropped":
+                 fn(*(x[..., bk:] for x in xs), *c, **kw)}
+        if c:
+            wrong["beta C dropped"] = fn(*xs, **{**kw, "beta": 0.0})
+        read = {what: _bf16_excess(w, plain, slack)
+                for what, w in wrong.items()}
+        rows[-1]["controls"] = read
+        print(f"[bf16:precond] [{card}] {case['label']}: a wrong kernel "
+              f"against the limit: " + ", ".join(
+                  f"{what} {v:.4f}" for what, v in read.items())
+              + " (> 1)", flush=True)
+        if not min(read.values()) > 1.0:
+            raise SystemExit(f"[bf16:precond] {case['label']}: the limit "
+                             f"passes a wrong kernel: {read}")
 
     # the run_op path: counts from 0 just before, read just after
     before = rt.stats
@@ -1149,21 +1253,24 @@ def bf16_precond_main(registry_dir: str) -> None:
     for case in bf16_precond_cases():
         operands = [x.to(bf16) for x in make_operands(torch, gen, case["op"],
                                                       case["shapes"])]
-        call(case, operands)
-        if case["op"] == "trmm":
+        _, plain, slack = call(case, operands)
+        if case["op"] in ("syrk", "syr2k"):
+            controls(case, operands, plain, slack)
+        if case.get("pin"):
             pinned.append((case, operands))
-        del operands
+        del operands, plain
     after = rt.stats
     served = len(rows)
-    # a caller that pins the variant: both trmm calls under each variant at
-    # the default tile
-    default = ops.default_knob("trmm").dict
+    # a caller that pins the variant: each pinned case under each of its
+    # variants at the default tile
     for case, operands in pinned:
+        op = case["op"]
+        default = ops.default_knob(op).dict
         outs = {}
-        for variant in ("full", "tri", "tri_packed"):
+        for variant in case["pin"]:
             knob = Knob(tuple(sorted({**default, "variant": variant}
                                      .items())))
-            outs[variant] = call(case, operands, knob)
+            outs[variant] = call(case, operands, knob)[0]
         if not torch.equal(outs["tri"].view(torch.int16),
                            outs["tri_packed"].view(torch.int16)):
             raise SystemExit(f"[bf16:precond] {case['label']}: tri_packed "
@@ -1175,7 +1282,8 @@ def bf16_precond_main(registry_dir: str) -> None:
     print(f"[bf16:precond] [{card}] {served} served calls: model_evals "
           f"{evals}, default_calls {defaults} (every decision the default "
           f"knob at 2 bytes); tri_packed == tri bit for bit at both trmm "
-          f"calls; launches {launches}", flush=True)
+          f"calls, the L = G G^T syrk and the syr2k stack; launches "
+          f"{launches}", flush=True)
     if evals != 0 or defaults != served \
             or after.eval_failures != before.eval_failures:
         raise SystemExit(f"[bf16:precond] decisions: {evals} model evals, "
@@ -1193,8 +1301,8 @@ def bf16_precond_main(registry_dir: str) -> None:
 def bf16_service(torch, rt, card: str) -> dict:
     """Phase 5b's service: a ``BlasService`` on the card under phase 5b's
     runtime, :data:`SERVICE_THREADS` client threads each submitting
-    :data:`SERVICE_PER_THREAD` bf16 symm, bf16 trmm and float32 symm
-    requests at :data:`SERVICE_SHAPE` together, one window.  Fails unless
+    :data:`SERVICE_PER_THREAD` bf16 symm, bf16 trmm, bf16 syrk and float32
+    symm requests at :data:`SERVICE_SHAPE` together, one window.  Fails unless
     every future holds its request's dtype within its tolerance of the
     plain version (``BF16_TOL``, ``F32_TOL``), the recorded launches equal
     the buckets executed (a bucket's dtype names its kernel), every bucket
@@ -1205,9 +1313,9 @@ def bf16_service(torch, rt, card: str) -> dict:
     m, n = SERVICE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     mix = (("symm", torch.bfloat16), ("trmm", torch.bfloat16),
-           ("symm", torch.float32))
+           ("syrk", torch.bfloat16), ("symm", torch.float32))
     traffic = [[(op, tuple(x.to(dtype) for x in make_operands(
-                   torch, gen, op, [[m, m], [m, n]])))
+                   torch, gen, op, _shapes_2d(op, (m, n)))))
                 for _ in range(SERVICE_PER_THREAD) for op, dtype in mix]
                for _ in range(SERVICE_THREADS)]
     flat = [r for part in traffic for r in part]
@@ -1253,8 +1361,9 @@ def bf16_service(torch, rt, card: str) -> dict:
         for kernel, count in _expected_launches(op, knob, dtype).items():
             expected[kernel] += count * n_batches
     print(f"[bf16:service] [{card}] {len(flat)} requests ({SERVICE_THREADS} "
-          f"threads x {SERVICE_PER_THREAD} each of bf16 symm, bf16 trmm and "
-          f"float32 symm at {SERVICE_SHAPE}) in {seconds:.3f} s: completed "
+          f"threads x {SERVICE_PER_THREAD} each of bf16 symm, bf16 trmm, "
+          f"bf16 syrk and float32 symm at {SERVICE_SHAPE}) in "
+          f"{seconds:.3f} s: completed "
           f"{st.completed}, failed {st.failed}, {st.batches} buckets "
           f"(mean batch {st.completed / max(1, st.batches):.3f}): "
           f"{buckets}; launches {dict((k, v) for k, v in launches.items() if v)}"
@@ -1267,10 +1376,11 @@ def bf16_service(torch, rt, card: str) -> dict:
         raise SystemExit("[bf16:service] lost or failed requests")
     if launches != expected:
         raise SystemExit("[bf16:service] launches differ from the buckets")
-    if not any(k.startswith("symm b2") for k in buckets) \
-            or not any(k.startswith("symm b4") for k in buckets):
+    if not all(any(k.startswith(key) for k in buckets)
+               for key in ("symm b2", "symm b4", "trmm b2", "syrk b2")):
         raise SystemExit(f"[bf16:service] symm's bf16 and float32 requests "
-                         f"did not bucket apart: {buckets}")
+                         f"did not bucket apart, or a bf16 op was not "
+                         f"served: {buckets}")
     return {"requests": len(flat), "completed": st.completed,
             "failed": st.failed, "batches": st.batches, "buckets": buckets,
             "launches": launches, "max_rel_err": worst, "seconds": seconds}
@@ -4091,7 +4201,9 @@ def check_build() -> None:
                         ("trsm", trsm_count), ("gemm_bf16", len(G.TILES)),
                         ("symm_bf16", len(S.TILES)),
                         ("trmm_bf16", len(TM.TILES)),
-                        ("trmm_packed_bf16", len(TM.TILES))):
+                        ("trmm_packed_bf16", len(TM.TILES)),
+                        ("rank_k_bf16", len(K.TILES)),
+                        ("rank_k_packed_bf16", len(K.TILES))):
         entries = _ptxas_entries(name)
         spilled = [e for e in entries if e[2] != 0]
         if len(entries) != count or spilled:
@@ -4176,6 +4288,18 @@ def check_build() -> None:
             if config(bm, bn, out6) != 0 or list(out6) != want:
                 raise SystemExit(f"[build:{name}] tile {(bm, 64, bn)}: "
                                  f"built with {list(out6)}, mainloop_params "
+                                 f"{want}")
+    # the bf16 rank-k kernels: B staged as rows, the rounded tile parked
+    for name in ("rank_k_bf16", "rank_k_packed_bf16"):
+        config = getattr(_build.load(name), f"repro_{name}_config")
+        for bm, bk in sorted(K.TILES):
+            p = K.rank_k_params(bm, bk, torch.bfloat16)
+            want = [p["threads"], p["stages"], p["smem"], p["passes"],
+                    *p["warps"]]
+            bf16_2d += 1
+            if config(bm, bk, out6) != 0 or list(out6) != want:
+                raise SystemExit(f"[build:{name}] tile {(bm, bk, bm)}: "
+                                 f"built with {list(out6)}, rank_k_params "
                                  f"{want}")
     print(f"[build] launch parameters of "
           f"{len(configs) + len(T.TILES) + len(G.TILES) + bf16_2d} tiles and "
@@ -4584,6 +4708,176 @@ def check_symm_trmm_bf16(torch, rand) -> None:
           f"accumulator (rounded every {BF16_STEP} k) at m = 4096: symm "
           f"{control['symm']:.3e}, trmm {control['trmm']:.3e} (> "
           f"{BF16_TOL:.3e})", flush=True)
+
+
+def _rank_k_bf16_call(op: str, kd: dict, xs, c=None, alpha=0.5, beta=2.0):
+    """syrk (``xs`` = [A]) or syr2k ([A, B]) under the knob ``kd`` (its
+    tile, contraction block and variant) on bf16 operands: the result, the
+    launches it recorded and the launch its formula gives."""
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels import syrk as K
+    fn = K.syrk if op == "syrk" else K.syr2k
+    with I.capture_launches() as launched:
+        got = fn(*xs, c, bm=kd["bm"], bk=kd["bn"], alpha=alpha, beta=beta,
+                 variant=kd["variant"])
+    batch = xs[0].shape[0] if xs[0].dim() == 3 else 1
+    grid = (I.packed_grid_for if kd["variant"] == "tri_packed"
+            else I.full_grid_for)(op, tuple(xs[0].shape[-2:]), kd["bm"],
+                                  kd["bn"], batch=batch)
+    return got, launched, [(kernel_of(op, kd, got.dtype), grid)]
+
+
+def check_rank_k_bf16(torch, rand) -> None:
+    """The bf16 syrk and syr2k kernels under every knob of their spaces
+    against ``rank_k_plain`` on the same bf16 operands, each element held
+    within one bf16 ulp of plain's beside the float32 slack
+    (:func:`_bf16_excess` at most 1): :data:`RANK_K_PATH_DIMS`, single and
+    in stacks of :data:`STACK`, without C and with C (``alpha`` 0.5,
+    ``beta`` 2), each launch's recorded grid equal to its formula.  Bit for bit: stacked ==
+    per-item, ``tri_packed`` == ``tri``, ``tri`` and ``tri_packed``
+    outputs equal to their transposes, odd leading strides (2-byte loads)
+    == aligned operands, operands zero-padded to multiples of 128 in n and
+    k (sliced back) == unpadded, and NaN in C's strict upper triangle ==
+    zeros there under ``tri`` and ``tri_packed``.  A bf16 accumulator's
+    reading on A A^T at k = 4096 must lie above the limit, the kernel's
+    there within it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import syrk as K
+
+    def brand(*shape):
+        return rand(*shape).bfloat16()
+
+    def bits(t):
+        return t.contiguous().view(torch.int16)
+
+    def rup(v):
+        return -(-v // 128) * 128
+
+    checks, worst, excess, worst_abs, vec_dims = 0, {}, {}, 0.0, []
+    for op in ("syrk", "syr2k"):
+        space = ops.knob_space_for(op)
+        for n, k in RANK_K_PATH_DIMS:
+            for lead in ((), (STACK,)):
+                xs = [brand(*lead, n, k) for _ in range(1 if op == "syrk"
+                                                        else 2)]
+                c = brand(*lead, n, n)
+                upper = torch.ones(n, n, dtype=torch.bool,
+                                   device=c.device).triu(1)
+                cnan = torch.where(upper, math.nan, c.float()).bfloat16()
+                czero = torch.where(upper, 0.0, c.float()).bfloat16()
+                sb = n * k if lead else 0
+                if G.vec_aligned(*((x, k, sb) for x in xs)):
+                    vec_dims.append((op, *lead, n, k))
+                pad_n, pad_k = rup(n) - n, rup(k) - k
+                padded = [F.pad(x, (0, pad_k, 0, pad_n)) for x in xs]
+                cpad = F.pad(c, (0, pad_n, 0, pad_n))
+                us = [_unaligned(torch, x) for x in xs]
+                others = [([us[0], *xs[1:]], "odd-stride A")]
+                if op == "syr2k":
+                    others += [([xs[0], us[1]], "odd-stride B"),
+                               (us, "odd-stride A and B")]
+                for cc, cp, alpha, beta in ((None, None, 1.0, 0.0),
+                                            (c, cpad, 0.5, 2.0)):
+                    plain = {v: K.rank_k_plain(xs[0], xs[1] if op == "syr2k"
+                                               else None, cc, alpha=alpha,
+                                               beta=beta, variant=v)
+                             for v in ("full", "tri")}
+                    slack = _bf16_slack(op, [*xs, *([] if cc is None
+                                                    else [cc])], alpha, beta)
+                    outs = {}
+                    for knob in space:
+                        kd = knob.dict
+                        var = kd["variant"]
+                        got, launched, want = _rank_k_bf16_call(
+                            op, kd, xs, cc, alpha, beta)
+                        checks += 1
+                        if launched != want or got.dtype != torch.bfloat16:
+                            raise SystemExit(f"[kernel:{op}_bf16] {kd} "
+                                             f"{tuple(xs[0].shape)}: launched "
+                                             f"{launched}, formula {want}, "
+                                             f"dtype {got.dtype}")
+                        ref = plain["full" if var == "full" else "tri"]
+                        err = _bf16_excess(got, ref, slack)
+                        worst[op] = max(worst.get(op, 0.0),
+                                        _rel_err(got, ref))
+                        excess[op] = max(excess.get(op, 0.0), err)
+                        worst_abs = max(worst_abs, (got.float() - ref.float())
+                                        .abs().max().item())
+                        if not err <= 1.0:
+                            raise SystemExit(f"[kernel:{op}_bf16] {kd} "
+                                             f"{tuple(xs[0].shape)}: an "
+                                             f"element {err:.4f} times its "
+                                             f"limit from plain")
+                        outs[kd["bm"], kd["bn"], var] = got
+                        if var != "full" and not torch.equal(bits(got),
+                                                             bits(got.mT)):
+                            raise SystemExit(f"[kernel:{op}_bf16] {kd} at "
+                                             f"{(*lead, n, k)}: output not "
+                                             f"symmetric bit for bit")
+
+                        def run(ys, cy):
+                            return _rank_k_bf16_call(op, kd, ys, cy, alpha,
+                                                     beta)[0]
+
+                        pairs = [(run(ys, cc), got, what)
+                                 for ys, what in others]
+                        pairs.append((run(padded, cp)[..., :n, :n], got,
+                                      "zero-padded n and k"))
+                        pairs += [(run([x[i] for x in xs],
+                                       None if cc is None else cc[i]),
+                                   got[i], f"item {i} alone vs stacked")
+                                  for i in range(STACK if lead else 0)]
+                        if cc is not None and var != "full":
+                            pairs.append((run(xs, cnan), run(xs, czero),
+                                          "NaN in C's strict upper triangle "
+                                          "vs zeros there"))
+                        for o, ref, what in pairs:
+                            checks += 1
+                            if not torch.equal(bits(o), bits(ref)):
+                                raise SystemExit(
+                                    f"[kernel:{op}_bf16] {kd} at "
+                                    f"{(*lead, n, k)}: {what} differs bit "
+                                    f"for bit")
+                    for (bm, bk, var), got in outs.items():
+                        if var == "tri_packed" and not torch.equal(
+                                bits(got), bits(outs[bm, bk, "tri"])):
+                            raise SystemExit(f"[kernel:{op}_bf16] tri_packed "
+                                             f"!= tri at {(*lead, n, k)} "
+                                             f"tile {bm}x{bk}")
+    if not vec_dims:
+        raise SystemExit("[kernel:rank_k_bf16] no aligned operands: the "
+                         "16-byte copies were not held")
+    # the control: a bf16 accumulator on A A^T at k = 4096
+    a = brand(256, 4096)
+    plain = K.rank_k_plain(a)
+    slack = _bf16_slack("syrk", [a])
+    control = _bf16_excess(_bf16_accumulated(torch, a, a.mT), plain, slack)
+    kernel = _bf16_excess(_rank_k_bf16_call(
+        "syrk", ops.default_knob("syrk").dict, [a], None, 1.0, 0.0)[0],
+        plain, slack)
+    if not control > 1.0:
+        raise SystemExit(f"[kernel:rank_k_bf16] a bf16 accumulator at k = "
+                         f"4096 passes the limit: {control:.3e}")
+    if not kernel <= 1.0:
+        raise SystemExit(f"[kernel:rank_k_bf16] the kernel at k = 4096: an "
+                         f"element {kernel:.4f} times its limit from plain")
+    torch.cuda.synchronize()
+    print(f"[kernel:rank_k_bf16,rank_k_packed_bf16] {checks} checks over "
+          f"the 18 syrk and 18 syr2k knobs at {RANK_K_PATH_DIMS} (single, "
+          f"stack of {STACK}, with and without C): max |got - plain| / max "
+          f"|plain| syrk {worst['syrk']:.3e}, syr2k {worst['syr2k']:.3e}, max "
+          f"|got - plain| / (BF16_TOL |plain| + slack) syrk "
+          f"{excess['syrk']:.4f}, syr2k {excess['syr2k']:.4f} (<= 1), max "
+          f"abs err vs plain {worst_abs:.3e}; "
+          f"recorded grids == formulas; bit for bit: stacked == per-item, "
+          f"tri_packed == tri, tri and tri_packed symmetric, odd strides == "
+          f"aligned (16-byte copies at {vec_dims}), zero-padded n, k == "
+          f"unpadded, NaN in C's strict upper triangle == zeros; the kernel "
+          f"at A (256, 4096), default knob, against the limit: "
+          f"{kernel:.4f}; a bf16 accumulator (rounded every {BF16_STEP} k) "
+          f"there: {control:.4f} (> 1)", flush=True)
 
 
 def check_2d_ops(torch, rand) -> None:
@@ -5176,15 +5470,17 @@ def time_bf16_rows(torch, card: str) -> tuple[dict, float]:
 
 
 def time_bf16_precond_rows(torch, card: str) -> dict:
-    """Phase 7's bf16 symm and trmm rows: phase 5b's big call and stack of
-    each op, one row per kernel and call (symm; trmm ``full`` and ``tri``;
-    trmm ``tri_packed``), on bf16 operands.  Each variant at the default
-    tile (every bf16 call's knob: no install has a bf16 model) and the best
-    tile of the space (a reading), the plain version, ``torch.matmul`` in
-    bf16 of ``sym(A)``/``tril(A)`` materialised with reduced-precision
-    reduction off (the library's yardstick) and the bf16 bound (989.4
-    TFLOP/s, 3.35 TB/s at 2 bytes an element).  Returns each kernel's
-    totals over its calls."""
+    """Phase 7's bf16 symm, trmm and rank-k rows: phase 5b's calls, one
+    row per kernel and call (symm; trmm ``full`` and ``tri``; trmm
+    ``tri_packed``; syrk/syr2k ``full`` and ``tri``; syrk/syr2k
+    ``tri_packed``), on bf16 operands.  Each variant at the default tile
+    (every bf16 call's knob: no install has a bf16 model) and the best
+    tile of the space (a reading), the plain version, the library's
+    yardstick in bf16 with reduced-precision reduction off
+    (``torch.matmul`` of ``sym(A)``/``tril(A)`` materialised;
+    ``torch.addmm`` or ``torch.matmul`` for the rank-k calls) and the bf16
+    bound (989.4 TFLOP/s, 3.35 TB/s at 2 bytes an element).  Returns each
+    kernel's totals over its calls."""
     from repro_torch.kernels import ops
     matmul = torch.backends.cuda.matmul
     reduced = matmul.allow_bf16_reduced_precision_reduction
@@ -5193,24 +5489,28 @@ def time_bf16_precond_rows(torch, card: str) -> dict:
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0, "ops_bound_ms": 0.0}
               for name in PRECOND_BF16_KERNELS}
+    rank_k = (("rank_k_bf16", ("full", "tri")),
+              ("rank_k_packed_bf16", ("tri_packed",)))
     forms = (("symm_bf16", "symm", (None,)),
              ("trmm_bf16", "trmm", ("full", "tri")),
-             ("trmm_packed_bf16", "trmm", ("tri_packed",)))
+             ("trmm_packed_bf16", "trmm", ("tri_packed",)),
+             *((name, op, variants) for op in ("syrk", "syr2k")
+               for name, variants in rank_k))
     try:
         for case in bf16_precond_cases():
-            op, shapes = case["op"], case["shapes"]
+            op, shapes, kw = case["op"], case["shapes"], case["kw"]
             per_set = 2 * sum(math.prod(s) for s in shapes)
             sets = [[x.bfloat16() for x in make_operands(torch, gen, op,
                                                          shapes)]
                     for _ in range(max(1, math.ceil(120e6 / per_set)))]
-            plain_ms = _time_ms(torch, plain_of(op, {"variant": "full"}),
-                                sets)
-            lib, prep = _library_fn(torch, op, {}, shapes)
-            lib_sets = [prep(s) for s in sets]
+            plain = plain_of(op, {"variant": "full"})
+            plain_ms = _time_ms(torch, lambda *xs: plain(*xs, **kw), sets)
+            lib, prep = _library_fn(torch, op, kw, shapes)
+            lib_sets = [prep(s) for s in sets] if prep else sets
             library_ms = _time_ms(torch, lib, lib_sets)
             del lib_sets
-            bound_ms, bound_by = _bound(op, shapes, {}, bf16=True)
-            flops, nbytes = _work(op, shapes, {}, 2)
+            bound_ms, bound_by = _bound(op, shapes, kw, bf16=True)
+            flops, nbytes = _work(op, shapes, kw, 2)
             for name, form_op, variants in forms:
                 if form_op != op:
                     continue
@@ -5219,9 +5519,9 @@ def time_bf16_precond_rows(torch, card: str) -> dict:
                     default = ops.default_knob(op).dict
                     if var is not None:
                         default = {**default, "variant": var}
-                    ms = _time_ms(torch, _kernel_fn(op, default, {}), sets)
+                    ms = _time_ms(torch, _kernel_fn(op, default, kw), sets)
                     best_ms, best = min(
-                        ((_time_ms(torch, _kernel_fn(op, k.dict, {}), sets,
+                        ((_time_ms(torch, _kernel_fn(op, k.dict, kw), sets,
                                    iters=3), k.dict)
                          for k in ops.knob_space_for(op)
                          if var is None or k["variant"] == var),
@@ -5243,7 +5543,8 @@ def time_bf16_precond_rows(torch, card: str) -> dict:
                         f"({100 * bound_ms / best_ms:.1f} %)")
                 print(f"[times:{name}] [{card}] {case['label']}: "
                       + " | ".join(parts) + f" | plain {plain_ms:.4f} ms | "
-                      f"library (torch.matmul bf16) {library_ms:.4f} ms "
+                      f"library ({'torch.addmm' if kw else 'torch.matmul'} "
+                      f"bf16) {library_ms:.4f} ms "
                       f"({100 * bound_ms / library_ms:.1f} %) | bound "
                       f"{bound_ms:.4f} ms ({bound_by})", flush=True)
             del sets
@@ -5443,6 +5744,7 @@ def main(argv: list[str]) -> int:
             check_gemm(torch, rand)
             check_gemm_bf16(torch, rand)
             check_symm_trmm_bf16(torch, rand)
+            check_rank_k_bf16(torch, rand)
             check_2d_ops(torch, rand)
             check_trmm_paths(torch, rand)
             check_rank_k_paths(torch, rand)
@@ -5455,6 +5757,7 @@ def main(argv: list[str]) -> int:
     check_gemm(torch, rand)
     check_gemm_bf16(torch, rand)
     check_symm_trmm_bf16(torch, rand)
+    check_rank_k_bf16(torch, rand)
     check_2d_ops(torch, rand)
     check_trmm_paths(torch, rand)
     check_rank_k_paths(torch, rand)

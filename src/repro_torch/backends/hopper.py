@@ -33,11 +33,11 @@ class HopperBackend(Backend):
 
     def supports_dtype(self, dtype) -> bool:
         """float32 only (the reference's Pallas backend reports float64
-        unsupported).  gemm, symm and trmm also take bfloat16
-        (``csrc/{gemm,symm,trmm,trmm_packed}_bf16.cu``) and syrk/syr2k and
-        trsm do not yet, so bfloat16 stays unsupported here until every op
-        takes it; calibration and conformance ask only for what this
-        reports."""
+        unsupported).  gemm, symm, syrk/syr2k and trmm also take bfloat16
+        (``csrc/{gemm,symm,rank_k,rank_k_packed,trmm,trmm_packed}_bf16.cu``)
+        and trsm does not yet, so bfloat16 stays unsupported here until
+        every op takes it; calibration and conformance ask only for what
+        this reports."""
         if isinstance(dtype, torch.dtype):
             return dtype == torch.float32
         return np.dtype(dtype) == np.float32

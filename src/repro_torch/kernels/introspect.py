@@ -55,10 +55,11 @@ __all__ = ["KERNELS", "record_launch", "launch_counts", "reset_launches",
 #: the kernels whose launches are recorded (``trsm`` the substitution of
 #: ``csrc/trsm.cu``, ``trsm_inv`` its diagonal-block inverses; the
 #: ``*_bf16`` kernels those of bfloat16 operands, ``csrc/{gemm_bf16,
-#: symm_bf16,trmm_bf16,trmm_packed_bf16}.cu``)
+#: symm_bf16,trmm_bf16,trmm_packed_bf16,rank_k_bf16,
+#: rank_k_packed_bf16}.cu``)
 KERNELS = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm", "trmm_packed",
            "trsm", "trsm_inv", "gemm_bf16", "symm_bf16", "trmm_bf16",
-           "trmm_packed_bf16")
+           "trmm_packed_bf16", "rank_k_bf16", "rank_k_packed_bf16")
 
 _LOCK = threading.Lock()
 _COUNTS: collections.Counter = collections.Counter()
@@ -212,8 +213,8 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     (syrk/syr2k: the square tile ``bm``; ``bn`` is their contraction block
     and not part of the grid).  The GEMM's grid x counts the n-tiles of
     every slice of :func:`~repro_torch.kernels.gemm.split_plan`; the bf16
-    GEMM (``gemm_bf16``) launches the same grid, and the bf16 symm and
-    trmm kernels those of their ops.  ``trsm``
+    GEMM (``gemm_bf16``) launches the same grid, and the bf16 symm, trmm
+    and rank-k kernels those of their ops.  ``trsm``
     is its substitution kernel, one block per column strip and item;
     ``trsm_inv`` its inverse kernel, one block per diagonal block, chunk of
     :data:`~repro_torch.kernels.trsm.INV_COLS` columns and item."""
@@ -241,7 +242,8 @@ def packed_grid_for(op: str, dims: tuple[int, ...], bm: int,
                     bn: int | None = None, *, batch: int = 1
                     ) -> tuple[int, int, int]:
     """The CUDA grid of the ``tri_packed`` kernel: the ``nb (nb + 1) / 2``
-    lower tiles for syrk/syr2k (``csrc/rank_k_packed.cu``), the n-tiles
+    lower tiles for syrk/syr2k (``csrc/rank_k_packed.cu``, and
+    ``csrc/rank_k_packed_bf16.cu`` alike), the n-tiles
     times ``ceil(nb / 2)`` row-block pairs for trmm
     (``csrc/trmm_packed.cu``, and ``csrc/trmm_packed_bf16.cu`` alike)."""
     if op in ("syrk", "syr2k"):

@@ -1,6 +1,7 @@
 """SYRK / SYR2K on the H100, lower-triangle rank-k updates, with CUDA C++
-kernels written for Hopper on the GEMM's f32 mainloop
-(``csrc/sgemm_mainloop.cuh``):
+kernels written for Hopper: on the GEMM's f32 mainloop
+(``csrc/sgemm_mainloop.cuh``) for float32 operands, on the bf16 GEMM's
+tensor-core mainloop (``csrc/bf16_mainloop.cuh``) for bfloat16:
 
   syrk : O = alpha * A @ A^T + beta * C            A (n, k), C (n, n)
   syr2k: O = alpha * (A @ B^T + B @ A^T) + beta * C
@@ -9,19 +10,22 @@ They take the place of the reference package's Pallas kernels
 (``src/repro/kernels/syrk.py``) with the same three variants, which the
 ADSALA knob selects:
 
-* ``full`` (``csrc/rank_k.cu``): every output tile is computed, both
+* ``full`` (``csrc/rank_k.cu``; bf16 ``csrc/rank_k_bf16.cu``): every
+  output tile is computed, both
   triangles, and C is added as given, both triangles (the reference's
   ``full`` reads C as it is; the other variants read it as lower-stored).
-* ``tri`` (``csrc/rank_k.cu``): the whole tile grid is launched, the tiles
+* ``tri`` (the same kernels): the whole tile grid is launched, the tiles
   above the diagonal do no arithmetic, C's strict upper triangle counts as
   zero, and each lower tile is stored with its mirror in the kernel's
   epilogue (the reference's ``tril + tril^T`` post-pass, by selection): one
   launch, no pass after it.
-* ``tri_packed`` (``csrc/rank_k_packed.cu``): only the ``nb (nb + 1) / 2``
-  lower tiles are launched, each stored with its mirror by the same
-  epilogue.  It equals ``tri`` bit for bit.
+* ``tri_packed`` (``csrc/rank_k_packed.cu``; bf16
+  ``csrc/rank_k_packed_bf16.cu``): only the ``nb (nb + 1) / 2`` lower tiles
+  are launched, each stored with its mirror by the same epilogue.  It
+  equals ``tri`` bit for bit.
 
-Both kernels run one tile body (``csrc/rank_k_tile.cuh``): the A side of a
+The kernels of a dtype run one tile body (``csrc/rank_k_tile.cuh``, bf16
+``csrc/rank_k_tile_bf16.cuh``): the A side of a
 tile staged as the GEMM stages A, the B side (rows of A again, or of B) as
 rows with the contraction innermost; syr2k as one contraction of twice the
 steps, all ``A B^T`` products of an element before all ``B A^T`` ones.  The
@@ -30,11 +34,15 @@ block (the reference's ``bk = kb["bn"]``); :func:`rank_k_params` gives the
 launch parameters a tile compiles to.  A leading batch axis is the kernels'
 grid z; ragged n and k need no padding.  When the operands and their
 strides are 16-byte aligned (:func:`~repro_torch.kernels.gemm.vec_aligned`,
-no copy) the kernels move 4 floats a copy, else one, with the same bits.
-C is read only when ``beta != 0`` and a C was given.
+no copy) the kernels move 16 bytes a copy, else one element, with the same
+bits.  C is read only when ``beta != 0`` and a C was given.  A, B and C
+are all float32 or all bfloat16; the result has A's dtype and is
+accumulated in float32 either way (bf16 rounded once, at the store, as the
+reference's kernels cast their float32 scratch; under ``tri`` and
+``tri_packed`` the rounded lower triangle is mirrored).
 
 :func:`syrk` and :func:`syr2k` launch a kernel for CUDA tensors and record
-the launch and its grid under the kernel's name with
+the launch and its grid under the kernel's name (:data:`KERNEL_OF`) with
 :func:`~repro_torch.kernels.introspect.record_launch`; for CPU tensors they
 compute :func:`rank_k_plain`, the plain PyTorch version the tests and the
 chip smoke compare the kernels with.
@@ -49,16 +57,25 @@ import torch
 from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
 
 from . import _build
-from .gemm import mainloop_params, ring_stages, vec_aligned
+from .gemm import BF16_PAD, mainloop_params, ring_stages, vec_aligned
 from .introspect import launch_events, record_launch
 from .ref import sym_lower
 
 __all__ = ["syrk", "syr2k", "rank_k_plain", "rank_k_params", "TILES",
-           "VARIANTS"]
+           "VARIANTS", "KERNEL_OF"]
 
-#: the ``(bm, bk)`` tiles both kernels are instantiated for (bk = knob bn)
+#: the ``(bm, bk)`` tiles every kernel is instantiated for (bk = knob bn)
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("syrk"))
 VARIANTS = HOPPER_2D_VARIANTS["syrk"]
+#: the operand dtypes the rank-k kernels take: dtype -> {form: (kernel, C
+#: launcher)}, the form ``rank_k`` (full, tri) or ``rank_k_packed``
+#: (tri_packed)
+KERNEL_OF = {torch.float32: {"rank_k": ("rank_k", "repro_rank_k_f32"),
+                             "rank_k_packed": ("rank_k_packed",
+                                               "repro_rank_k_packed_f32")},
+             torch.bfloat16: {"rank_k": ("rank_k_bf16", "repro_rank_k_bf16"),
+                              "rank_k_packed": ("rank_k_packed_bf16",
+                                                "repro_rank_k_packed_bf16")}}
 
 #: grid x / y / z limits of a launch
 _MAX_GRID_X = 2 ** 31 - 1
@@ -79,15 +96,25 @@ _ARGTYPES = {"rank_k": _COMMON + [ctypes.c_int, ctypes.c_int,   # tri, has_c
                                          ctypes.c_int] + _TAIL}  # vec
 
 
-def rank_k_params(bm: int, bk: int) -> dict:
-    """The launch parameters ``csrc/rank_k_tile.cuh`` derives from the tile
+def rank_k_params(bm: int, bk: int,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """The launch parameters ``csrc/rank_k_tile.cuh`` (float32) or
+    ``csrc/rank_k_tile_bf16.cuh`` (bfloat16) derives from the tile
     ``(bm, bk)``: the mainloop's ``bm x bm`` tile with contraction step
     ``bk`` (:func:`~repro_torch.kernels.gemm.mainloop_params`: threads,
-    register tile, one pass), but a stage of ``bm x bk`` A floats and
-    ``bm x (bk + 4)`` B floats (B staged as rows, padded), as many stages of
-    2-4 as fit in the ring budget, and the epilogue's parked
-    ``bm x (bm + 1)`` tile, which reuses the ring."""
-    p = mainloop_params(bm, bk, bm)
+    register tile or warp grid, one pass), but a stage of its A side and
+    its B side staged as rows (float32: ``bm x bk`` and ``bm x (bk + 4)``
+    floats; bf16: ``bm x (bk + 8)`` elements each), as many stages of 2-4
+    as fit in the ring budget, and the epilogue's parked tile, which reuses
+    the ring (float32 ``bm x (bm + 1)`` floats; bf16 ``bm x (bm + 2)``
+    elements, rounded; the shared bytes are the larger of ring and park)."""
+    p = mainloop_params(bm, bk, bm, dtype)
+    if dtype == torch.bfloat16:
+        stage = 2 * 2 * bm * (bk + BF16_PAD)
+        stages = ring_stages(stage)
+        park = 2 * bm * (bm + 2)
+        p.update(stages=stages, smem=max(stages * stage, park), park=park)
+        return p
     stage = 4 * bm * (2 * bk + 4)
     stages = ring_stages(stage)
     p.update(stages=stages, smem=stages * stage, park=4 * bm * (bm + 1))
@@ -98,11 +125,12 @@ def rank_k_plain(a: torch.Tensor, b: torch.Tensor | None = None,
                  c: torch.Tensor | None = None, *, alpha: float = 1.0,
                  beta: float = 0.0, variant: str = "full") -> torch.Tensor:
     """The plain PyTorch version of the kernels, per variant: syrk when
-    ``b`` is None, else syr2k, in float32.  ``full`` adds C as given;
-    ``tri`` and ``tri_packed`` add its lower triangle and mirror the
-    result's lower triangle into the upper one."""
+    ``b`` is None, else syr2k, in float32, cast to A's dtype.  ``full``
+    adds C as given; ``tri`` and ``tri_packed`` add its lower triangle and
+    mirror the result's lower triangle into the upper one."""
     if variant not in VARIANTS:
         raise ValueError(f"no rank-k variant {variant!r}")
+    dtype = a.dtype
     a = a.float()
     if b is None:
         prod = torch.matmul(a, a.mT)
@@ -115,7 +143,7 @@ def rank_k_plain(a: torch.Tensor, b: torch.Tensor | None = None,
         out = out + beta * (c if variant == "full" else torch.tril(c))
     if variant != "full":
         out = sym_lower(out)
-    return out
+    return out.to(dtype)
 
 
 def _check(a, b, c, bm, bk, variant) -> tuple[int, int, int | None]:
@@ -130,13 +158,14 @@ def _check(a, b, c, bm, bk, variant) -> tuple[int, int, int | None]:
                          f"{tuple(a.shape)}")
     batch = a.shape[0] if a.dim() == 3 else None
     n, k = a.shape[-2:]
-    for t in (a, b, c):
-        if t is None:
-            continue
+    tensors = [t for t in (a, b, c) if t is not None]
+    if a.dtype not in KERNEL_OF or any(t.dtype != a.dtype for t in tensors):
+        raise TypeError("the rank-k kernels take float32 or bfloat16 "
+                        "operands, all of one dtype; got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    for t in tensors:
         if t.device != a.device:
             raise ValueError(f"operands on {t.device} and {a.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the rank-k kernels take float32, got {t.dtype}")
         if t.numel() and t.stride(-1) != 1:
             raise ValueError("the rank-k kernels need rows with unit inner "
                              f"stride, got strides {t.stride()}")
@@ -181,11 +210,12 @@ def _launch(a, b, c, out, n, k, batch, *, bm, bk, alpha, beta, variant,
     if two:
         aligned.append((b, b.stride(-2), sbb))
     vec = vec_aligned(*aligned)
-    kernel = "rank_k_packed" if variant == "tri_packed" else "rank_k"
+    form = "rank_k_packed" if variant == "tri_packed" else "rank_k"
+    kernel, symbol = KERNEL_OF[a.dtype][form]
     flags = (int(two), int(variant == "tri"), int(has_c), int(vec)) \
-        if kernel == "rank_k" else (int(two), int(has_c), int(vec))
+        if form == "rank_k" else (int(two), int(has_c), int(vec))
     grid = _build.launch_grid()
-    launch = _build.launcher(kernel, _ARGTYPES[kernel])
+    launch = _build.launcher(kernel, _ARGTYPES[form], symbol=symbol)
     events = launch_events()
     rc = launch(
         bm, bk, a.data_ptr(), b.data_ptr() if two else None,
@@ -206,9 +236,10 @@ def syrk(a: torch.Tensor, c: torch.Tensor | None = None, *, bm: int, bk: int,
          alpha: float = 1.0, beta: float = 0.0,
          variant: str = "full") -> torch.Tensor:
     """``alpha * A @ A^T + beta * C`` under the output tile ``bm``, the
-    contraction block ``bk`` and ``variant``.  Launches a kernel on the
-    current stream for CUDA tensors (no synchronisation; raises if the
-    launch is refused); computes :func:`rank_k_plain` for CPU tensors."""
+    contraction block ``bk`` and ``variant``.  Launches the kernel of the
+    operands' dtype and ``variant`` (:data:`KERNEL_OF`) on the current
+    stream for CUDA tensors (no synchronisation; raises if the launch is
+    refused); computes :func:`rank_k_plain` for CPU tensors."""
     return _rank_k(a, None, c, bm=bm, bk=bk, alpha=alpha, beta=beta,
                    variant=variant)
 

@@ -7,9 +7,9 @@ On the CPU the port's ``run_op`` computes the kernel's plain version
 (``gemm_plain``: float32 products and sums, one rounding to bf16); the
 tensor-core kernel itself (``csrc/gemm_bf16.cu``) is held to the same
 plain version on the card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
-symm and trmm take bf16 too (``test_torch_bf16_symm_trmm.py``); syrk,
-syr2k and trsm take float32 only and raise on bf16 until their bf16 slice
-lands.
+symm and trmm take bf16 too (``test_torch_bf16_symm_trmm.py``), as do
+syrk and syr2k (``test_torch_bf16_rank_k.py``); trsm takes float32 only
+and raises on bf16 until its bf16 slice lands.
 """
 
 import dataclasses
@@ -127,9 +127,9 @@ def test_gemm_rejects_mixed_and_other_dtypes():
     assert G.gemm(a, b, bm=64, bk=16, bn=64).dtype == torch.bfloat16
 
 
-#: operands of the three ops that keep their float32-only kernels
-_F32_ONLY = {"syrk": ((6, 5),), "syr2k": ((6, 5), (6, 5)),
-             "trsm": ((6, 6), (6, 5))}
+#: operands of the op that keeps its float32-only kernels (syrk and syr2k
+#: take bf16 too: tests/test_torch_bf16_rank_k.py)
+_F32_ONLY = {"trsm": ((6, 6), (6, 5))}
 
 
 @pytest.mark.parametrize("op", sorted(_F32_ONLY))

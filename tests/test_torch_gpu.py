@@ -11,8 +11,9 @@ trmm's A read nowhere above its diagonal, a TRSM call launching its two
 kernels and nothing else, and the launch parameters built into the
 kernels equal to their Python mirrors; the bf16 GEMM under every tile
 within one bf16 ulp of its plain version, stacked == per-item, odd
-strides == aligned and masked == padded bit for bit; the bf16 SYMM and
-TRMM (every variant) under ``chip_smoke.py``'s phase-3 checks; the dense, MoE,
+strides == aligned and masked == padded bit for bit; the bf16 SYMM,
+TRMM and SYRK/SYR2K (every variant) under ``chip_smoke.py``'s phase-3
+checks; the dense, MoE,
 zamba2 and rwkv6
 smoke models routed on the card against their plain versions; a retune
 step on the card's telemetry and a one-executor fleet on the card; two
@@ -1208,3 +1209,41 @@ def test_bf16_symm_trmm_are_built_with_their_python_mirror():
             p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
             assert list(out) == [p["threads"], p["stages"], p["smem"],
                                  p["passes"], *p["warps"]], (name, bm, bn)
+
+
+# -- the bf16 SYRK and SYR2K (csrc/rank_k_bf16.cu, csrc/rank_k_packed_bf16.cu,
+# on the bf16 mainloop with B staged as rows) --------------------------------
+
+@pytest.mark.gpu
+def test_bf16_rank_k_kernels_hold_phase_3s_checks():
+    """``chip_smoke.check_rank_k_bf16`` (phase 3): every knob of syrk and
+    syr2k, single and stacked, with and without C, within ``BF16_TOL`` of
+    ``rank_k_plain`` with the recorded grids equal to their formulas; bit
+    for bit, stacked == per-item, ``tri_packed`` == ``tri``, ``tri`` and
+    ``tri_packed`` symmetric, odd strides == aligned, zero-padded n and k
+    == unpadded and NaN in C's strict upper triangle == zeros there; a
+    bf16 accumulator above the limit."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    _chip_smoke().check_rank_k_bf16(
+        torch, lambda *shape: torch.randn(shape, generator=gen,
+                                          device="cuda"))
+
+
+@pytest.mark.gpu
+def test_bf16_rank_k_are_built_with_their_python_mirror():
+    """The launch parameters compiled into rank_k_bf16.cu and
+    rank_k_packed_bf16.cu equal ``rank_k_params(bm, bk,
+    torch.bfloat16)``."""
+    _need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import syrk as K
+    out = (ctypes.c_int * 6)()
+    for name in ("rank_k_bf16", "rank_k_packed_bf16"):
+        config = getattr(_build.load(name), f"repro_{name}_config")
+        for bm, bk in sorted(K.TILES):
+            assert config(bm, bk, out) == 0, (name, bm, bk)
+            p = K.rank_k_params(bm, bk, torch.bfloat16)
+            assert list(out) == [p["threads"], p["stages"], p["smem"],
+                                 p["passes"], *p["warps"]], (name, bm, bk)

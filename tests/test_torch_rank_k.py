@@ -183,9 +183,10 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(bad):
 def test_wrapper_makes_one_launch_with_vec_and_no_pass_after_it(
         monkeypatch, op, variant):
     """The launch half of the wrapper, with a recording launcher in place
-    of the built library: one launch of the variant's kernel with the tile,
-    the flags (``two``, ``tri`` for ``rank_k.cu``, ``has_c``) and ``vec``
-    (true for aligned operands, false for a view with an unaligned leading
+    of the built library: one launch of the kernel of the variant and the
+    operands' dtype with its C symbol, the tile, the flags (``two``, ``tri``
+    for ``rank_k.cu`` and ``rank_k_bf16.cu``, ``has_c``) and ``vec`` (true
+    for aligned operands, false for a view with an unaligned leading
     stride), the recorded grid, and no tensor op at all around it: ``tri``
     is stored with its mirror by the kernel, not by a pass after it."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -198,38 +199,45 @@ def test_wrapper_makes_one_launch_with_vec_and_no_pass_after_it(
             dispatched.append(func.overloadpacket.__name__)
             return func(*args, **(kwargs or {}))
 
-    def launcher(name, argtypes):
+    def launcher(name, argtypes, symbol=None):
         def fn(*args):
             assert len(args) == len(argtypes) + 1     # + the grid
-            calls.append((name, args[:-1]))
+            calls.append((name, symbol, args[:-1]))
             args[-1][:] = (7, 1, 3)
             return 0
         return fn
 
     monkeypatch.setattr(K._build, "launcher", launcher)
-    a, b, c = torch.randn(3, 40, 24), torch.randn(3, 40, 24), \
-        torch.randn(3, 40, 40)
-    wide = torch.zeros(3, 40, 25)
-    wide[..., :24] = a
     two = op == "syr2k"
-    kernel = "rank_k_packed" if variant == "tri_packed" else "rank_k"
-    for x, vec in ((a, 1), (wide[..., :24], 0)):
-        out = torch.empty(3, 40, 40)
-        with I.capture_launches() as launched, Ops():
-            K._launch(x, b if two else None, c, out, 40, 24, 3, bm=128,
-                      bk=32, alpha=0.5, beta=2.0, variant=variant, stream=0)
-        assert launched == [(kernel, (7, 1, 3))]
-        assert dispatched == []
-        name, args = calls.pop()
-        assert name == kernel and args[:2] == (128, 32)
-        assert args[6:9] == (40, 24, 3)
-        assert args[9:17] == (x.stride(0), x.stride(1),
-                              960 if two else 0, 24 if two else 0,
-                              1600, 40, 1600, 40)
-        # alpha, beta, then the stream and no launch events outside a window
-        assert args[17:19] == (0.5, 2.0) and args[-3:] == (0, None, None)
-        flags = args[19:-3]
-        assert flags == ((int(two), 1, vec) if kernel == "rank_k_packed"
-                         else (int(two), int(variant == "tri"), 1, vec)), \
-            flags
+    form = "rank_k_packed" if variant == "tri_packed" else "rank_k"
+    for dtype, kernel, symbol in (
+            (torch.float32, form, f"repro_{form}_f32"),
+            (torch.bfloat16, f"{form}_bf16", f"repro_{form}_bf16")):
+        a, b, c = (torch.randn(3, 40, 24).to(dtype),
+                   torch.randn(3, 40, 24).to(dtype),
+                   torch.randn(3, 40, 40).to(dtype))
+        # one element more a row: unaligned for either dtype
+        wide = torch.zeros(3, 40, 25, dtype=dtype)
+        wide[..., :24] = a
+        for x, vec in ((a, 1), (wide[..., :24], 0)):
+            out = torch.empty(3, 40, 40, dtype=dtype)
+            with I.capture_launches() as launched, Ops():
+                K._launch(x, b if two else None, c, out, 40, 24, 3, bm=128,
+                          bk=32, alpha=0.5, beta=2.0, variant=variant,
+                          stream=0)
+            assert launched == [(kernel, (7, 1, 3))]
+            assert dispatched == []
+            name, sym, args = calls.pop()
+            assert (name, sym) == (kernel, symbol) and args[:2] == (128, 32)
+            assert args[6:9] == (40, 24, 3)
+            assert args[9:17] == (x.stride(0), x.stride(1),
+                                  960 if two else 0, 24 if two else 0,
+                                  1600, 40, 1600, 40)
+            # alpha, beta, then the stream and no launch events outside a
+            # window
+            assert args[17:19] == (0.5, 2.0) and args[-3:] == (0, None, None)
+            flags = args[19:-3]
+            assert flags == ((int(two), 1, vec) if form == "rank_k_packed"
+                             else (int(two), int(variant == "tri"), 1,
+                                   vec)), flags
 
