@@ -8,8 +8,8 @@ calls, and fails (non-zero exit) if any phase fails:
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
    ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``, ``trsm``,
    ``gemm_bf16``, ``symm_bf16``, ``trmm_bf16``, ``trmm_packed_bf16``,
-   ``rank_k_bf16``, ``rank_k_packed_bf16``), all nvcc runs started
-   together, with nvcc's
+   ``rank_k_bf16``, ``rank_k_packed_bf16``, ``trsm_bf16``), all nvcc runs
+   started together, with nvcc's
    ``-Xptxas -v`` report (registers, shared memory, spills).  Fails if any
    instantiation of the kernels spills, or if the launch parameters they
    were built with (threads, stages, shared bytes, passes; trsm's inverse
@@ -17,7 +17,8 @@ calls, and fails (non-zero exit) if any phase fails:
    split-k plan differ from their Python mirrors
    (``kernels/gemm.py::mainloop_params`` at float32 and bfloat16,
    ``split_plan``,
-   ``kernels/syrk.py::rank_k_params``, ``kernels/trsm.py::trsm_params``);
+   ``kernels/syrk.py::rank_k_params``, ``kernels/trsm.py::trsm_params`` at
+   float32 and bfloat16);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
    reference conformance harness's 5e-4, so that a TF32 product fails it):
@@ -48,7 +49,17 @@ calls, and fails (non-zero exit) if any phase fails:
    tri_packed outputs equal to their transposes, odd strides == aligned
    copies, zero-padded n and k == unpadded, and NaN in C's strict upper
    triangle == zeros there under tri and tri_packed; a bf16 accumulator
-   on A A^T at k = 4096 reading above that limit;
+   on A A^T at k = 4096 reading above that limit; the bf16 trsm's two
+   kernels (``trsm_inv_bf16``, ``trsm_bf16``) under every knob at the
+   trsm conformance dims and one aligned shape, single and stacked, on
+   the standard (``+ m * I``) and the coupled operands of
+   :func:`make_operands`: ``trsm_inv_bf16`` equal to the float32
+   ``trsm_inv`` on ``A.float()`` rounded to bf16 bit for bit,
+   ``trsm_bf16`` within ``BF16_TOL`` of the largest output of
+   ``substitute_plain`` fed the same inverses, stacked == per-item, odd
+   strides == aligned and NaN above A's diagonal == zeros bit for bit, and
+   a substitution that drops the first 64 indices of each step 0 reading
+   above the limit on the coupled operands;
    symm, syrk/syr2k, trmm (every variant) and trsm through the port's
    conformance harness on its ragged dims and one aligned shape, with and
    without C, single and stacked (the error taken
@@ -129,23 +140,31 @@ calls, and fails (non-zero exit) if any phase fails:
    4's registry in a new runtime, and the preconditioner's symm of sym(A)
    (4096, 4096) against G (4096, 14336), its trmm of tril(L) against G,
    its syrk updates of L = G G^T and R = G^T G (alpha 0.05, beta 0.95,
-   with C), its syr2k at (4096, 4096) and the (8, 512, 512) stack of each
-   op, on bf16 operands through ``run_op``.  It fails unless every
+   with C), its syr2k at (4096, 4096), its trsm of tril(A) (4096, 4096)
+   against G on coupled operands and the (8, 512, 512) stack of each op,
+   on bf16 operands through ``run_op``.  It fails unless every
    decision is the default knob at 2 bytes with no model evaluation
    (installs are float32 only), each call launches exactly the bf16
-   kernel its knob names and holds each element within one bf16 ulp of
+   kernel its knob names (trsm: ``trsm_inv_bf16`` and ``trsm_bf16`` once
+   each) and holds each element within one bf16 ulp of
    its plain version's beside the float32 slack (a wrong rank-k kernel,
    the first k-step or beta C dropped, must read above that limit at
-   each rank-k call), and, with both trmm calls run once more under each
+   each rank-k call; trsm within ``TRSM_BF16_TOL``, two ulps, of the
+   largest output of ``trsm_plain`` under the default bm, the plain
+   scheme's own distance from its float64-summed twin printed beside it,
+   and a substitution that drops the first 64 indices of each step 0
+   above it), and, with both trmm calls
+   run once more under each
    variant and the L = G G^T syrk and the syr2k stack under tri and
    tri_packed at the default tile, tri_packed == tri bit for bit; then a
    ``BlasService`` on the card under the same runtime: 4 threads, each
-   submitting 8 bf16 symm, 8 bf16 trmm, 8 bf16 syrk and 8 float32 symm
-   requests at (512, 512), one window, every future within its dtype's
+   submitting 8 bf16 symm, 8 bf16 trmm, 8 bf16 syrk, 8 bf16 trsm and 8
+   float32 symm requests at (512, 512), one window, every future within
+   its dtype's
    tolerance of its plain version, the recorded launches equal to the
    buckets executed, no bucket of mixed dtypes, nothing failed.  It
    prints each call's knob, device ms, launches and error, and fails if
-   one of the five bf16 kernels was not launched;
+   one of the seven bf16 kernels was not launched;
 6. model: another fresh process loads the installed ``hopper__gemm_b4``
    artifact into a new ``AdsalaRuntime``, builds llama3-8b at full width
    and depth (32 layers, 8,030,261,248 float32 parameters) on the card
@@ -348,7 +367,11 @@ calls, and fails (non-zero exit) if any phase fails:
    bf16 symm, trmm and syrk/syr2k (each trmm and rank-k variant) at phase
    5b's calls in the same way, the library ``torch.matmul`` in bf16 of
    sym(A) or tril(A) materialised, ``torch.addmm``/``torch.matmul`` in bf16
-   for the rank-k calls.
+   for the rank-k calls; the bf16 trsm's two kernels apart at phase 5b's
+   trsm calls (the inverses' device times under each bm, the substitution
+   under the default and the best tile, ``substitute_plain``, the whole
+   bf16 ``trsm_plain``, ``solve_triangular`` in bf16 where PyTorch takes
+   it, else float32, and the bf16 bound).
 
 The launch counts come from ``repro_torch.kernels.introspect``: each path
 (the ``run_op`` calls, phase 5b's, the service, each model's generate)
@@ -395,7 +418,7 @@ SEED = 0
 KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm",
                   "trmm_packed", "trsm", "gemm_bf16", "symm_bf16",
                   "trmm_bf16", "trmm_packed_bf16", "rank_k_bf16",
-                  "rank_k_packed_bf16")
+                  "rank_k_packed_bf16", "trsm_bf16")
 
 #: the reference conformance harness's ragged GEMM dims
 #: (src/repro/backends/conformance.py RAGGED_DIMS["gemm"]) and one aligned
@@ -429,6 +452,19 @@ F32_TOL = 2e-5
 #: mma's depth and the default knob's bk) read above it at k = 4096
 BF16_TOL = 2.0 ** -7
 BF16_STEP = 16
+#: max |got - plain| / max |plain| of a bf16 trsm call against
+#: ``trsm_plain`` (phase 5b, its service): two bf16 ulps of the largest
+#: output.  The scheme rounds R_i to bf16 before X_i = bf16(D_i^-1 @ R_i),
+#: so where two orders of float32 sums round one element of R_i apart, X
+#: moves by up to two ulps, and down the block rows of a coupled operand
+#: (m I + (sqrt(m) / 2) N(0, 1)) such steps reach the top binade: at the
+#: (4096, 4096) x (4096, 14336) call on the H100 (700 W) ``trsm_plain``
+#: against the same scheme with float64 sums read 4.5e-3 to 5.0e-3, and
+#: the kernels 9.95e-3 on one draw (an element two ulps apart, its value
+#: in the largest output's binade), while a substitution that drops the
+#: first 64 indices of each step 0 read 6.5e-2 to 6.9e-2 there and 0.2 at
+#: the stack.  Phase 3's calls, at most 5 block rows, keep ``BF16_TOL``
+TRSM_BF16_TOL = 2.0 ** -6
 #: deepseek-v2-lite-16b's expert stack (64 experts, d_model 2048, expert
 #: width 1408) at the decode and prefill rows a phase-6b expert sees
 BF16_EXPERT_STACKS = ((64, 4, 2048, 1408), (64, 256, 2048, 1408))
@@ -660,6 +696,10 @@ KERNELS = {
                            "src/repro_torch/kernels/csrc/"
                            "rank_k_packed_bf16.cu",
                            "src/repro/kernels/syrk.py:132"),
+    "trsm_bf16": ("cuda", "src/repro_torch/kernels/csrc/trsm_bf16.cu",
+                  "src/repro/kernels/trsm.py:41"),
+    "trsm_inv_bf16": ("cuda", "src/repro_torch/kernels/csrc/trsm_bf16.cu",
+                      "src/repro/kernels/trsm.py:58"),
 }
 #: the kernels whose main path is a model's generate (phase 6g) and not
 #: phase 5's run_op calls
@@ -667,7 +707,12 @@ MODEL_ONLY_KERNELS = ("gemm_bf16",)
 #: the kernels whose main path is phase 5b's bf16 preconditioner and not
 #: phase 5's float32 calls
 PRECOND_BF16_KERNELS = ("symm_bf16", "trmm_bf16", "trmm_packed_bf16",
-                        "rank_k_bf16", "rank_k_packed_bf16")
+                        "rank_k_bf16", "rank_k_packed_bf16", "trsm_bf16",
+                        "trsm_inv_bf16")
+#: the contraction indices a wrong bf16 trsm substitution drops from the
+#: start of every step 0 (the contraction step of the knob space), held to
+#: read above BF16_TOL on coupled operands
+TRSM_DROP = 64
 
 
 def serve_cases() -> list[dict]:
@@ -733,6 +778,13 @@ def _bf16_slack(op: str, operands, alpha: float = 1.0,
     cmax = 0.0 if c is None else c.abs().max().double().item()
     return 2.0 ** -22 * (terms * abs(alpha) * amax * bmax
                          + abs(beta) * cmax)
+
+
+def _trsm_slack(plain) -> float:
+    """The absolute slack of a bf16 trsm's elementwise excess (a reading):
+    one float32 ulp of the largest output, so that an element that is zero
+    in ``plain`` reads a finite excess."""
+    return 2.0 ** -23 * plain.float().abs().max().item()
 
 
 def _bf16_excess(got, want, slack: float) -> float:
@@ -843,24 +895,67 @@ def kernel_of(op: str, knob: dict, dtype=None) -> str:
     if op == "trmm":
         return ("trmm_packed" if knob["variant"] == "tri_packed"
                 else "trmm") + bf16
-    return op + bf16 if op in ("gemm", "symm") else op
+    return op + bf16 if op in ("gemm", "symm", "trsm") else op
 
 
 def _expected_launches(op: str, knob: dict, dtype=None) -> dict:
     if op == "trsm":
-        return {"trsm_inv": 1, "trsm": 1}
+        bf16 = "_bf16" if str(dtype) == "torch.bfloat16" else ""
+        return {f"trsm_inv{bf16}": 1, f"trsm{bf16}": 1}
     return {kernel_of(op, knob, dtype): 1}
 
 
-def make_operands(torch, gen, op: str, shapes):
-    """Seeded operands of a case on the card: standard normal, trsm's A
-    made diagonally dominant (``+ m * I``) and syrk's C symmetric."""
-    xs = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+def make_operands(torch, gen, op: str, shapes, coupled: bool = False,
+                  device: str = "cuda"):
+    """Seeded operands of a case on ``device``: standard normal, trsm's A
+    made diagonally dominant (``+ m * I``) and syrk's C symmetric.  A
+    ``coupled`` trsm A is ``m I + (sqrt(m) / 2) N(0, 1)``: its strict lower
+    triangle moves X by about half of max|X|, where ``+ m * I`` leaves the
+    whole update within two bf16 ulps of X, so that only on coupled
+    operands does a wrong substitution (:func:`trsm_dropped_a`) read above
+    ``BF16_TOL``."""
+    xs = [torch.randn(s, generator=gen, device=device) for s in shapes]
     if op == "trsm":
-        xs[0].diagonal(dim1=-2, dim2=-1).add_(shapes[0][-1])
+        m = shapes[0][-1]
+        if coupled:
+            xs[0].mul_(math.sqrt(m) / 2)
+        xs[0].diagonal(dim1=-2, dim2=-1).add_(m)
     if op == "syrk" and len(xs) == 2:
         xs[1] = 0.5 * (xs[1] + xs[1].mT)
     return xs
+
+
+def trsm_dropped_a(a, bm: int, drop: int = TRSM_DROP):
+    """A copy of a trsm A whose rows past the first block row read zero in
+    their first ``drop`` columns (``drop <= bm``, so no diagonal block
+    changes): the plain scheme on it is the plain scheme with the first
+    ``drop`` contraction indices of every step 0 dropped, what a wrong
+    substitution kernel would give."""
+    if drop > bm:
+        raise ValueError(f"drop {drop} reaches into the diagonal block {bm}")
+    out = a.clone()
+    out[..., bm:, :drop] = 0
+    return out
+
+
+def trsm_plain_f64_sums(a, b, *, bm: int, alpha: float = 1.0):
+    """The bf16 trsm's plain scheme (``trsm_plain``) with every product
+    summed in float64 and rounded to float32 before its bf16 rounding: the
+    same inverses and roundings after another order of float32 sums, whose
+    distance from ``trsm_plain`` is the scheme's own sum-order floor."""
+    from repro_torch.kernels import trsm as T
+    m, dtype = a.shape[-1], a.dtype
+    full, last = T.diag_inverses_plain(a, bm)
+    x = b.new_empty(b.shape)
+    for i in range(-(-m // bm)):
+        lo, hi = i * bm, min((i + 1) * bm, m)
+        dinv = full[..., i, :, :] if hi - lo == bm else last
+        r = (alpha * b[..., lo:hi, :].float()).to(dtype)
+        if i:
+            upd = (a[..., lo:hi, :lo].double() @ x[..., :lo, :].double())
+            r = (r.float() - upd.float().to(dtype).float()).to(dtype)
+        x[..., lo:hi, :] = (dinv.double() @ r.double()).float().to(dtype)
+    return x
 
 
 def plain_of(op: str, knob: dict):
@@ -877,7 +972,8 @@ def plain_of(op: str, knob: dict):
     if op == "trmm":
         return TM.trmm_plain
     if op == "trsm":
-        return T.trsm_plain
+        # bf16: the blocked scheme under the knob's diagonal block
+        return lambda a, b, **kw: T.trsm_plain(a, b, bm=knob["bm"], **kw)
     if op == "syrk":
         return lambda a, c=None, **kw: K.rank_k_plain(
             a, None, c, variant=knob["variant"], **kw)
@@ -1110,7 +1206,9 @@ def bf16_precond_cases() -> list[dict]:
     """Phase 5b's calls: the preconditioner's symm and trmm at its big
     shape (A (4096, 4096) against G (4096, 14336)), its syrk updates of L =
     G G^T and R = G^T G and its syr2k at (4096, 4096) (phase 5's calls),
-    and the (8, 512, 512) stack of each op, on bf16 operands.  A case's
+    and the (8, 512, 512) stack of each op, on bf16 operands; then its
+    trsm of a (4096, 4096) tril(A) against G and the stack, on coupled
+    operands (:func:`make_operands`).  A case's
     ``pin`` names the variants it runs under once more at the default
     tile: both trmm calls, the L = G G^T syrk and the syr2k stack (the
     rank-k kernels' ``tri`` and ``tri_packed``)."""
@@ -1140,24 +1238,34 @@ def bf16_precond_cases() -> list[dict]:
          "shapes": [[bt, m, n]], "kw": {}},
         {"label": f"syr2k stacked {STACKED_2D} bf16", "op": "syr2k",
          "shapes": [[bt, m, n], [bt, m, n]], "kw": {}, "pin": rank_k_pin},
+        {"label": f"trsm tril(A) ({D_MODEL},{D_MODEL}) B ({D_MODEL},{D_FF}) "
+                  f"bf16", "op": "trsm", "shapes": big, "kw": {},
+         "coupled": True},
+        {"label": f"trsm stacked {STACKED_2D} bf16", "op": "trsm",
+         "shapes": stack, "kw": {}, "coupled": True},
     ]
 
 
 def bf16_precond_main(registry_dir: str) -> None:
     """Phase 5b: phase 4's registry loaded into a new runtime, the
-    preconditioner's symm, trmm, syrk and syr2k on bf16 operands through
-    ``run_op`` (every decision the default knob at 2 bytes: installs are
-    float32 only), the cases with a ``pin`` once more under each of its
-    variants at the default tile, then a ``BlasService`` on the card
-    taking bf16 symm, bf16 trmm, bf16 syrk and float32 symm requests
+    preconditioner's symm, trmm, syrk, syr2k and trsm on bf16 operands
+    through ``run_op`` (every decision the default knob at 2 bytes:
+    installs are float32 only), the cases with a ``pin`` once more under
+    each of its variants at the default tile, then a ``BlasService`` on the
+    card taking bf16 symm, trmm, syrk and trsm and float32 symm requests
     together (:func:`bf16_service`).  Fails unless every call launches
-    exactly the kernel its knob and dtype name, holds each element within
-    one bf16 ulp of its plain version's beside the float32 slack
-    (:func:`_bf16_excess` at most 1), with no model evaluation, and
-    ``tri_packed`` == ``tri`` bit for bit; and unless that limit rejects
-    what a wrong rank-k kernel would give at each rank-k call (the first
-    k-step of the default tile dropped, and beta C dropped where C is
-    given).  Prints one ``[bf16:precond]`` line a call and one
+    exactly the kernels its knob and dtype name (trsm: ``trsm_inv_bf16``
+    then ``trsm_bf16``), holds each element within one bf16 ulp of its
+    plain version's beside the float32 slack (:func:`_bf16_excess` at most
+    1; trsm, whose X passes through a rounded R down the block rows:
+    within ``TRSM_BF16_TOL`` of the largest output of ``trsm_plain`` under
+    the same diagonal block, the excess and the plain scheme's distance
+    from :func:`trsm_plain_f64_sums` readings), with no model
+    evaluation, and ``tri_packed`` == ``tri`` bit for bit; and unless that
+    limit rejects what a wrong kernel would give at each rank-k and trsm
+    call (the first k-step of the default tile dropped, beta C dropped
+    where C is given; trsm: the first :data:`TRSM_DROP` indices of each
+    step 0).  Prints one ``[bf16:precond]`` line a call and one
     ``BF16_PRECOND_RESULT {json}`` line."""
     faulthandler.dump_traceback_later(BF16_PRECOND_TIMEOUT_S - 20, exit=True)
     sys.path.insert(0, str(ROOT / "src"))
@@ -1194,22 +1302,39 @@ def bf16_precond_main(registry_dir: str) -> None:
                 else introspect.full_grid_for)(op, dims, kd["bm"], kd["bn"],
                                                batch=batch)
         want = [(kernel_of(op, kd, bf16), grid)]
+        if op == "trsm":
+            want.insert(0, ("trsm_inv_bf16", introspect.full_grid_for(
+                "trsm_inv_bf16", dims, kd["bm"], batch=batch)))
         launches = dict(collections.Counter(k for k, _ in launched))
         rel = _rel_err(out, plain)
-        slack = _bf16_slack(op, operands, **case["kw"])
+        extra = {}
+        if op == "trsm":
+            # relative to the largest output, as conformance holds it; the
+            # elementwise excess and the plain scheme's own sum-order floor
+            # are readings
+            slack = _trsm_slack(plain)
+            extra["floor"] = _rel_err(trsm_plain_f64_sums(
+                *operands, bm=kd["bm"], **case["kw"]), plain)
+        else:
+            slack = _bf16_slack(op, operands, **case["kw"])
         excess = _bf16_excess(out, plain, slack)
+        limit = (f"{rel:.3e} (<= TRSM_BF16_TOL {TRSM_BF16_TOL:.3e}; the "
+                 f"plain scheme with float64 sums {extra['floor']:.3e}), max "
+                 f"|got - plain| / (BF16_TOL |plain| + {slack:.3e}) "
+                 f"{excess:.4f} (a reading)" if op == "trsm" else
+                 f"{rel:.3e}, max |got - plain| / (BF16_TOL |plain| + "
+                 f"{slack:.3e}) {excess:.4f} (<= 1)")
         row = {**case, "knob": kd, "pinned": knob is not None, "ms": ms,
                "launches": launches, "kernel": kernel_of(op, kd, bf16),
-               "rel_err": rel, "slack": slack, "excess": excess,
+               "rel_err": rel, "slack": slack, "excess": excess, **extra,
                "abs_err": (out.float() - plain.float()).abs().max().item()}
         rows.append(row)
         print(f"[bf16:precond] [{card}] {case['label']}"
               f"{' pinned' if knob is not None else ''}: knob "
               f"{_knob_str(op, kd)}{'' if knob is not None else ' (default)'}"
-              f", {ms:.4f} ms (the kernel's device time), launches "
-              f"{launches}, max |got - plain| / max |plain| {rel:.3e}, max "
-              f"|got - plain| / (BF16_TOL |plain| + {slack:.3e}) "
-              f"{excess:.4f} (<= 1)", flush=True)
+              f", {ms:.4f} ms (the kernels' device time), launches "
+              f"{launches}, max |got - plain| / max |plain| {limit}",
+              flush=True)
         if out.dtype != bf16 or tuple(out.shape) != tuple(plain.shape) \
                 or not bool(torch.isfinite(out).all()):
             raise SystemExit(f"[bf16:precond] {case['label']}: bad output "
@@ -1217,11 +1342,32 @@ def bf16_precond_main(registry_dir: str) -> None:
         if launched != want:
             raise SystemExit(f"[bf16:precond] {case['label']}: launched "
                              f"{launched}, expected {want}")
-        if not excess <= 1.0:
+        if op == "trsm" and not rel <= TRSM_BF16_TOL:
+            raise SystemExit(f"[bf16:precond] {case['label']}: max |got - "
+                             f"plain| / max |plain| {rel:.3e}")
+        if op != "trsm" and not excess <= 1.0:
             raise SystemExit(f"[bf16:precond] {case['label']}: an element "
                              f"{excess:.4f} times its limit (BF16_TOL "
                              f"|plain| + {slack:.3e}) from plain")
         return out, plain, slack
+
+    def trsm_control(case, operands, plain):
+        """What a substitution that drops the first :data:`TRSM_DROP`
+        indices of each step 0 would give at this call, held to the limit
+        ``call`` holds the kernels to: it must lie above it."""
+        a, b = operands
+        kd = ops.default_knob("trsm").dict
+        read = _rel_err(plain_of("trsm", kd)(trsm_dropped_a(a, kd["bm"]),
+                                             b, **case["kw"]), plain)
+        rows[-1]["controls"] = {f"the first {TRSM_DROP} indices of each "
+                                f"step 0 dropped": read}
+        print(f"[bf16:precond] [{card}] {case['label']}: a wrong kernel "
+              f"against the limit: the first {TRSM_DROP} indices of each "
+              f"step 0 dropped {read:.3e} (> TRSM_BF16_TOL "
+              f"{TRSM_BF16_TOL:.3e})", flush=True)
+        if not read > TRSM_BF16_TOL:
+            raise SystemExit(f"[bf16:precond] {case['label']}: the limit "
+                             f"passes a wrong substitution: {read:.3e}")
 
     def controls(case, operands, plain, slack):
         """What a wrong rank-k kernel would give at this call, held to the
@@ -1251,11 +1397,14 @@ def bf16_precond_main(registry_dir: str) -> None:
     before = rt.stats
     introspect.reset_launches()
     for case in bf16_precond_cases():
-        operands = [x.to(bf16) for x in make_operands(torch, gen, case["op"],
-                                                      case["shapes"])]
+        operands = [x.to(bf16) for x in make_operands(
+            torch, gen, case["op"], case["shapes"],
+            coupled=case.get("coupled", False))]
         _, plain, slack = call(case, operands)
         if case["op"] in ("syrk", "syr2k"):
             controls(case, operands, plain, slack)
+        if case["op"] == "trsm":
+            trsm_control(case, operands, plain)
         if case.get("pin"):
             pinned.append((case, operands))
         del operands, plain
@@ -1301,21 +1450,24 @@ def bf16_precond_main(registry_dir: str) -> None:
 def bf16_service(torch, rt, card: str) -> dict:
     """Phase 5b's service: a ``BlasService`` on the card under phase 5b's
     runtime, :data:`SERVICE_THREADS` client threads each submitting
-    :data:`SERVICE_PER_THREAD` bf16 symm, bf16 trmm, bf16 syrk and float32
-    symm requests at :data:`SERVICE_SHAPE` together, one window.  Fails unless
-    every future holds its request's dtype within its tolerance of the
-    plain version (``BF16_TOL``, ``F32_TOL``), the recorded launches equal
-    the buckets executed (a bucket's dtype names its kernel), every bucket
-    is of one dtype and nothing fails."""
+    :data:`SERVICE_PER_THREAD` bf16 symm, bf16 trmm, bf16 syrk, bf16 trsm
+    (coupled operands) and float32 symm requests at :data:`SERVICE_SHAPE`
+    together, one window.  Fails unless every future holds its request's
+    dtype within its tolerance of the plain version under the default knob
+    (``BF16_TOL``, bf16 trsm ``TRSM_BF16_TOL``, ``F32_TOL``), the recorded
+    launches equal the buckets
+    executed (a bucket's dtype names its kernels), every bucket is of one
+    dtype and nothing fails."""
     from repro_torch.kernels import introspect, ops
     from repro_torch.serving import BlasService, ServeConfig
 
     m, n = SERVICE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     mix = (("symm", torch.bfloat16), ("trmm", torch.bfloat16),
-           ("syrk", torch.bfloat16), ("symm", torch.float32))
+           ("syrk", torch.bfloat16), ("trsm", torch.bfloat16),
+           ("symm", torch.float32))
     traffic = [[(op, tuple(x.to(dtype) for x in make_operands(
-                   torch, gen, op, _shapes_2d(op, (m, n)))))
+                   torch, gen, op, _shapes_2d(op, (m, n)), coupled=True)))
                 for _ in range(SERVICE_PER_THREAD) for op, dtype in mix]
                for _ in range(SERVICE_THREADS)]
     flat = [r for part in traffic for r in part]
@@ -1338,8 +1490,9 @@ def bf16_service(torch, rt, card: str) -> dict:
     worst = {}
     for (op, xs), out in zip(flat, outs):
         dtype = str(xs[0].dtype).removeprefix("torch.")
-        tol = BF16_TOL if xs[0].dtype == torch.bfloat16 else F32_TOL
-        err = _rel_err(out, plain_of(op, {"variant": "full"})(*xs))
+        tol = F32_TOL if xs[0].dtype != torch.bfloat16 else \
+            TRSM_BF16_TOL if op == "trsm" else BF16_TOL
+        err = _rel_err(out, plain_of(op, ops.default_knob(op).dict)(*xs))
         worst[f"{op} {dtype}"] = max(worst.get(f"{op} {dtype}", 0.0), err)
         if out.dtype != xs[0].dtype or not err <= tol:
             raise SystemExit(f"[bf16:service] {op} {dtype}: result "
@@ -1361,8 +1514,8 @@ def bf16_service(torch, rt, card: str) -> dict:
         for kernel, count in _expected_launches(op, knob, dtype).items():
             expected[kernel] += count * n_batches
     print(f"[bf16:service] [{card}] {len(flat)} requests ({SERVICE_THREADS} "
-          f"threads x {SERVICE_PER_THREAD} each of bf16 symm, bf16 trmm, "
-          f"bf16 syrk and float32 symm at {SERVICE_SHAPE}) in "
+          f"threads x {SERVICE_PER_THREAD} each of bf16 symm, trmm, syrk and "
+          f"trsm and float32 symm at {SERVICE_SHAPE}) in "
           f"{seconds:.3f} s: completed "
           f"{st.completed}, failed {st.failed}, {st.batches} buckets "
           f"(mean batch {st.completed / max(1, st.batches):.3f}): "
@@ -1377,7 +1530,8 @@ def bf16_service(torch, rt, card: str) -> dict:
     if launches != expected:
         raise SystemExit("[bf16:service] launches differ from the buckets")
     if not all(any(k.startswith(key) for k in buckets)
-               for key in ("symm b2", "symm b4", "trmm b2", "syrk b2")):
+               for key in ("symm b2", "symm b4", "trmm b2", "syrk b2",
+                           "trsm b2")):
         raise SystemExit(f"[bf16:service] symm's bf16 and float32 requests "
                          f"did not bucket apart, or a bf16 op was not "
                          f"served: {buckets}")
@@ -4203,7 +4357,8 @@ def check_build() -> None:
                         ("trmm_bf16", len(TM.TILES)),
                         ("trmm_packed_bf16", len(TM.TILES)),
                         ("rank_k_bf16", len(K.TILES)),
-                        ("rank_k_packed_bf16", len(K.TILES))):
+                        ("rank_k_packed_bf16", len(K.TILES)),
+                        ("trsm_bf16", trsm_count)):
         entries = _ptxas_entries(name)
         spilled = [e for e in entries if e[2] != 0]
         if len(entries) != count or spilled:
@@ -4245,6 +4400,18 @@ def check_build() -> None:
                 or list(trsm_out) != want:
             raise SystemExit(f"[build:trsm] tile {(bm, bn)}: built with "
                              f"{list(trsm_out)}, trsm_params {want}")
+    # the bf16 trsm: the substitution's warp grid too, the bf16 workspace
+    trsm_bf16_out = (ctypes.c_int * 9)()
+    for bm, bn in sorted(T.TILES):
+        p = T.trsm_params(bm, bn, torch.bfloat16)
+        want = [p["threads"], p["stages"], p["smem"], p["passes"],
+                *p["warps"], p["inv_threads"], p["inv_smem"],
+                p["block_workspace"]]
+        if _build.load("trsm_bf16").repro_trsm_bf16_config(
+                bm, bn, trsm_bf16_out) != 0 or list(trsm_bf16_out) != want:
+            raise SystemExit(f"[build:trsm_bf16] tile {(bm, bn)}: built "
+                             f"with {list(trsm_bf16_out)}, trsm_params "
+                             f"{want}")
     split = _build.load("gemm").repro_gemm_f32_split
     dims = [*KERNEL_DIMS, *UNALIGNED_DIMS, *CONTRACT_DIMS["gemm"],
             *((t, k, n) for t in TOKENS for k, n in LINEARS),
@@ -4302,7 +4469,8 @@ def check_build() -> None:
                                  f"built with {list(out6)}, rank_k_params "
                                  f"{want}")
     print(f"[build] launch parameters of "
-          f"{len(configs) + len(T.TILES) + len(G.TILES) + bf16_2d} tiles and "
+          f"{len(configs) + 2 * len(T.TILES) + len(G.TILES) + bf16_2d} tiles "
+          f"and "
           f"the split plans at {len(dims)} dims x {len(G.TILES)} tiles (bf16: "
           f"{len(bf16_dims)} dims) equal their Python mirrors", flush=True)
 
@@ -5148,6 +5316,142 @@ def check_trsm_kernels(torch, rand) -> None:
           f"per-item bit for bit", flush=True)
 
 
+def check_trsm_bf16(torch, rand) -> None:
+    """trsm's two bf16 kernels under every knob, at the conformance dims
+    and one aligned shape, single and in a stack of :data:`STACK`, at
+    alpha 0.5, on the standard operands (``+ m * I``) and on coupled ones
+    (:func:`make_operands`): ``trsm_inv_bf16`` equal to ``trsm_inv`` on
+    ``A.float()`` rounded to bf16, bit for bit; ``trsm_bf16`` within
+    ``BF16_TOL`` of the largest output of ``substitute_plain`` fed the same
+    inverses (the worst elementwise excess printed as a reading); bit for
+    bit, each kernel's stack == its items, odd leading strides (2-byte
+    loads) == aligned copies, ``trsm`` == its two steps apart, and NaN
+    everywhere above A's diagonal == zeros there; every recorded grid equal
+    to its formula.  The control: at (300, 300) on coupled operands under
+    the default knob, the plain scheme with the first :data:`TRSM_DROP`
+    contraction indices of every step 0 dropped must read above
+    ``BF16_TOL`` (on the standard operands it is printed as a reading)."""
+    from repro_torch.backends import conformance as C
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trsm as T
+    bf16, alpha = torch.bfloat16, 0.5
+
+    def bits(t):
+        return t.contiguous().view(torch.int16)
+
+    def operands(lead, m, n, coupled):
+        a = rand(*lead, m, m)
+        if coupled:
+            a.mul_(math.sqrt(m) / 2)
+        a.diagonal(dim1=-2, dim2=-1).add_(m)
+        return a.to(bf16), rand(*lead, m, n).to(bf16)
+
+    dims_list = (*C.RAGGED_DIMS["trsm"], ALIGNED_2D)
+    worst = {"standard": 0.0, "coupled": 0.0}
+    excess = dict(worst)
+    checks, worst_abs = 0, 0.0
+    for knob in ops.knob_space_for("trsm"):
+        bm, bn = knob["bm"], knob["bn"]
+        for m, n in dims_list:
+            for lead in ((), (STACK,)):
+                batch = STACK if lead else 1
+                for kind in ("standard", "coupled"):
+                    a, b = operands(lead, m, n, kind == "coupled")
+                    where = f"{knob} at {(*lead, m, n)} ({kind})"
+                    with I.capture_launches() as launched:
+                        inv = T.diag_inverses(a, bm=bm)
+                        x = T.substitute(a, b, inv, bm=bm, bn=bn,
+                                         alpha=alpha)
+                    want = [("trsm_inv_bf16", I.full_grid_for(
+                                "trsm_inv_bf16", (m, n), bm, batch=batch)),
+                            ("trsm_bf16", I.full_grid_for(
+                                "trsm_bf16", (m, n), bm, bn, batch=batch))]
+                    if launched != want or inv.dtype != bf16 \
+                            or x.dtype != bf16:
+                        raise SystemExit(f"[kernel:trsm_bf16] {where}: "
+                                         f"launched {launched}, formula "
+                                         f"{want}, dtypes {inv.dtype} "
+                                         f"{x.dtype}")
+                    f32 = T.diag_inverses(a.float(), bm=bm).to(bf16)
+                    plain = torch.empty_like(b)
+                    T.substitute_plain(a, b, plain,
+                                       *T.inverse_blocks(inv, m, bm), bm=bm,
+                                       bn=bn, alpha=alpha)
+                    rel = _rel_err(x, plain)
+                    worst[kind] = max(worst[kind], rel)
+                    excess[kind] = max(excess[kind], _bf16_excess(
+                        x, plain, _trsm_slack(plain)))
+                    worst_abs = max(worst_abs, (x.float() - plain.float())
+                                    .abs().max().item())
+                    checks += 2
+                    if not torch.equal(bits(inv), bits(f32)):
+                        raise SystemExit(f"[kernel:trsm_inv_bf16] {where}: "
+                                         f"!= trsm_inv(A.float()) rounded")
+                    if not rel <= BF16_TOL:
+                        raise SystemExit(f"[kernel:trsm_bf16] {where}: max "
+                                         f"|got - plain| / max |plain| "
+                                         f"{rel:.3e}")
+                    upper = torch.ones(m, m, dtype=torch.bool,
+                                       device=a.device).triu(1)
+                    anan = torch.where(upper, math.nan, a.float()).to(bf16)
+                    azero = torch.where(upper, 0.0, a.float()).to(bf16)
+                    ua, ub = _unaligned(torch, a), _unaligned(torch, b)
+                    pairs = [(T.diag_inverses(ua, bm=bm), inv,
+                              "trsm_inv, odd-stride A"),
+                             (T.substitute(ua, ub, inv, bm=bm, bn=bn,
+                                           alpha=alpha), x,
+                              "trsm, odd-stride A and B"),
+                             (T.trsm(a, b, bm=bm, bn=bn, alpha=alpha), x,
+                              "trsm == its two steps"),
+                             (T.trsm(anan, b, bm=bm, bn=bn, alpha=alpha),
+                              T.trsm(azero, b, bm=bm, bn=bn, alpha=alpha),
+                              "NaN above A's diagonal vs zeros")]
+                    for i in range(STACK if lead else 0):
+                        one_inv = T.diag_inverses(a[i], bm=bm)
+                        pairs += [(one_inv, inv[i], f"trsm_inv item {i}"),
+                                  (T.substitute(a[i], b[i], one_inv, bm=bm,
+                                                bn=bn, alpha=alpha), x[i],
+                                   f"trsm item {i}")]
+                    for got, ref, what in pairs:
+                        checks += 1
+                        if not torch.equal(bits(got), bits(ref)):
+                            raise SystemExit(f"[kernel:trsm_bf16] {where}: "
+                                             f"{what} differs bit for bit")
+    # the control: a substitution that drops the first TRSM_DROP indices of
+    # every step 0, against the limit, under the default knob
+    bm = ops.default_knob("trsm")["bm"]
+    control = {}
+    for kind in ("standard", "coupled"):
+        a, b = operands((), 300, 300, kind == "coupled")
+        plain = T.trsm_plain(a, b, bm=bm, alpha=alpha)
+        control[kind] = _rel_err(
+            T.trsm_plain(trsm_dropped_a(a, bm), b, bm=bm, alpha=alpha), plain)
+    if not control["coupled"] > TRSM_BF16_TOL:
+        raise SystemExit(f"[kernel:trsm_bf16] the limit passes a "
+                         f"substitution that drops {TRSM_DROP} contraction "
+                         f"indices of each step 0 on coupled operands: "
+                         f"{control['coupled']:.3e}")
+    torch.cuda.synchronize()
+    print(f"[kernel:trsm_bf16,trsm_inv_bf16] {checks} checks over the 8 "
+          f"candidates at {dims_list} (single, stack of {STACK}, alpha "
+          f"{alpha}; standard and coupled operands): trsm_inv_bf16 == "
+          f"trsm_inv(A.float()) rounded bit for bit; trsm_bf16 vs "
+          f"substitute_plain on the same inverses, max |got - plain| / max "
+          f"|plain| standard {worst['standard']:.3e}, coupled "
+          f"{worst['coupled']:.3e} (<= BF16_TOL {BF16_TOL:.3e}), max abs err "
+          f"{worst_abs:.3e}, elementwise |got - plain| / (BF16_TOL |plain| "
+          f"+ 2^-23 max |plain|) standard {excess['standard']:.4f}, coupled "
+          f"{excess['coupled']:.4f} (a reading); recorded grids == "
+          f"formulas; bit for bit: stacked == per-item, odd strides == "
+          f"aligned, trsm == its two steps, NaN above A's diagonal == zeros; "
+          f"the plain scheme with the first {TRSM_DROP} indices of each step "
+          f"0 dropped at (300, 300), bm {bm}: coupled "
+          f"{control['coupled']:.3e} (> TRSM_BF16_TOL {TRSM_BF16_TOL:.3e}), "
+          f"standard "
+          f"{control['standard']:.3e} (a reading)", flush=True)
+
+
 #: the ragged and one-row dims of the reference's zero-copy tests
 #: (tests/test_zero_copy_kernels.py RAGGED and its one-row dims), and a GEMM
 #: whose contraction splits under the padded run's 128 x 128 tile
@@ -5470,10 +5774,11 @@ def time_bf16_rows(torch, card: str) -> tuple[dict, float]:
 
 
 def time_bf16_precond_rows(torch, card: str) -> dict:
-    """Phase 7's bf16 symm, trmm and rank-k rows: phase 5b's calls, one
-    row per kernel and call (symm; trmm ``full`` and ``tri``; trmm
+    """Phase 7's bf16 symm, trmm, rank-k and trsm rows: phase 5b's calls,
+    one row per kernel and call (symm; trmm ``full`` and ``tri``; trmm
     ``tri_packed``; syrk/syr2k ``full`` and ``tri``; syrk/syr2k
-    ``tri_packed``), on bf16 operands.  Each variant at the default tile
+    ``tri_packed``; trsm's two kernels, :func:`time_trsm_bf16`), on bf16
+    operands.  Each variant at the default tile
     (every bf16 call's knob: no install has a bf16 model) and the best
     tile of the space (a reading), the plain version, the library's
     yardstick in bf16 with reduced-precision reduction off
@@ -5500,9 +5805,14 @@ def time_bf16_precond_rows(torch, card: str) -> dict:
         for case in bf16_precond_cases():
             op, shapes, kw = case["op"], case["shapes"], case["kw"]
             per_set = 2 * sum(math.prod(s) for s in shapes)
-            sets = [[x.bfloat16() for x in make_operands(torch, gen, op,
-                                                         shapes)]
+            sets = [[x.bfloat16() for x in make_operands(
+                        torch, gen, op, shapes,
+                        coupled=case.get("coupled", False))]
                     for _ in range(max(1, math.ceil(120e6 / per_set)))]
+            if op == "trsm":
+                time_trsm_bf16(torch, card, case, sets, totals)
+                del sets
+                continue
             plain = plain_of(op, {"variant": "full"})
             plain_ms = _time_ms(torch, lambda *xs: plain(*xs, **kw), sets)
             lib, prep = _library_fn(torch, op, kw, shapes)
@@ -5558,14 +5868,129 @@ def time_bf16_precond_rows(torch, card: str) -> dict:
     return totals
 
 
-def _inverse_work(m: int, bm: int, batch: int) -> tuple[float, float]:
+def _inverse_work(m: int, bm: int, batch: int,
+                  itemsize: int = 4) -> tuple[float, float]:
     """Operations and bytes of the diagonal-block inverses: r^3 / 3 for a
     lower-triangular r x r block solved against I, its lower triangle read
-    and the inverse's written."""
+    and the inverse's written, ``itemsize`` bytes an element."""
     blocks = [min(bm, m - lo) for lo in range(0, m, bm)]
     flops = batch * sum(r ** 3 / 3 for r in blocks)
-    nbytes = 4.0 * batch * sum(r * (r + 1) for r in blocks)
+    nbytes = float(itemsize) * batch * sum(r * (r + 1) for r in blocks)
     return flops, nbytes
+
+
+def _solve_dtype(torch):
+    """bf16 where ``torch.linalg.solve_triangular`` takes it on the card,
+    else float32: the dtype of phase 7's library yardstick for bf16 trsm."""
+    x = torch.ones(2, 2, dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.linalg.solve_triangular(x, x, upper=False)
+    except RuntimeError:
+        return torch.float32
+    return torch.bfloat16
+
+
+def time_trsm_bf16(torch, card: str, case: dict, sets, totals: dict) -> None:
+    """A phase-5b trsm call's two bf16 kernels apart, on its bf16 operand
+    ``sets``, into ``totals``: ``trsm_inv_bf16`` under the default knob's
+    bm and the best bm (device times, :func:`_device_ms`: the inverses take
+    less than their call's host time) against ``diag_inverses_plain``, one
+    ``solve_triangular`` of the diagonal blocks against I and its bound
+    (r^3 / 3 float32 operations a block at the float32 peak, the bf16
+    bytes); ``trsm_bf16`` under the default tile and the best tile of the
+    space, each from its bm's inverses, against ``substitute_plain`` fed
+    the same inverses, the solve's library call and the solve's bf16 bound
+    (m^2 n at 989.4 TFLOP/s, 2 bytes an element).  The library is
+    ``solve_triangular`` in bf16 where PyTorch takes it, else in float32
+    on upcast operands, and says which.  The whole ``trsm_plain`` is
+    printed beside them.  Books the inverses' largest absolute error
+    against their plain version in ``totals["trsm_inv_bf16"]["abs_err"]``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trsm as T
+    shapes, kw = case["shapes"], case["kw"]
+    m = shapes[0][-1]
+    batch = shapes[0][0] if len(shapes[0]) == 3 else 1
+    kd = ops.default_knob("trsm").dict
+    bm, bn = kd["bm"], kd["bn"]
+    if m % max(T.TILES)[0]:
+        raise SystemExit(f"[times:trsm_bf16] {case['label']}: m={m} not a "
+                         f"multiple of every bm")
+    lib_dtype = _solve_dtype(torch)
+    lib_name = str(lib_dtype).removeprefix("torch.")
+    lib_sets = [[x.to(lib_dtype) for x in xs] for xs in sets]
+    library_ms = _time_ms(torch, lambda a, b: torch.linalg.solve_triangular(
+        a, b, upper=False), lib_sets)
+    # the inverses: each bm of the space, device times
+    bms = sorted({t[0] for t in T.TILES})
+    inv_ms = {b: _device_ms(torch, lambda a, _b, b=b: T.diag_inverses(a, bm=b),
+                            sets, 10) for b in bms}
+    inv_plain_ms = _device_ms(torch, lambda a, _b: T.diag_inverses_plain(
+        a, bm), sets, 10)
+    eye = torch.eye(bm, dtype=lib_dtype, device="cuda")
+    blocks = [(x.as_strided((batch, m // bm, bm, bm),
+                            (m * m if batch > 1 else 0, (m + 1) * bm, m, 1)),
+               eye) for x, _b in lib_sets]
+    inv_lib_ms = _device_ms(torch, lambda d, e: torch.linalg.solve_triangular(
+        d, e, upper=False), blocks, 10)
+    del lib_sets, blocks
+    invs = {b: [(a, y, T.diag_inverses(a, bm=b)) for a, y in sets]
+            for b in bms}
+    abs_err = max((T.inverse_blocks(inv, m, bm)[0].float()
+                   - T.diag_inverses_plain(a, bm)[0].float())
+                  .abs().max().item() for a, _y, inv in invs[bm])
+    t = totals["trsm_inv_bf16"]
+    t["abs_err"] = max(t.get("abs_err", 0.0), abs_err)
+    # the substitution: the default tile and every tile of the space
+    sub_ms = _time_ms(torch, lambda a, b, inv: T.substitute(
+        a, b, inv, bm=bm, bn=bn, **kw), invs[bm])
+    best_ms, best = min(
+        ((_time_ms(torch, lambda a, b, inv, k=k: T.substitute(
+            a, b, inv, bm=k["bm"], bn=k["bn"], **kw), invs[k["bm"]],
+            iters=3), k.dict) for k in ops.knob_space_for("trsm")),
+        key=lambda v: v[0])
+
+    def sub_plain(a, b, inv):
+        x = torch.empty_like(b)
+        T.substitute_plain(a, b, x, *T.inverse_blocks(inv, m, bm), bm=bm,
+                           bn=bn, alpha=kw.get("alpha", 1.0))
+        return x
+
+    sub_plain_ms = _time_ms(torch, sub_plain, invs[bm])
+    plain_ms = _time_ms(torch, lambda a, b: T.trsm_plain(a, b, bm=bm, **kw),
+                        sets)
+    del invs
+    flops, nbytes = _inverse_work(m, bm, batch, 2)
+    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    inv_bound = 1e3 * max(t_ops, t_bytes)
+    inv_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = _bound("trsm", shapes, kw, bf16=True)
+    best_bm = min(bms, key=inv_ms.get)
+    for name, row in (("trsm_inv_bf16", (inv_ms[bm], inv_plain_ms,
+                                         inv_lib_ms, inv_bound, inv_by)),
+                      ("trsm_bf16", (sub_ms, sub_plain_ms, library_ms,
+                                     bound_ms, bound_by))):
+        t = totals[name]
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"), row):
+            t[key] += v
+        if row[4] == "operations":
+            t["ops_bound_ms"] += row[3]
+    flops, _ = _work("trsm", shapes, kw, 2)
+    print(f"[times:trsm_inv_bf16] [{card}] {case['label']}: default bm {bm} "
+          f"{inv_ms[bm]:.4f} ms (device) | best bm {best_bm} "
+          f"{inv_ms[best_bm]:.4f} ms | plain {inv_plain_ms:.4f} ms "
+          f"(diag_inverses_plain) | library ({lib_name} solve_triangular of "
+          f"the {batch * (m // bm)} blocks against I) {inv_lib_ms:.4f} ms | "
+          f"bound {inv_bound:.4f} ms ({inv_by}) | max abs err vs plain "
+          f"{abs_err:.2e}", flush=True)
+    print(f"[times:trsm_bf16] [{card}] {case['label']}: default "
+          f"{_knob_str('trsm', kd)} {sub_ms:.4f} ms ({flops / sub_ms / 1e9:.2f}"
+          f" TFLOP/s, {100 * bound_ms / sub_ms:.1f} % of bound) | best "
+          f"{_knob_str('trsm', best)} {best_ms:.4f} ms "
+          f"({100 * bound_ms / best_ms:.1f} %) | plain {sub_plain_ms:.4f} ms "
+          f"(substitute_plain; trsm_plain, the whole bf16 scheme, "
+          f"{plain_ms:.4f} ms) | library ({lib_name} solve_triangular) "
+          f"{library_ms:.4f} ms ({100 * bound_ms / library_ms:.1f} %) | bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
 
 
 def time_trsm_kernels(torch, card: str, row: dict, sets, library_ms: float,
@@ -5749,6 +6174,7 @@ def main(argv: list[str]) -> int:
             check_trmm_paths(torch, rand)
             check_rank_k_paths(torch, rand)
             check_trsm_kernels(torch, rand)
+            check_trsm_bf16(torch, rand)
             check_contracts(torch, rand)
             print(f"[repeat {i + 1}/{repeats}] clean in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -5762,6 +6188,7 @@ def main(argv: list[str]) -> int:
     check_trmm_paths(torch, rand)
     check_rank_k_paths(torch, rand)
     check_trsm_kernels(torch, rand)
+    check_trsm_bf16(torch, rand)
     check_contracts(torch, rand)
     print(f"[kernel] {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -6022,8 +6449,9 @@ def main(argv: list[str]) -> int:
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         t = totals[name]
-        # trsm_inv: its inverses against their plain version, per call;
-        # gemm_bf16: phase 7's calls and phase 6g's generate
+        # trsm_inv: its inverses against their plain version, per call
+        # (trsm_inv_bf16: phase 7's); gemm_bf16: phase 7's calls and phase
+        # 6g's generate
         errs = [r["inv_abs_err"] if name == "trsm_inv" else r["abs_err"]
                 for r in served["rows"]
                 if r["kernel"] == (name if name != "trsm_inv" else "trsm")]
@@ -6032,8 +6460,8 @@ def main(argv: list[str]) -> int:
             errs, launches = [bf16_abs_err], \
                 bf16_model["launches"]["gemm_bf16"]
         if name in PRECOND_BF16_KERNELS:
-            errs = [r["abs_err"] for r in precond["rows"]
-                    if r["kernel"] == name]
+            errs = [t["abs_err"]] if name == "trsm_inv_bf16" else \
+                [r["abs_err"] for r in precond["rows"] if r["kernel"] == name]
             launches = precond["launches"][name]
         kernels.append({
             "name": name, "route": route, "source": source,

@@ -33,11 +33,11 @@ class HopperBackend(Backend):
 
     def supports_dtype(self, dtype) -> bool:
         """float32 only (the reference's Pallas backend reports float64
-        unsupported).  gemm, symm, syrk/syr2k and trmm also take bfloat16
-        (``csrc/{gemm,symm,rank_k,rank_k_packed,trmm,trmm_packed}_bf16.cu``)
-        and trsm does not yet, so bfloat16 stays unsupported here until
-        every op takes it; calibration and conformance ask only for what
-        this reports."""
+        unsupported).  Every op also takes bfloat16 (``csrc/{gemm,symm,
+        rank_k,rank_k_packed,trmm,trmm_packed,trsm}_bf16.cu``), but no
+        install calibrates at 2 bytes yet, so bfloat16 stays unreported
+        here and a bf16 call takes the default knob; calibration and
+        conformance ask only for what this reports."""
         if isinstance(dtype, torch.dtype):
             return dtype == torch.float32
         return np.dtype(dtype) == np.float32

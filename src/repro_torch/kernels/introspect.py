@@ -56,10 +56,12 @@ __all__ = ["KERNELS", "record_launch", "launch_counts", "reset_launches",
 #: ``csrc/trsm.cu``, ``trsm_inv`` its diagonal-block inverses; the
 #: ``*_bf16`` kernels those of bfloat16 operands, ``csrc/{gemm_bf16,
 #: symm_bf16,trmm_bf16,trmm_packed_bf16,rank_k_bf16,
-#: rank_k_packed_bf16}.cu``)
+#: rank_k_packed_bf16}.cu``, and ``trsm_bf16``, ``trsm_inv_bf16`` those of
+#: ``csrc/trsm_bf16.cu``)
 KERNELS = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm", "trmm_packed",
            "trsm", "trsm_inv", "gemm_bf16", "symm_bf16", "trmm_bf16",
-           "trmm_packed_bf16", "rank_k_bf16", "rank_k_packed_bf16")
+           "trmm_packed_bf16", "rank_k_bf16", "rank_k_packed_bf16",
+           "trsm_bf16", "trsm_inv_bf16")
 
 _LOCK = threading.Lock()
 _COUNTS: collections.Counter = collections.Counter()
@@ -217,7 +219,8 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     and rank-k kernels those of their ops.  ``trsm``
     is its substitution kernel, one block per column strip and item;
     ``trsm_inv`` its inverse kernel, one block per diagonal block, chunk of
-    :data:`~repro_torch.kernels.trsm.INV_COLS` columns and item."""
+    :data:`~repro_torch.kernels.trsm.INV_COLS` columns and item; their bf16
+    twins ``trsm_bf16`` and ``trsm_inv_bf16`` launch the same grids."""
     if op in ("gemm", "gemm_bf16"):
         # the n-tiles times the slices of a split contraction (grid x)
         from .gemm import split_plan
@@ -230,9 +233,9 @@ def full_grid_for(op: str, dims: tuple[int, ...], bm: int,
     if op in ("syrk", "syr2k"):
         nb = _cdiv(dims[0], bm)
         return (nb, nb, batch)
-    if op == "trsm":
+    if op in ("trsm", "trsm_bf16"):
         return (_cdiv(dims[1], bn), 1, batch)
-    if op == "trsm_inv":
+    if op in ("trsm_inv", "trsm_inv_bf16"):
         from .trsm import INV_COLS
         return (_cdiv(dims[0], bm), bm // INV_COLS, batch)
     raise ValueError(f"no full grid for {op!r}")

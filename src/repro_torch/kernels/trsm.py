@@ -1,7 +1,8 @@
 """TRSM on the H100: solve ``tril(A) @ X = alpha * B`` (left, lower,
 non-unit) by blocked forward substitution, with two CUDA C++ kernels written
-for Hopper in one source, ``csrc/trsm.cu``, so a call makes two launches
-whatever m and the batch:
+for Hopper in one source a dtype, so a call makes two launches whatever m
+and the batch: ``csrc/trsm.cu`` for float32 operands, ``csrc/trsm_bf16.cu``
+(the tensor cores) for bfloat16.
 
 1. ``trsm_inv`` (:func:`diag_inverses`): the inverses ``D_i^-1`` of the
    ``bm x bm`` diagonal blocks of tril(A), the ragged last block at its
@@ -13,6 +14,17 @@ whatever m and the batch:
    ``R_i = alpha B_i - A[i, :i] @ X[:i]`` (block row 0: ``R_0 = B_0``,
    alpha moving to the next step) and then ``X_i = D_i^-1 @ R_i``.
 
+The bf16 kernels, ``trsm_inv_bf16`` and ``trsm_bf16``, run the same two
+steps with the reference's rounding points: each inverse entry computed in
+float32 as ``trsm_inv`` computes it and rounded once, and per block row
+``R_i = bf16(float(bf16(alpha B_i)) - float(bf16(A[i, :i] @ X[:i])))``
+(block row 0 included, its contraction empty) and ``X_i = bf16(D_i^-1 @
+R_i)``, every product summed in float32 on the bf16 mainloop
+(``csrc/bf16_mainloop.cuh``).  X is bf16 between block rows, as in the
+reference, whose every intermediate is in A's dtype.  alpha multiplies in
+float32 (the reference's bf16 product rounds alpha to bf16 first: the two
+agree where alpha is a bf16 value).
+
 It takes the place of the reference package's ``trsm_pallas``
 (``src/repro/kernels/trsm.py``), which runs the same scheme at trace time:
 the inverses from XLA's ``triangular_solve`` and two Pallas GEMMs per block
@@ -20,14 +32,16 @@ row.  The knob's ``bm`` is the diagonal block and the rows of a step, its
 ``bn`` the column strip; the contraction step is
 :data:`~repro_torch.core.knobs.HOPPER_CONTRACTION_STEP` (64).  No operand
 is padded and a leading batch axis is the grid's z.  When A, B and their
-strides are 16-byte aligned (and n a multiple of 4, for X) the kernel moves
-4 floats a copy, else one, with the same bits.
+strides are 16-byte aligned (and n a multiple of 4 float32 or 8 bf16
+elements, for X) the kernels move 16 bytes a copy, else one element, with
+the same bits.
 
-On CUDA tensors :func:`trsm` launches both kernels on the current stream
-and records each launch; nothing else runs on the card (no library call and
-no loop on the host).  On CPU tensors it runs the plain versions of the same
-scheme: :func:`diag_inverses_plain` (``torch.linalg.solve_triangular``
-against I) and :func:`substitute_plain` (the two products of each block row
+On CUDA tensors :func:`trsm` launches both kernels of the operands' dtype
+on the current stream and records each launch; nothing else runs on the
+card (no library call and no loop on the host).  On CPU tensors it runs
+the plain versions of the same scheme: :func:`diag_inverses_plain`
+(``torch.linalg.solve_triangular`` against I, in float32 and rounded once
+for bf16) and :func:`substitute_plain` (the two products of each block row
 on the GEMM's plain version).  :func:`trsm_plain` is the plain version of
 the whole solve.
 """
@@ -47,12 +61,21 @@ from .introspect import launch_events, record_launch
 
 __all__ = ["trsm", "trsm_plain", "diag_inverses", "diag_inverses_plain",
            "substitute", "substitute_plain", "inverse_blocks", "trsm_params",
-           "TILES", "INV_COLS", "INV_ROWS"]
+           "TILES", "INV_COLS", "INV_ROWS", "KERNEL_OF"]
 
 #: the ``(bm, bn)`` tiles ``csrc/trsm.cu`` is instantiated for
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("trsm"))
 #: the inverse kernel's columns per block (its threads) and rows per group
 INV_COLS, INV_ROWS = 64, 8
+#: the operand dtypes the TRSM kernels take: dtype -> {step: (kernel, C
+#: launcher)}, the step ``trsm_inv`` (the inverses) or ``trsm`` (the
+#: substitution); both steps of a dtype are built from one source
+KERNEL_OF = {torch.float32: {"trsm_inv": ("trsm_inv", "repro_trsm_inv_f32"),
+                             "trsm": ("trsm", "repro_trsm_f32")},
+             torch.bfloat16: {"trsm_inv": ("trsm_inv_bf16",
+                                           "repro_trsm_inv_bf16"),
+                              "trsm": ("trsm_bf16", "repro_trsm_bf16")}}
+_SOURCE_OF = {torch.float32: "trsm", torch.bfloat16: "trsm_bf16"}
 
 #: grid z limit of a launch (the batch)
 _MAX_GRID_Z = 65535
@@ -72,26 +95,46 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int,                        # bm, bn
              ctypes.c_void_p, ctypes.c_void_p]                  # events
 
 
-def trsm_params(bm: int, bn: int) -> dict:
-    """The launch parameters ``csrc/trsm.cu`` derives from the tile: the
-    substitution's (the f32 mainloop's at ``(bm, 64, bn)``,
-    :func:`~repro_torch.kernels.gemm.mainloop_params`), the inverse
-    kernel's threads and dynamic shared bytes (its x columns and two
-    groups' rows of D), and the workspace bytes of one diagonal block's
-    inverse
-    (a call holds ``batch * ceil(m / bm)`` of them)."""
-    p = _gemm.mainloop_params(bm, HOPPER_CONTRACTION_STEP, bn)
+def trsm_params(bm: int, bn: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The launch parameters ``csrc/trsm.cu`` (float32) or
+    ``csrc/trsm_bf16.cu`` (bfloat16) derives from the tile: the
+    substitution's (the mainloop's of ``dtype`` at ``(bm, 64, bn)``,
+    :func:`~repro_torch.kernels.gemm.mainloop_params`; bf16 adds its warp
+    grid), the inverse kernel's threads and dynamic shared bytes (its x
+    columns and two groups' rows of D, float32 for both dtypes), and the
+    workspace bytes of one diagonal block's inverse, in ``dtype`` (a call
+    holds ``batch * ceil(m / bm)`` of them)."""
+    if dtype not in KERNEL_OF:
+        raise TypeError(f"no TRSM kernels for {dtype}")
+    p = _gemm.mainloop_params(bm, HOPPER_CONTRACTION_STEP, bn, dtype)
     return {**p, "inv_threads": INV_COLS,
             "inv_smem": 4 * bm * (INV_COLS + 2 * INV_ROWS),
-            "block_workspace": 4 * bm * bm}
+            "block_workspace": dtype.itemsize * bm * bm}
 
 
-def trsm_plain(a: torch.Tensor, b: torch.Tensor, *,
-               alpha: float = 1.0) -> torch.Tensor:
-    """The plain PyTorch version: one triangular solve in float32."""
-    x = torch.linalg.solve_triangular(torch.tril(a.float()),
-                                      alpha * b.float(), upper=False)
-    return x.to(a.dtype)
+def trsm_plain(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
+               bm: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version.  float32: one triangular solve in
+    float32 (``bm`` unused).  bfloat16: the blocked scheme under the
+    diagonal block ``bm`` with the reference's rounding points,
+    :func:`diag_inverses_plain` and :func:`substitute_plain` on the GEMM's
+    plain version, on whatever device holds the operands (no kernel is
+    launched); one float32 solve rounded once is not that scheme, and lies
+    further from the reference than one bf16 ulp of the largest output."""
+    if a.dtype != torch.bfloat16:
+        x = torch.linalg.solve_triangular(torch.tril(a.float()),
+                                          alpha * b.float(), upper=False)
+        return x.to(a.dtype)
+    if bm is None:
+        raise ValueError("the bf16 TRSM's plain version runs the blocked "
+                         "scheme: give its diagonal block bm")
+    _check(a, b)
+    x = torch.empty(b.shape, dtype=a.dtype, device=a.device)
+    if x.numel():
+        full, last = diag_inverses_plain(a, bm)
+        substitute_plain(a, b, x, full, last, bm=bm,
+                         bn=HOPPER_CONTRACTION_STEP, alpha=alpha)
+    return x
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
@@ -103,11 +146,12 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
     if m != m2 or m != mb or a.shape[:-2] != b.shape[:-2]:
         raise ValueError(f"A {tuple(a.shape)} must be square with B "
                          f"{tuple(b.shape)} of as many rows and items")
+    if a.dtype not in KERNEL_OF or b.dtype != a.dtype:
+        raise TypeError("the TRSM kernels take float32 or bfloat16 operands, "
+                        f"all of one dtype; got {a.dtype}, {b.dtype}")
     for t in (a, b):
         if t.device != a.device:
             raise ValueError(f"operands on {t.device} and {a.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the TRSM kernels take float32, got {t.dtype}")
         if t.numel() and t.stride(-1) != 1:
             raise ValueError("the TRSM kernels need rows with unit inner "
                              f"stride, got strides {t.stride()}")
@@ -127,7 +171,12 @@ def diag_inverses_plain(a: torch.Tensor, bm: int):
     """``D_i^-1`` of A's diagonal blocks: the full blocks as one
     ``(..., m // bm, bm, bm)`` tensor (None if there are none) and the
     ragged last block, solved at its true size (None if m is a multiple of
-    bm).  The plain version of :func:`diag_inverses`."""
+    bm).  The plain version of :func:`diag_inverses`.  A bf16 A is solved
+    in float32 and each entry rounded once to bf16, as its kernel rounds
+    (``solve_triangular`` takes no bf16 on the CPU)."""
+    if a.dtype == torch.bfloat16:
+        return tuple(None if d is None else d.to(a.dtype)
+                     for d in diag_inverses_plain(a.float(), bm))
     lead, m = a.shape[:-2], a.shape[-1]
     nfull, rag = divmod(m, bm)
     full = a.new_empty((*lead, nfull, bm, bm)) if nfull else None
@@ -173,11 +222,23 @@ def substitute_plain(a, b, x, full, last, *, bm: int, bn: int,
     """The block rows of the forward substitution from the inverses
     ``full``, ``last`` (:func:`diag_inverses_plain`), into ``x``: the plain
     version of :func:`substitute`, two products per block row (one in
-    block row 0) on the GEMM's plain version."""
+    block row 0) on the GEMM's plain version.  On bf16 operands each block
+    row rounds where the reference's does: ``bf16(alpha B_i)``, the update
+    ``bf16(A[i, :i] @ X[:i])``, their difference, and ``bf16(D_i^-1 @
+    R_i)``."""
     m, bk = a.shape[-1], HOPPER_CONTRACTION_STEP
+    bf16 = a.dtype == torch.bfloat16
     for i in range(-(-m // bm)):
         lo, hi = i * bm, min((i + 1) * bm, m)
         dinv = full[..., i, :, :] if hi - lo == bm else last
+        if bf16:
+            r = (alpha * b[..., lo:hi, :].float()).to(a.dtype)
+            if i > 0:
+                upd = _plain_gemm(a[..., lo:hi, :lo], x[..., :lo, :], bm=bm,
+                                  bk=bk, bn=bn)
+                r = (r.float() - upd.float()).to(a.dtype)
+            _plain_gemm(dinv, r, bm=bm, bk=bk, bn=bn, out=x[..., lo:hi, :])
+            continue
         if i == 0:
             r, scale = b[..., :hi, :], alpha
         else:
@@ -195,8 +256,10 @@ def diag_inverses(a: torch.Tensor, *, bm: int) -> torch.Tensor:
     corner at the block's true size, zeros above its diagonal and past that
     size.
 
-    On CUDA tensors this launches ``csrc/trsm.cu``'s ``trsm_inv`` on the
-    current stream; on CPU tensors it packs :func:`diag_inverses_plain`."""
+    On CUDA tensors this launches ``csrc/trsm.cu``'s ``trsm_inv`` (bf16:
+    ``csrc/trsm_bf16.cu``'s ``trsm_inv_bf16``, a tensor of A's dtype) on
+    the current stream; on CPU tensors it packs
+    :func:`diag_inverses_plain`."""
     _check(a, a)
     _check_bm(bm)
     m = a.shape[-1]
@@ -223,8 +286,9 @@ def substitute(a: torch.Tensor, b: torch.Tensor, inv: torch.Tensor, *,
     """X with ``tril(A) @ X = alpha * B`` from the inverses ``inv`` of
     :func:`diag_inverses` under the same ``bm``, as a new tensor.
 
-    On CUDA tensors this launches ``csrc/trsm.cu``'s ``trsm`` on the
-    current stream; on CPU tensors it runs :func:`substitute_plain`."""
+    On CUDA tensors this launches ``csrc/trsm.cu``'s ``trsm`` (bf16:
+    ``csrc/trsm_bf16.cu``'s ``trsm_bf16``) on the current stream; on CPU
+    tensors it runs :func:`substitute_plain`."""
     m, n = _check(a, b)
     if (bm, bn) not in TILES:
         raise ValueError(f"no TRSM kernel for tile bm={bm} bn={bn}")
@@ -250,10 +314,10 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
          alpha: float = 1.0) -> torch.Tensor:
     """X with ``tril(A) @ X = alpha * B`` under the knob's ``bm x bn``.
 
-    On CUDA tensors this launches ``trsm_inv`` and then ``trsm`` on the
-    current stream (no synchronisation) and raises if a launch is refused;
-    on CPU tensors it runs :func:`diag_inverses_plain` and
-    :func:`substitute_plain`."""
+    On CUDA tensors this launches ``trsm_inv`` and then ``trsm`` (bf16:
+    ``trsm_inv_bf16`` and ``trsm_bf16``) on the current stream (no
+    synchronisation) and raises if a launch is refused; on CPU tensors it
+    runs :func:`diag_inverses_plain` and :func:`substitute_plain`."""
     m, _n = _check(a, b)
     if (bm, bn) not in TILES:
         raise ValueError(f"no TRSM kernel for tile bm={bm} bn={bn}")
@@ -279,31 +343,35 @@ def _raise(kernel: str, rc: int, what: str) -> None:
 
 
 def _launch_inv(a, inv, bm, stream) -> None:
-    """Launch ``trsm_inv`` on checked A into the contiguous ``inv`` and
-    record the launch."""
+    """Launch the inverse kernel of A's dtype on checked A into the
+    contiguous ``inv`` and record the launch."""
     stacked = a.dim() == 3
+    kernel, symbol = KERNEL_OF[a.dtype]["trsm_inv"]
     grid = _build.launch_grid()
-    launch = _build.launcher("trsm_inv", _INV_ARGTYPES, source="trsm")
+    launch = _build.launcher(kernel, _INV_ARGTYPES,
+                             source=_SOURCE_OF[a.dtype], symbol=symbol)
     events = launch_events()
     rc = launch(
         bm, a.data_ptr(), inv.data_ptr(), a.shape[-1],
         a.shape[0] if stacked else 1, a.stride(0) if stacked else 0,
         a.stride(-2), stream, *events, grid)
     if rc != 0:
-        _raise("trsm_inv", rc, f"bm {bm}, A {tuple(a.shape)}")
-    record_launch("trsm_inv", grid)
+        _raise(kernel, rc, f"bm {bm}, A {tuple(a.shape)}")
+    record_launch(kernel, grid)
 
 
 def _launch(a, b, inv, x, *, bm, bn, alpha, stream) -> None:
-    """Launch ``trsm`` on checked operands, the inverses ``inv`` and the
-    new ``x``, and record the launch."""
+    """Launch the substitution kernel of A's dtype on checked operands, the
+    inverses ``inv`` and the new ``x``, and record the launch."""
     stacked = a.dim() == 3
     sab, sbb, sxb = (a.stride(0), b.stride(0), x.stride(0)) if stacked \
         else (0, 0, 0)
     vec = _gemm.vec_aligned((a, a.stride(-2), sab), (b, b.stride(-2), sbb),
                             (x, x.stride(-2), sxb))
+    kernel, symbol = KERNEL_OF[a.dtype]["trsm"]
     grid = _build.launch_grid()
-    launch = _build.launcher("trsm", _ARGTYPES)
+    launch = _build.launcher(kernel, _ARGTYPES, source=_SOURCE_OF[a.dtype],
+                             symbol=symbol)
     events = launch_events()
     rc = launch(
         bm, bn, a.data_ptr(), b.data_ptr(), inv.data_ptr(), x.data_ptr(),
@@ -311,6 +379,6 @@ def _launch(a, b, inv, x, *, bm, bn, alpha, stream) -> None:
         a.stride(-2), sbb, b.stride(-2), sxb, x.stride(-2), float(alpha),
         int(vec), stream, *events, grid)
     if rc != 0:
-        _raise("trsm", rc, f"tile {bm}x{bn}, A {tuple(a.shape)}, "
+        _raise(kernel, rc, f"tile {bm}x{bn}, A {tuple(a.shape)}, "
                f"B {tuple(b.shape)}")
-    record_launch("trsm", grid)
+    record_launch(kernel, grid)

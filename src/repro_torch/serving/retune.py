@@ -35,10 +35,11 @@ What is measured
     one launch, which on the card takes anything from one call's time
     (where one item leaves SMs idle) to b calls' time.  So the service
     probes: once per key and step (:meth:`Retuner.claim_probe`) it runs a
-    bucket's first item alone, after a warm-up call of it as the
-    install's timer takes one, with the card to itself, and books that
-    call's kernels as the bucket's execution of one item; the other
-    buckets book none.
+    bucket's first item alone, with the card to itself, as the install's
+    timer does: a warm-up call, then three timed calls, whose median it
+    books as the bucket's execution of one item; the other buckets book
+    none.  One timed call alone would let a host held up between a
+    launch's events read as drift.
 
 Drift signal
     Each telemetry sample compares the measured per-item execution time of

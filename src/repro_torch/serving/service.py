@@ -28,11 +28,13 @@ What differs from the reference, seam by seam:
   time than it has items, and the host's dispatch and GIL waits ride on
   an idle stream), so once per key and step
   (:meth:`~repro_torch.serving.retune.Retuner.claim_probe`) a worker probes:
-  with the card to itself it runs the bucket's first item alone, twice,
-  and books the second call's kernels (``kernels/introspect.py::
-  launch_window``, the events each launcher records around its launch) as
-  one item — the install's labels' own quantity (``core/timing.py``); the
-  other buckets book no execution.  The worker waits on its stream before
+  with the card to itself it runs the bucket's first item alone, once to
+  warm up and then :data:`PROBE_REPEATS` times, and books the median of
+  those calls' kernels (``kernels/introspect.py::launch_window``, the
+  events each launcher records around its launch) as one item — the
+  install's labels' own quantity (``core/timing.py``), so one call that
+  the host held up between its events does not read as drift; the other
+  buckets book no execution.  The worker waits on its stream before
   it resolves any future, so a resolved future holds a computed result;
 * there is no trace-time decision batcher (PyTorch has no trace time); the
   concurrent cold-decision prewarm (``select_many``) stays;
@@ -155,6 +157,10 @@ SERVABLE_OPS = ("gemm", "symm", "syrk", "syr2k", "trmm", "trsm")
 #: (probes, speculative traffic) sheds first, then "batch"
 #: (offline/bulk callers), and "user" traffic keeps the full buffer
 _PRIORITY_LEVELS = {"user": 0, "batch": 1, "exploration": 2}
+
+#: timed calls of a probe after its warm-up, whose median it books: the
+#: install timer's ``repeats`` (``core/timing.py::time_callable``)
+PROBE_REPEATS = 3
 
 #: lazily bound repro_torch.backends.resolve_backend (keeps the serving
 #: module's import graph light)
@@ -1051,26 +1057,34 @@ class BlasService:
         return stream
 
     def _probe(self, call, stacked: tuple, on_card: bool):
-        """A bucket's first item alone, twice, the second call timed — one
-        call of one item after a warm-up, as the install's labels are
+        """A bucket's first item alone: a warm-up call, then
+        :data:`PROBE_REPEATS` timed calls, as the install's labels are
         measured — then the rest as one stack.  Returns the stacked result
-        and a callable giving the timed call's seconds (its kernels' device
-        time on the card, read once the stream is done; None where nothing
-        was launched)."""
+        and a callable giving the median of the timed calls' seconds (their
+        kernels' device time on the card, read once the stream is done;
+        None where nothing was launched)."""
         from repro_torch.kernels.introspect import launch_window
         one = tuple(x[0] for x in stacked)
         call(one)
         if on_card:
-            with launch_window() as window:
-                head = call(one)
-            seconds = window.seconds
-        else:
-            t0 = time.perf_counter()
-            head = call(one)
-            host = time.perf_counter() - t0
+            windows = []
+            for _ in range(PROBE_REPEATS):
+                with launch_window() as window:
+                    head = call(one)
+                windows.append(window)
 
             def seconds():
-                return host
+                times = [w.seconds() for w in windows]
+                return None if None in times else float(np.median(times))
+        else:
+            times = []
+            for _ in range(PROBE_REPEATS):
+                t0 = time.perf_counter()
+                head = call(one)
+                times.append(time.perf_counter() - t0)
+
+            def seconds():
+                return float(np.median(times))
         rest = [call(tuple(x[1:] for x in stacked))] \
             if len(stacked[0]) > 1 else []
         return torch.cat([head[None], *rest]), seconds

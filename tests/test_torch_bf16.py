@@ -8,8 +8,8 @@ On the CPU the port's ``run_op`` computes the kernel's plain version
 tensor-core kernel itself (``csrc/gemm_bf16.cu``) is held to the same
 plain version on the card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
 symm and trmm take bf16 too (``test_torch_bf16_symm_trmm.py``), as do
-syrk and syr2k (``test_torch_bf16_rank_k.py``); trsm takes float32 only
-and raises on bf16 until its bf16 slice lands.
+syrk and syr2k (``test_torch_bf16_rank_k.py``) and trsm
+(``test_torch_bf16_trsm.py``).
 """
 
 import dataclasses
@@ -125,18 +125,6 @@ def test_gemm_rejects_mixed_and_other_dtypes():
     with pytest.raises(TypeError):
         G.gemm(a.half(), b.half(), bm=64, bk=16, bn=64)
     assert G.gemm(a, b, bm=64, bk=16, bn=64).dtype == torch.bfloat16
-
-
-#: operands of the op that keeps its float32-only kernels (syrk and syr2k
-#: take bf16 too: tests/test_torch_bf16_rank_k.py)
-_F32_ONLY = {"trsm": ((6, 6), (6, 5))}
-
-
-@pytest.mark.parametrize("op", sorted(_F32_ONLY))
-def test_other_ops_raise_on_bf16(op):
-    xs = tuple(torch.randn(s).bfloat16() for s in _F32_ONLY[op])
-    with pytest.raises(TypeError, match="float32"):
-        ops.run_op(op, xs, device="cpu")
 
 
 def test_vec_aligned_counts_bytes():

@@ -12,8 +12,8 @@ kernels and nothing else, and the launch parameters built into the
 kernels equal to their Python mirrors; the bf16 GEMM under every tile
 within one bf16 ulp of its plain version, stacked == per-item, odd
 strides == aligned and masked == padded bit for bit; the bf16 SYMM,
-TRMM and SYRK/SYR2K (every variant) under ``chip_smoke.py``'s phase-3
-checks; the dense, MoE,
+TRMM, SYRK/SYR2K (every variant) and TRSM under ``chip_smoke.py``'s
+phase-3 checks; the dense, MoE,
 zamba2 and rwkv6
 smoke models routed on the card against their plain versions; a retune
 step on the card's telemetry and a one-executor fleet on the card; two
@@ -878,7 +878,7 @@ def test_retune_step_and_one_executor_fleet_on_the_card(tmp_path):
     key = next(k for k in rt.stats.buckets if k[1] == "gemm")
     bucket = rt.stats.buckets[key]
     # with a retuner attached one bucket a step books its first item run
-    # alone: one call, the quantity the install's labels measure
+    # alone: the median of its timed calls, as the install's labels
     assert bucket.exec_seconds > 0 and bucket.exec_items == 1
     assert bucket.batches == 3 and bucket.requests == len(work)
     per_call = bucket.mean_exec_per_item
@@ -1247,3 +1247,42 @@ def test_bf16_rank_k_are_built_with_their_python_mirror():
             p = K.rank_k_params(bm, bk, torch.bfloat16)
             assert list(out) == [p["threads"], p["stages"], p["smem"],
                                  p["passes"], *p["warps"]], (name, bm, bk)
+
+
+# -- the bf16 TRSM (csrc/trsm_bf16.cu: the inverses in float32 rounded once,
+# the substitution on the bf16 mainloop with the reference's roundings) -----
+
+@pytest.mark.gpu
+def test_bf16_trsm_kernels_hold_phase_3s_checks():
+    """``chip_smoke.check_trsm_bf16`` (phase 3): every knob of trsm at the
+    conformance dims and one aligned shape, single and stacked, on standard
+    and coupled operands: ``trsm_inv_bf16`` equal to ``trsm_inv`` on
+    ``A.float()`` rounded, bit for bit; ``trsm_bf16`` within ``BF16_TOL``
+    of the largest output of ``substitute_plain`` fed the same inverses,
+    with the recorded grids equal to their formulas; bit for bit, stacked
+    == per-item, odd strides == aligned and NaN above A's diagonal ==
+    zeros; a substitution that drops the first 64 indices of each step 0
+    above the limit on coupled operands."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    _chip_smoke().check_trsm_bf16(
+        torch, lambda *shape: torch.randn(shape, generator=gen,
+                                          device="cuda"))
+
+
+@pytest.mark.gpu
+def test_bf16_trsm_is_built_with_its_python_mirror():
+    """The launch parameters compiled into trsm_bf16.cu equal
+    ``trsm_params(bm, bn, torch.bfloat16)`` for every tile."""
+    _need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import trsm as T
+    out = (ctypes.c_int * 9)()
+    config = _build.load("trsm_bf16").repro_trsm_bf16_config
+    for bm, bn in sorted(T.TILES):
+        assert config(bm, bn, out) == 0, (bm, bn)
+        p = T.trsm_params(bm, bn, torch.bfloat16)
+        assert list(out) == [p["threads"], p["stages"], p["smem"],
+                             p["passes"], *p["warps"], p["inv_threads"],
+                             p["inv_smem"], p["block_workspace"]], (bm, bn)

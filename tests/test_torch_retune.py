@@ -438,6 +438,33 @@ def test_service_probes_one_bucket_per_key_and_step(tuned):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_probe_books_the_median_of_its_timed_calls(tuned):
+    """A probe runs the bucket's first item once to warm up, then
+    ``PROBE_REPEATS`` timed calls, and books their median, as the install's
+    timer takes its labels: one call held up on the host moves nothing."""
+    from repro_torch.serving import service as service_mod
+    assert service_mod.PROBE_REPEATS == 3
+    rt = AdsalaRuntime()
+    rt.register(tuned)
+    ret = Retuner(rt, config=RetuneConfig(interval_s=3600.0))
+    cfg = ServeConfig(backend="hopper", max_batch=4, linger_ms=1.0)
+    stacked = (torch.arange(12.0).reshape(3, 4),)
+    calls = []
+
+    def call(operands):
+        calls.append(operands[0].shape)
+        if len(calls) == 3:               # the second timed call
+            time.sleep(0.3)
+        return operands[0] * 2.0
+
+    with BlasService(runtime=rt, config=cfg, retuner=ret,
+                     device="cpu") as svc:
+        out, seconds = svc._probe(call, stacked, False)
+    assert calls == [(4,)] * (1 + service_mod.PROBE_REPEATS) + [(2, 4)]
+    assert torch.equal(out, stacked[0] * 2.0)
+    assert 0.0 < seconds() < 0.1
+
+
 def test_retuner_background_thread_start_stop(tuned):
     rt = AdsalaRuntime()
     rt.register(tuned)
