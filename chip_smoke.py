@@ -7,16 +7,19 @@ calls, and fails (non-zero exit) if any phase fails:
 1. environment: the card's name and power limit, CUDA, nvcc;
 2. build: every kernel source from this checkout (``gemm``, ``symm``,
    ``rank_k``, ``rank_k_packed``, ``trmm``, ``trmm_packed``, ``trsm``,
-   ``gemm_bf16``, ``symm_bf16``, ``trmm_bf16``, ``trmm_packed_bf16``,
-   ``rank_k_bf16``, ``rank_k_packed_bf16``, ``trsm_bf16``), all nvcc runs
+   ``gemm_bf16``, ``gemm_bf16_n256``, ``symm_bf16``, ``trmm_bf16``,
+   ``trmm_packed_bf16``, ``rank_k_bf16``, ``rank_k_packed_bf16``,
+   ``trsm_bf16``), all nvcc runs
    started together, with nvcc's
-   ``-Xptxas -v`` report (registers, shared memory, spills).  Fails if any
+   ``-Xptxas -v`` report (registers, shared memory, spills) and each
+   source's build seconds.  Fails if any
    instantiation of the kernels spills, or if the launch parameters they
    were built with (threads, stages, shared bytes, passes; trsm's inverse
-   kernel and workspace too; the bf16 kernels' warp grid) or the GEMMs'
+   kernel and workspace too; the bf16 gemm and symm kernels' warpgroups
+   and swizzle, the other bf16 kernels' warp grid) or the GEMMs'
    split-k plan differ from their Python mirrors
    (``kernels/gemm.py::mainloop_params`` at float32 and bfloat16,
-   ``split_plan``,
+   ``mma_sync_params``, ``split_plan``,
    ``kernels/syrk.py::rank_k_params``, ``kernels/trsm.py::trsm_params`` at
    float32 and bfloat16);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
@@ -27,13 +30,16 @@ calls, and fails (non-zero exit) if any phase fails:
    leading strides equal bit for bit to aligned copies of the same values;
    the bf16 GEMM (``gemm_bf16``) under every tile on the same shapes and
    deepseek-v2-lite's expert stacks against ``gemm_plain`` on the same
-   bf16 operands within ``BF16_TOL`` (one bf16 ulp), a bf16 accumulator
+   bf16 operands within ``BF16_TOL`` (one bf16 ulp) of the largest output
+   and each element within one ulp beside the float32 slack, a bf16
+   accumulator
    at k = 4096 reading above it, stacked == per-item, odd-stride operands
    == aligned copies and ``run_op`` == the padded run bit for bit, every
    recorded grid equal to ``full_grid_for``; the bf16 symm and trmm
    (``symm_bf16``, ``trmm_bf16``, ``trmm_packed_bf16``) under every knob
    of their spaces (trmm: 8 tiles x 3 variants) against ``symm_plain`` /
-   ``trmm_plain`` on the same bf16 operands within ``BF16_TOL``, symm
+   ``trmm_plain`` on the same bf16 operands within ``BF16_TOL``, each
+   element within one ulp beside the float32 slack, symm
    with ``alpha``/``beta`` and C, stacks of 3, at the (k, n) of the GEMM
    dims and the trmm path dims; bit for bit: tri_packed == tri, stacked ==
    per-item, odd strides == aligned copies, ``run_op`` == the padded run,
@@ -359,7 +365,8 @@ calls, and fails (non-zero exit) if any phase fails:
    ``solve_triangular`` of the diagonal blocks against I, those three as
    device times from ``torch.profiler``: the inverses take less than their
    call's host time); and
-   the host's time per call of the GEMM wrapper against ``torch.matmul``
+   the host's time per call of the GEMM wrapper (float32 and bf16, whose
+   launcher encodes two TMA tensor maps) against ``torch.matmul``
    at a product too small to time the card; the bf16 GEMM at phase 5's
    linear shapes under the default tile (every bf16 call's) and the best
    of its space, against ``gemm_plain``, ``torch.matmul`` in bf16 and the
@@ -416,8 +423,8 @@ SEED = 0
 
 #: the kernel sources of the main paths, built side by side
 KERNEL_SOURCES = ("gemm", "symm", "rank_k", "rank_k_packed", "trmm",
-                  "trmm_packed", "trsm", "gemm_bf16", "symm_bf16",
-                  "trmm_bf16", "trmm_packed_bf16", "rank_k_bf16",
+                  "trmm_packed", "trsm", "gemm_bf16", "gemm_bf16_n256",
+                  "symm_bf16", "trmm_bf16", "trmm_packed_bf16", "rank_k_bf16",
                   "rank_k_packed_bf16", "trsm_bf16")
 
 #: the reference conformance harness's ragged GEMM dims
@@ -681,7 +688,7 @@ KERNELS = {
              "src/repro/kernels/trsm.py:41"),
     "trsm_inv": ("cuda", "src/repro_torch/kernels/csrc/trsm.cu",
                  "src/repro/kernels/trsm.py:58"),
-    "gemm_bf16": ("cuda", "src/repro_torch/kernels/csrc/gemm_bf16.cu",
+    "gemm_bf16": ("cuda", "src/repro_torch/kernels/csrc/gemm_bf16.cuh",
                   "src/repro/kernels/gemm.py:55"),
     "symm_bf16": ("cuda", "src/repro_torch/kernels/csrc/symm_bf16.cu",
                   "src/repro/kernels/symm.py:38"),
@@ -2333,9 +2340,11 @@ def _device_profile(torch, fn, label=None, kernel=GEMM_KERNEL) -> dict:
 def _linear_host_us(torch, model, cfg, rt) -> tuple[str, dict]:
     """The first linear of the first layer (an attention block's ``wq``,
     Mamba2's ``in_proj``, RWKV6's ``wr``) and the host's µs per call of it
-    at a decode step, ``(4, 1, d_in) @ w``, three ways: the routed linear
+    at a decode step, ``(4, 1, d_in) @ w``, four ways: the routed linear
     (``run_op``: decision, backend, wrapper, launch), the GEMM wrapper
-    alone under the same knob, and ``torch.matmul``.  Host clock over
+    alone under the same knob, float32 and on bf16 copies of the operands
+    (phase 6g's wrapper, whose launcher encodes two TMA tensor maps a
+    call), and ``torch.matmul``.  Host clock over
     :data:`MODEL_HOST_CALLS` calls issued back to back, too few to fill
     the launch queue, after one call each."""
     from repro_torch.kernels import gemm as G
@@ -2349,10 +2358,13 @@ def _linear_host_us(torch, model, cfg, rt) -> tuple[str, dict]:
     kd = rt.peek("gemm", ops.dims_of("gemm", (tuple(x.shape),
                                               tuple(w.shape))),
                  4, "hopper").dict
+    xb, wb = x.bfloat16(), w.bfloat16()
     out = {}
     for how, fn in (("routed linear", lambda: routed_matmul(x, w, ctx)),
                     ("gemm wrapper", lambda: G.gemm(
                         x, w, bm=kd["bm"], bk=kd["bk"], bn=kd["bn"])),
+                    ("bf16 gemm wrapper", lambda: G.gemm(
+                        xb, wb, bm=kd["bm"], bk=kd["bk"], bn=kd["bn"])),
                     ("torch.matmul", lambda: torch.matmul(x, w))):
         fn()
         torch.cuda.synchronize()
@@ -2361,6 +2373,7 @@ def _linear_host_us(torch, model, cfg, rt) -> tuple[str, dict]:
             fn()
         out[how] = 1e6 * (time.perf_counter() - t0) / MODEL_HOST_CALLS
         torch.cuda.synchronize()
+    del xb, wb
     return f"layers.0.{name} ({MODEL_REQUESTS},1,{w.shape[0]}) @ " \
         f"{tuple(w.shape)}", out
 
@@ -4352,7 +4365,10 @@ def check_build() -> None:
                         ("rank_k_packed", len(K.TILES)),
                         ("trmm", len(TM.TILES)),
                         ("trmm_packed", len(TM.TILES)),
-                        ("trsm", trsm_count), ("gemm_bf16", len(G.TILES)),
+                        ("trsm", trsm_count),
+                        *((src, sum(G.bf16_source(bn)[0] == src
+                                    for _, _, bn in G.TILES))
+                          for src in ("gemm_bf16", "gemm_bf16_n256")),
                         ("symm_bf16", len(S.TILES)),
                         ("trmm_bf16", len(TM.TILES)),
                         ("trmm_packed_bf16", len(TM.TILES)),
@@ -4422,15 +4438,17 @@ def check_build() -> None:
             raise SystemExit(f"[build:gemm] split at {(m, k, n)} tile "
                              f"{bm}x{bn}: C {(out[0], out[1])}, Python "
                              f"{G.split_plan(m, n, k, bm, bn)}")
-    # the bf16 GEMM: its parameters (and warp grid) and its split plan
+    # the bf16 GEMM: its wgmma loop's parameters (warpgroups and A's
+    # swizzle too), from the source of each tile, and its split plan
     bf16 = _build.load("gemm_bf16")
     out6 = (ctypes.c_int * 6)()
     for bm, bk, bn in sorted(G.TILES):
         p = G.mainloop_params(bm, bk, bn, torch.bfloat16)
         want = [p["threads"], p["stages"], p["smem"], p["passes"],
-                *p["warps"]]
-        if bf16.repro_gemm_bf16_config(bm, bk, bn, out6) != 0 \
-                or list(out6) != want:
+                p["warpgroups"], p["swizzle"]]
+        source, symbol = G.bf16_source(bn)
+        config = getattr(_build.load(source), f"{symbol}_config")
+        if config(bm, bk, bn, out6) != 0 or list(out6) != want:
             raise SystemExit(f"[build:gemm_bf16] tile {(bm, bk, bn)}: built "
                              f"with {list(out6)}, mainloop_params {want}")
     bf16_dims = [*dims, *((e, m, k) for e, m, k, _ in BF16_EXPERT_STACKS)]
@@ -4441,21 +4459,26 @@ def check_build() -> None:
             raise SystemExit(f"[build:gemm_bf16] split at {(m, k, n)} tile "
                              f"{bm}x{bn}: C {(out[0], out[1])}, Python "
                              f"{G.split_plan(m, n, k, bm, bn)}")
-    # the bf16 symm and trmm kernels: the mainloop's parameters at bk 64
-    # (a stage's A region holds symm's transposed tile too)
+    # the bf16 symm and trmm kernels at bk 64: symm's wgmma loop (a
+    # stage's A region holds either layout), trmm's mma.sync loop
     bf16_2d = 0
     for name, tiles in (("symm_bf16", S.TILES), ("trmm_bf16", TM.TILES),
                         ("trmm_packed_bf16", TM.TILES)):
         config = getattr(_build.load(name), f"repro_{name}_config")
         for bm, bn in sorted(tiles):
-            p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
+            if name == "symm_bf16":
+                p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
+                want = [p["warpgroups"], p["swizzle"]]
+            else:
+                p = G.mma_sync_params(bm, 64, bn)
+                want = list(p["warps"])
             want = [p["threads"], p["stages"], p["smem"], p["passes"],
-                    *p["warps"]]
+                    *want]
             bf16_2d += 1
             if config(bm, bn, out6) != 0 or list(out6) != want:
                 raise SystemExit(f"[build:{name}] tile {(bm, 64, bn)}: "
-                                 f"built with {list(out6)}, mainloop_params "
-                                 f"{want}")
+                                 f"built with {list(out6)}, its Python "
+                                 f"mirror {want}")
     # the bf16 rank-k kernels: B staged as rows, the rounded tile parked
     for name in ("rank_k_bf16", "rank_k_packed_bf16"):
         config = getattr(_build.load(name), f"repro_{name}_config")
@@ -4564,11 +4587,13 @@ def _bf16_accumulated(torch, a, b):
 
 def check_gemm_bf16(torch, rand) -> None:
     """The bf16 GEMM under every tile against ``gemm_plain`` on the same
-    bf16 operands, held to :data:`BF16_TOL`: ragged, aligned and decode
-    (split-k) shapes, ``alpha``/``beta`` with C, stacks with per-item and
-    shared B and deepseek's expert stacks, each launch's recorded grid
-    equal to ``full_grid_for``; stacked == per-item, odd-stride operands ==
-    aligned copies and ``run_op`` == the padded run bit for bit; the bf16
+    bf16 operands, held to :data:`BF16_TOL` of the largest output and each
+    element within one bf16 ulp of plain's beside the float32 slack
+    (:func:`_bf16_excess` at most 1): ragged, aligned and decode (split-k)
+    shapes, ``alpha``/``beta`` with C, stacks with per-item and shared B
+    and deepseek's expert stacks, each launch's recorded grid equal to
+    ``full_grid_for``; stacked == per-item, odd-stride operands == aligned
+    copies and ``run_op`` == the padded run bit for bit; the bf16
     accumulator's reading above the limit."""
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import introspect as I
@@ -4580,6 +4605,7 @@ def check_gemm_bf16(torch, rand) -> None:
 
     space = ops.knob_space_for("gemm")
     worst, worst_abs, checks, control = 0.0, 0.0, 0, math.inf
+    excess = 0.0
     cases = []
     for m, k, n in KERNEL_DIMS:
         a, b, c = brand(m, k), brand(k, n), brand(m, n)
@@ -4597,6 +4623,8 @@ def check_gemm_bf16(torch, rand) -> None:
                          f"passes the limit ({control:.3e})")
     for (x, y, z), alpha, beta in cases:
         plain = G.gemm_plain(x, y, z, alpha=alpha, beta=beta)
+        slack = _bf16_slack("gemm", [x, y, *([] if z is None else [z])],
+                            alpha, beta)
         (m, k), n = x.shape[-2:], y.shape[-1]
         batch = x.shape[0] if x.dim() == 3 else 1
         # every item of a stack of STACK, three of an expert stack
@@ -4613,14 +4641,17 @@ def check_gemm_bf16(torch, rand) -> None:
                                  f"{tuple(x.shape)}: launched {launched}, "
                                  f"formula {grid}, dtype {got.dtype}")
             err = _rel_err(got, plain)
+            each = _bf16_excess(got, plain, slack)
             worst = max(worst, err)
+            excess = max(excess, each)
             worst_abs = max(worst_abs,
                             (got.float() - plain.float()).abs().max().item())
             checks += 1
-            if not err <= BF16_TOL:
+            if not (err <= BF16_TOL and each <= 1.0):
                 raise SystemExit(f"[kernel:gemm_bf16] {tile} "
                                  f"{tuple(x.shape)}@{tuple(y.shape)}: rel "
-                                 f"err {err:.3e} vs plain")
+                                 f"err {err:.3e}, elementwise excess "
+                                 f"{each:.4f} vs plain")
             for i in items:
                 one = G.gemm(x[i], y[i] if y.dim() == 3 else y,
                              None if z is None else z[i], alpha=alpha,
@@ -4670,8 +4701,9 @@ def check_gemm_bf16(torch, rand) -> None:
     torch.cuda.synchronize()
     print(f"[kernel:gemm_bf16] {checks} checks over {len(space)} tiles: max "
           f"|got - plain| / max |plain| {worst:.3e} (<= BF16_TOL "
-          f"{BF16_TOL:.3e}, one bf16 ulp), max abs err vs plain "
-          f"{worst_abs:.3e}; deepseek expert stacks {BF16_EXPERT_STACKS} "
+          f"{BF16_TOL:.3e}, one bf16 ulp), max elementwise |got - plain| / "
+          f"(BF16_TOL |plain| + slack) {excess:.4f} (<= 1), max abs err vs "
+          f"plain {worst_abs:.3e}; deepseek expert stacks {BF16_EXPERT_STACKS} "
           f"included; recorded grids == full_grid_for; stacked == per-item, "
           f"odd strides == aligned at {UNALIGNED_DIMS} and run_op == padded "
           f"run at {CONTRACT_DIMS['gemm']} (no copy op) bit for bit; a bf16 "
@@ -4712,7 +4744,9 @@ def _bf16_plain(op: str, x, y, z=None, alpha=0.5, beta=2.0):
 def check_symm_trmm_bf16(torch, rand) -> None:
     """The bf16 symm and trmm kernels under every knob of their spaces
     against ``symm_plain``/``trmm_plain`` on the same bf16 operands, held
-    to :data:`BF16_TOL`: the (k, n) of :data:`KERNEL_DIMS` as (m, n) and
+    to :data:`BF16_TOL` of the largest output and each element within one
+    bf16 ulp of plain's beside the float32 slack (:func:`_bf16_excess` at
+    most 1): the (k, n) of :data:`KERNEL_DIMS` as (m, n) and
     :data:`TRMM_PATH_DIMS`, symm with and without C, stacks of
     :data:`STACK`, each launch's recorded grid equal to its formula.  Bit
     for bit: stacked == per-item, trmm's ``tri_packed`` == ``tri``, odd
@@ -4735,6 +4769,7 @@ def check_symm_trmm_bf16(torch, rand) -> None:
     dims_list = sorted({*((k, n) for _m, k, n in KERNEL_DIMS),
                         *TRMM_PATH_DIMS})
     checks, worst, worst_abs = 0, {}, 0.0
+    excess = {}
     control = {}
     full_tri = [0.0, True]
     for m, n in dims_list:
@@ -4753,6 +4788,9 @@ def check_symm_trmm_bf16(torch, rand) -> None:
                 cases.append(((a, b, c), 0.5, 2.0))
             for (x, y, z), alpha, beta in cases:
                 plain = _bf16_plain(op, x, y, z, alpha, beta)
+                slack = (_bf16_slack(op, [x, y, *([] if z is None else [z])],
+                                     alpha, beta) if op == "symm" else
+                         _bf16_slack(op, [x, y], alpha))
                 tri = {}
                 for knob in ops.knob_space_for(op):
                     kd = knob.dict
@@ -4765,13 +4803,16 @@ def check_symm_trmm_bf16(torch, rand) -> None:
                                          f"{launched}, formula {want}, dtype "
                                          f"{got.dtype}")
                     err = _rel_err(got, plain)
+                    each = _bf16_excess(got, plain, slack)
                     worst[op] = max(worst.get(op, 0.0), err)
+                    excess[op] = max(excess.get(op, 0.0), each)
                     worst_abs = max(worst_abs, (got.float() - plain.float())
                                     .abs().max().item())
-                    if not err <= BF16_TOL:
+                    if not (err <= BF16_TOL and each <= 1.0):
                         raise SystemExit(f"[kernel:{op}_bf16] {kd} "
                                          f"{tuple(x.shape)}@{tuple(y.shape)}"
-                                         f": rel err {err:.3e} vs plain")
+                                         f": rel err {err:.3e}, elementwise "
+                                         f"excess {each:.4f} vs plain")
                     if x.dim() == 3:
                         for i in range(STACK):
                             one = _bf16_2d_call(op, kd, x[i], y[i],
@@ -4867,8 +4908,10 @@ def check_symm_trmm_bf16(torch, rand) -> None:
           f"{len(TM.TILES)} trmm tiles x {len(TM.VARIANTS)} variants at "
           f"{dims_list} (single, symm with C, stack of {STACK}): max |got - "
           f"plain| / max |plain| symm {worst['symm']:.3e}, trmm "
-          f"{worst['trmm']:.3e} (<= BF16_TOL {BF16_TOL:.3e}), max abs err "
-          f"vs plain {worst_abs:.3e}; recorded grids == formulas; stacked "
+          f"{worst['trmm']:.3e} (<= BF16_TOL {BF16_TOL:.3e}); max "
+          f"elementwise |got - plain| / (BF16_TOL |plain| + slack) symm "
+          f"{excess['symm']:.4f}, trmm {excess['trmm']:.4f} (<= 1); max abs "
+          f"err vs plain {worst_abs:.3e}; recorded grids == formulas; stacked "
           f"== per-item, tri_packed == tri, odd strides == aligned and NaN "
           f"above A's diagonal == zeros at {path_dims} and run_op == padded "
           f"run (no copy op) bit for bit; trmm full vs tri (a reading): max "
@@ -6062,19 +6105,22 @@ def time_trsm_kernels(torch, card: str, row: dict, sets, library_ms: float,
 
 
 def host_cost(torch, card: str) -> None:
-    """The time per call of the GEMM wrapper and of ``torch.matmul`` on a
-    product too small for the card to matter, (8,64)@(64,64): CUDA events
-    around 500 calls, so the host's work per call."""
+    """The time per call of the GEMM wrapper (float32 and bf16, whose C
+    launcher encodes two TMA tensor maps a call) and of ``torch.matmul``
+    on a product too small for the card to matter, (8,64)@(64,64): CUDA
+    events around 500 calls, so the host's work per call."""
     from repro_torch.kernels import gemm as G
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     x = torch.randn(8, 64, generator=gen, device="cuda")
     y = torch.randn(64, 64, generator=gen, device="cuda")
-    wrapper = _time_ms(torch, lambda a, b: G.gemm(a, b, bm=64, bk=16, bn=64),
-                       [(x, y)], iters=500)
+    wrapper, bf16 = (
+        _time_ms(torch, lambda a, b: G.gemm(a, b, bm=64, bk=16, bn=64),
+                 [ops], iters=500)
+        for ops in ((x, y), (x.bfloat16(), y.bfloat16())))
     library = _time_ms(torch, torch.matmul, [(x, y)], iters=500)
     print(f"[host] [{card}] per call at (8,64)@(64,64): gemm wrapper "
-          f"{1e3 * wrapper:.2f} us, torch.matmul {1e3 * library:.2f} us",
-          flush=True)
+          f"{1e3 * wrapper:.2f} us, bf16 gemm wrapper {1e3 * bf16:.2f} us, "
+          f"torch.matmul {1e3 * library:.2f} us", flush=True)
 
 
 def _rate(op: str, shapes, kw, kd, ms: float, bound_ms: float,
@@ -6145,14 +6191,24 @@ def main(argv: list[str]) -> int:
 
     # 2. build every kernel source, all nvcc runs started together
     t0 = time.perf_counter()
+
+    def timed_build(name):
+        t = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t
+
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        for name, _ in zip(KERNEL_SOURCES,
-                           pool.map(_build.build, KERNEL_SOURCES)):
-            for line in _build.ptxas_report(name).splitlines():
-                if "registers" in line or "spill" in line \
-                        or "Compiling entry" in line:
-                    print(f"[build:{name}] {line.strip()}")
-    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        seconds = dict(zip(KERNEL_SOURCES,
+                           pool.map(timed_build, KERNEL_SOURCES)))
+    for name in KERNEL_SOURCES:
+        for line in _build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
+                print(f"[build:{name}] {line.strip()}")
+    print(f"[build] {time.perf_counter() - t0:.1f} s; each source's nvcc "
+          f"(s, started together): " + ", ".join(
+              f"{name} {sec:.1f}" for name, sec in
+              sorted(seconds.items(), key=lambda kv: -kv[1])), flush=True)
     check_build()
 
     # 3. every kernel against a float64 oracle and its plain version

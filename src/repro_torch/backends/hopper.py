@@ -32,15 +32,18 @@ class HopperBackend(Backend):
         return knob_space_for(op, sizes=tuple(sizes) if sizes else None)
 
     def supports_dtype(self, dtype) -> bool:
-        """float32 only (the reference's Pallas backend reports float64
-        unsupported).  Every op also takes bfloat16 (``csrc/{gemm,symm,
-        rank_k,rank_k_packed,trmm,trmm_packed,trsm}_bf16.cu``), but no
-        install calibrates at 2 bytes yet, so bfloat16 stays unreported
-        here and a bf16 call takes the default knob; calibration and
-        conformance ask only for what this reports."""
+        """float32 and bfloat16, as the reference's Pallas backend reports
+        them (it takes every dtype narrower than 8 bytes and reports
+        float64 unsupported): every op has a bfloat16 kernel
+        (``csrc/{gemm,symm,rank_k,rank_k_packed,trmm,trmm_packed,trsm}_
+        bf16.cu``).  float16 stays unreported until its kernels exist,
+        the one dtype on which the two differ.  Reporting bfloat16 asks
+        for no install at 2 bytes: calibration's precisions are ``s`` and
+        ``d`` (``launch/calibrate.py::PRECISIONS``), so a bf16 call takes
+        the default knob."""
         if isinstance(dtype, torch.dtype):
-            return dtype == torch.float32
-        return np.dtype(dtype) == np.float32
+            return dtype in (torch.float32, torch.bfloat16)
+        return np.dtype(dtype).name in ("float32", "bfloat16")
 
     def default_knob(self, op: str) -> Knob:
         from repro_torch.kernels.ops import default_knob

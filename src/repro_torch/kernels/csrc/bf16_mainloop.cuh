@@ -1,11 +1,11 @@
-// The bfloat16 mainloop on the tensor cores, beside the float32 one
-// (sgemm_mainloop.cuh): one block computes its BM x BN tile of float32
-// accumulators over a range of the contraction from bfloat16 A and B, with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate).  gemm_bf16.cu runs it; what
-// feeds the tiles is a producer, as in the float32 loop: symm_bf16.cu
-// stitches sym(A) from the stored triangle (a step above the diagonal
-// staged as stored and read transposed), and trmm_tile_bf16.cuh stages
-// tril(A) with a per-row column limit (load_tile's LOWER mode).
+// The bfloat16 mainloop on the tensor cores with mma.sync, beside the
+// float32 one (sgemm_mainloop.cuh): one block computes its BM x BN tile of
+// float32 accumulators over a range of the contraction from bfloat16 A and
+// B, with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The trmm, rank-k
+// and trsm kernels run it (gemm_bf16.cu and symm_bf16.cu run the wgmma
+// loop, bf16_wgmma_mainloop.cuh); what feeds the tiles is a producer, as
+// in the float32 loop: trmm_tile_bf16.cuh stages tril(A) with a per-row
+// column limit (load_tile's LOWER mode).
 //
 // Replaces, with the float32 loop, the reference package's Pallas dot
 // src/repro/kernels/gemm.py::_gemm_kernel (jnp.dot(...,
@@ -38,10 +38,10 @@
 // beyond 128 x 128 runs its passes one after the other in the same block.
 // A warp skips the m16 tiles whose rows all lie past m (the decode grids
 // of a few rows).  A producer may stage a step's A tile transposed, as
-// the (k, m) window it is stored in, [BK][PM + 8] (symm above the
-// diagonal): that step loads its A fragments with ldmatrix.x4.trans, which
-// hands each lane the same elements as ldmatrix.x4 of the row-major tile,
-// so a step's products do not depend on its layout.  A tile whose B_ROWS
+// the (k, m) window it is stored in, [BK][PM + 8]: that step loads its A
+// fragments with ldmatrix.x4.trans, which hands each lane the same
+// elements as ldmatrix.x4 of the row-major tile, so a step's products do
+// not depend on its layout.  A tile whose B_ROWS
 // is true stages B as rows, [PN][BK + 8] (the rank-k kernels, whose two
 // sides are both rows of a row-major (n, k) matrix): its B fragments come
 // from ldmatrix.x4 without .trans, the same elements mma's k-major B
@@ -56,8 +56,8 @@
 // Bound on an H100 SXM: 989 TFLOP/s of dense bf16 against 3.35 TB/s, so a
 // product with fewer than about 295 operations a byte (every decode GEMM
 // and the thin prefill ones) is bound by its bytes.  mma.sync reaches only
-// a part of the tensor cores' rate; wgmma, TMA and a swizzled layout are
-// later work.
+// a part of the tensor cores' rate; bf16_wgmma_mainloop.cuh is the wgmma
+// and TMA loop these kernels may move to.
 
 #pragma once
 
@@ -158,25 +158,6 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* p,
     }
   }
 }
-
-// The row-major producer: the PM x BK window of A at (prow0, k0) and the
-// BK x PN window of B at (k0, pcol0), A (m, k) and B (k, n) both row-major
-// with leading strides lda and ldb, zero past their edges.
-template <class T>
-struct GemmProducer {
-  const bf16* A;
-  const bf16* B;
-  long long lda, ldb;
-  int m, n, k, prow0, pcol0;
-  bool vec;
-  __device__ void load(bf16* As, bf16* Bs, int k0) const {
-    load_tile<T::PM, T::BK, T::THREADS, T::LDA>(As, A, lda, m, k, prow0, k0,
-                                                vec);
-    load_tile<T::BK, T::PN, T::THREADS, T::LDB>(Bs, B, ldb, k, n, k0, pcol0,
-                                                vec);
-  }
-  __device__ bool transposed(int) const { return false; }
-};
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile(

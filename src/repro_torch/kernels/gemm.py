@@ -1,6 +1,7 @@
 """GEMM on the H100: ``O = alpha * A @ B + beta * C`` with CUDA C++ kernels
 written for Hopper, tiled by the knob ``(bm, bk, bn)``: ``csrc/gemm.cu`` for
-float32 operands, ``csrc/gemm_bf16.cu`` (the tensor cores) for bfloat16.
+float32 operands, ``csrc/gemm_bf16.cu`` (the tensor cores: wgmma fed by
+TMA) for bfloat16.
 
 It takes the place of the reference package's Pallas kernel
 (``src/repro/kernels/gemm.py::gemm_pallas``) with the same semantics:
@@ -24,8 +25,9 @@ A grid of fewer output tiles than the card has SMs splits the contraction
 (:func:`split_plan`, mirrored by the kernel): each slice sums its part into
 a per-call workspace and the last slice of a tile adds them in slice order,
 inside the same launch.  :func:`mainloop_params` gives the launch
-parameters ``csrc/sgemm_mainloop.cuh`` and ``csrc/bf16_mainloop.cuh``
-derive from a tile.
+parameters ``csrc/sgemm_mainloop.cuh`` and ``csrc/bf16_wgmma_mainloop.cuh``
+derive from a tile (:func:`mma_sync_params` those of
+``csrc/bf16_mainloop.cuh``, the bf16 trmm, rank-k and trsm kernels').
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from . import _build
 from .introspect import launch_events, record_launch
 
 __all__ = ["gemm", "gemm_plain", "TILES", "KERNEL_OF", "split_plan",
-           "mainloop_params", "ring_stages", "vec_aligned", "HOPPER_SMS"]
+           "mainloop_params", "mma_sync_params", "bf16_source", "ring_stages",
+           "vec_aligned", "HOPPER_SMS"]
 
 #: the ``(bm, bk, bn)`` tiles ``csrc/gemm.cu`` is instantiated for
 TILES = frozenset(itertools.product(HOPPER_TILES_MN, HOPPER_TILES_K,
@@ -60,13 +63,19 @@ SPLIT_ALIGN = 128
 #: that two blocks share an SM where the tile allows
 SMEM_MAX = 232448
 RING_BUDGET = SMEM_MAX // 2
+#: shared memory of an H100 SM, which the blocks on it share
+SMEM_SM = 233472
 #: accumulators of one pass of the mainloop (256 threads x 8 x 8)
 MAX_PASS = 128 * 128
 #: the operand dtypes a GEMM kernel takes: dtype -> (kernel, C launcher)
 KERNEL_OF = {torch.float32: ("gemm", "repro_gemm_f32"),
              torch.bfloat16: ("gemm_bf16", "repro_gemm_bf16")}
-#: elements a row of the bf16 mainloop's shared tiles is padded by
+#: elements a row of the bf16 mma.sync mainloop's shared tiles is padded by
 BF16_PAD = 8
+#: the bf16 wgmma mainloop: the swizzle's repeat, which its stages are
+#: aligned to, and its deepest ring
+SWIZZLE_REPEAT = 1024
+WGMMA_MAX_STAGES = 16
 
 
 def split_plan(m: int, n: int, k: int, bm: int, bn: int) -> tuple[int, int]:
@@ -87,40 +96,87 @@ def split_plan(m: int, n: int, k: int, bm: int, bn: int) -> tuple[int, int]:
     return -(-k // length), length
 
 
+def bf16_source(bn: int) -> tuple[str, str]:
+    """The source under ``csrc/`` and the launcher symbol of the bf16 GEMM
+    kernel of a tile of width ``bn``: ``gemm_bf16_n256.cu`` holds the tiles
+    of ``bn`` = 256 and ``gemm_bf16.cu`` the others (with the split plan),
+    two sources that nvcc builds side by side.  Both launches record as
+    ``gemm_bf16``."""
+    if bn == 256:
+        return "gemm_bf16_n256", "repro_gemm_bf16_n256"
+    return "gemm_bf16", "repro_gemm_bf16"
+
+
 def ring_stages(stage_bytes: int) -> int:
     """Stages of a ``cp.async`` ring: as many of 4, 3 as fit in
     :data:`RING_BUDGET`, else 2 (``sgemm::ring_stages``)."""
     return next((s for s in (4, 3) if s * stage_bytes <= RING_BUDGET), 2)
 
 
+def mma_sync_params(bm: int, bk: int, bn: int) -> dict:
+    """The launch parameters ``csrc/bf16_mainloop.cuh`` (the ``mma.sync``
+    loop of the bf16 trmm, rank-k and trsm kernels) derives from the tile
+    ``(bm, bk, bn)`` (trmm: ``bk`` = 64): the pass (at most 128 x 128
+    accumulators; a larger tile runs its passes one after the other),
+    threads (128-256), the warp grid and a warp's tile (its A and B rows
+    padded by :data:`BF16_PAD` elements in shared memory; a stage's A region
+    holds either A layout, ``[pm][bk + 8]`` or a transposed ``[bk][pm +
+    8]``), the stages of the cp.async ring (as many of 2-4 as fit in
+    :data:`RING_BUDGET`, else 2) and the dynamic shared bytes."""
+    pm, pn = (bm, bn) if bm * bn <= MAX_PASS else (min(bm, 128), min(bn, 128))
+    threads = min(256, max(128, pm * pn // 64))
+    warps = threads // 32
+    warps_n = 4 if pn >= 128 and warps == 8 else 2
+    warps_m = warps // warps_n
+    a_elems = max(pm * (bk + BF16_PAD), bk * (pm + BF16_PAD))
+    stage = 2 * (a_elems + bk * (pn + BF16_PAD))
+    stages = ring_stages(stage)
+    return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
+            "threads": threads, "warps": (warps_m, warps_n),
+            "warp_tile": (pm // warps_m, pn // warps_n),
+            "stages": stages, "smem": stages * stage}
+
+
 def mainloop_params(bm: int, bk: int, bn: int,
                     dtype: torch.dtype = torch.float32) -> dict:
     """The launch parameters ``csrc/sgemm_mainloop.cuh`` (float32) or
-    ``csrc/bf16_mainloop.cuh`` (bfloat16) derives from the tile
-    ``(bm, bk, bn)`` (symm: ``bk`` = 64): the pass (at most 128 x 128
-    accumulators; a larger tile runs its passes one after the other),
-    threads (128-256), the register tile (float32) or the warp grid and a
-    warp's tile (bfloat16: its A and B rows padded by :data:`BF16_PAD`
-    elements in shared memory; a stage's A region holds either A layout,
-    ``[pm][bk + 8]`` or symm's transposed ``[bk][pm + 8]``), the stages of
-    the cp.async ring (as many of 2-4 as fit in :data:`RING_BUDGET`, else
-    2) and the dynamic shared bytes.  The bf16 symm and trmm kernels
-    (``bk`` = 64) run the same mainloop."""
+    ``csrc/bf16_wgmma_mainloop.cuh`` (bfloat16: the gemm and symm kernels;
+    symm at ``bk`` = 64) derives from the tile ``(bm, bk, bn)``.
+
+    float32: the pass (at most 128 x 128 accumulators; a larger tile runs
+    its passes one after the other), threads (128-256), the register tile,
+    the stages of the cp.async ring (as many of 2-4 as fit in
+    :data:`RING_BUDGET`, else 2) and the dynamic shared bytes.
+
+    bfloat16: the pass (at most 128 rows, and every column but in a tile
+    of more than 128 of both: ``bm`` = 256 runs passes of 128 rows, of 128
+    columns too at ``bn`` = 256), its warpgroups (one per 64 rows;
+    ``threads`` = 128 each, lanes of warp 0 issuing the TMA copies), the
+    blocks an SM is meant to hold (``512 // (warpgroups * (pn / 2 +
+    64))``, 1 to 4: each of an SM's four register partitions gives a warp
+    of each warpgroup 512 registers a thread, of which ``pn / 2`` hold
+    accumulators), A's swizzle (``2 bk`` bytes, its K-major rows), a stage
+    (A's ``pm x bk`` and B's ``bk x pn``, 2 bytes an element), the ring's
+    stages (as many as fit in ``1 / blocks`` of the SM's shared memory less
+    4 KB a block, 2 to :data:`WGMMA_MAX_STAGES`) and the dynamic shared
+    bytes (the ring, 16 bytes of barriers and counts a stage and 1024 to
+    align it)."""
     pm, pn = (bm, bn) if bm * bn <= MAX_PASS else (min(bm, 128), min(bn, 128))
-    threads = min(256, max(128, pm * pn // 64))
     if dtype == torch.bfloat16:
-        warps = threads // 32
-        warps_n = 4 if pn >= 128 and warps == 8 else 2
-        warps_m = warps // warps_n
-        a_elems = max(pm * (bk + BF16_PAD), bk * (pm + BF16_PAD))
-        stage = 2 * (a_elems + bk * (pn + BF16_PAD))
-        stages = ring_stages(stage)
+        pm = min(bm, 128)
+        pn = 128 if bm > 128 and bn > 128 else bn
+        warpgroups = pm // 64
+        blocks = max(1, min(4, 512 // (warpgroups * (pn // 2 + 64))))
+        stage = 2 * bk * (pm + pn)
+        budget = SMEM_SM // blocks - 4 * SWIZZLE_REPEAT
+        stages = max(2, min(WGMMA_MAX_STAGES, budget // stage))
         return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
-                "threads": threads, "warps": (warps_m, warps_n),
-                "warp_tile": (pm // warps_m, pn // warps_n),
-                "stages": stages, "smem": stages * stage}
+                "threads": 128 * warpgroups, "warpgroups": warpgroups,
+                "blocks": blocks, "swizzle": 2 * bk, "stages": stages,
+                "smem": SWIZZLE_REPEAT + stages * (stage + 16)}
     if dtype != torch.float32:
         raise TypeError(f"no GEMM mainloop for {dtype}")
+    threads = min(256, max(128, pm * pn // 64))
     stage = 4 * bk * (pm + pn)
     stages = ring_stages(stage)
     return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
@@ -206,7 +262,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
     operands), else into a new tensor.
 
     On CUDA tensors this launches the kernel of the operands' dtype
-    (``csrc/gemm.cu`` for float32, ``csrc/gemm_bf16.cu`` for bfloat16) on
+    (``csrc/gemm.cu`` for float32, ``csrc/gemm_bf16.cuh`` for bfloat16,
+    built from the source :func:`bf16_source` names) on
     the current stream (no synchronisation) and raises if the launch is
     refused; on CPU tensors it returns :func:`gemm_plain`."""
     m, k, n, batch = _check(a, b, c, bm, bk, bn)
@@ -247,7 +304,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
             tickets_ptr = ws_ptr + 4 * n_ws
         stream = torch.cuda.current_stream().cuda_stream
         kernel, symbol = KERNEL_OF[a.dtype]
-        launch = _build.launcher(kernel, _ARGTYPES, symbol=symbol)
+        source = kernel
+        if a.dtype == torch.bfloat16:
+            source, symbol = bf16_source(bn)
+        launch = _build.launcher(source, _ARGTYPES, symbol=symbol)
         events = launch_events()
         rc = launch(
             bm, bk, bn, a.data_ptr(), b.data_ptr(),

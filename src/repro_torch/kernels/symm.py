@@ -2,8 +2,8 @@
 its lower triangle, CUDA C++ kernels written for Hopper, tiled by the
 knob's ``bm x bn`` output tile: ``csrc/symm.cu`` (on the GEMM's mainloop
 ``csrc/sgemm_mainloop.cuh``) for float32 operands, ``csrc/symm_bf16.cu``
-(on the bf16 GEMM's tensor-core mainloop ``csrc/bf16_mainloop.cuh``) for
-bfloat16.
+(on the bf16 GEMM's wgmma and TMA mainloop ``csrc/bf16_wgmma_mainloop.cuh``)
+for bfloat16.
 
 It takes the place of the reference package's Pallas kernel
 (``src/repro/kernels/symm.py::symm_pallas``) with the same semantics:

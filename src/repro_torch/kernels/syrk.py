@@ -57,7 +57,8 @@ import torch
 from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
 
 from . import _build
-from .gemm import BF16_PAD, mainloop_params, ring_stages, vec_aligned
+from .gemm import (BF16_PAD, mainloop_params, mma_sync_params, ring_stages,
+                   vec_aligned)
 from .introspect import launch_events, record_launch
 from .ref import sym_lower
 
@@ -102,19 +103,21 @@ def rank_k_params(bm: int, bk: int,
     ``csrc/rank_k_tile_bf16.cuh`` (bfloat16) derives from the tile
     ``(bm, bk)``: the mainloop's ``bm x bm`` tile with contraction step
     ``bk`` (:func:`~repro_torch.kernels.gemm.mainloop_params`: threads,
-    register tile or warp grid, one pass), but a stage of its A side and
+    register tile, one pass; bf16 :func:`~repro_torch.kernels.gemm.
+    mma_sync_params`: threads, warp grid, one pass), but a stage of its A side and
     its B side staged as rows (float32: ``bm x bk`` and ``bm x (bk + 4)``
     floats; bf16: ``bm x (bk + 8)`` elements each), as many stages of 2-4
     as fit in the ring budget, and the epilogue's parked tile, which reuses
     the ring (float32 ``bm x (bm + 1)`` floats; bf16 ``bm x (bm + 2)``
     elements, rounded; the shared bytes are the larger of ring and park)."""
-    p = mainloop_params(bm, bk, bm, dtype)
     if dtype == torch.bfloat16:
+        p = mma_sync_params(bm, bk, bm)
         stage = 2 * 2 * bm * (bk + BF16_PAD)
         stages = ring_stages(stage)
         park = 2 * bm * (bm + 2)
         p.update(stages=stages, smem=max(stages * stage, park), park=park)
         return p
+    p = mainloop_params(bm, bk, bm, dtype)
     stage = 4 * bm * (2 * bk + 4)
     stages = ring_stages(stage)
     p.update(stages=stages, smem=stages * stage, park=4 * bm * (bm + 1))

@@ -99,14 +99,17 @@ def trsm_params(bm: int, bn: int, dtype: torch.dtype = torch.float32) -> dict:
     """The launch parameters ``csrc/trsm.cu`` (float32) or
     ``csrc/trsm_bf16.cu`` (bfloat16) derives from the tile: the
     substitution's (the mainloop's of ``dtype`` at ``(bm, 64, bn)``,
-    :func:`~repro_torch.kernels.gemm.mainloop_params`; bf16 adds its warp
+    :func:`~repro_torch.kernels.gemm.mainloop_params`; bf16 the mma.sync
+    loop's, :func:`~repro_torch.kernels.gemm.mma_sync_params`, with its warp
     grid), the inverse kernel's threads and dynamic shared bytes (its x
     columns and two groups' rows of D, float32 for both dtypes), and the
     workspace bytes of one diagonal block's inverse, in ``dtype`` (a call
     holds ``batch * ceil(m / bm)`` of them)."""
     if dtype not in KERNEL_OF:
         raise TypeError(f"no TRSM kernels for {dtype}")
-    p = _gemm.mainloop_params(bm, HOPPER_CONTRACTION_STEP, bn, dtype)
+    p = (_gemm.mma_sync_params(bm, HOPPER_CONTRACTION_STEP, bn)
+         if dtype == torch.bfloat16 else
+         _gemm.mainloop_params(bm, HOPPER_CONTRACTION_STEP, bn, dtype))
     return {**p, "inv_threads": INV_COLS,
             "inv_smem": 4 * bm * (INV_COLS + 2 * INV_ROWS),
             "block_workspace": dtype.itemsize * bm * bm}

@@ -137,18 +137,43 @@ def test_vec_aligned_counts_bytes():
 
 
 def test_bf16_mainloop_params_fit_the_card():
-    """Every tile's bf16 ring fits the shared memory a block may use, its
-    warps cover the pass, and its warp tile is made of m16n8 tiles in
-    pairs of n8 (the mirror of ``csrc/bf16_mainloop.cuh``)."""
+    """Every tile's bf16 ring fits the shared memory of the blocks an SM is
+    meant to hold, with at least 2 stages, one warpgroup per 64 rows of a
+    pass of at most 128 rows and every column but in 256x256 (wgmma's
+    m64nNk16, N <= 256), the accumulators and 64 more registers a thread
+    within a register partition, and A's rows swizzled over their 2 bk
+    bytes (the mirror of ``csrc/bf16_wgmma_mainloop.cuh``)."""
     for bm, bk, bn in sorted(G.TILES):
         p = G.mainloop_params(bm, bk, bn, torch.bfloat16)
         pm, pn = p["pass"]
-        wm, wn = p["warps"]
-        tm, tn = p["warp_tile"]
-        assert wm * wn * 32 == p["threads"] and (wm * tm, wn * tn) == (pm, pn)
-        assert tm % 16 == 0 and tn % 16 == 0
-        assert 2 <= p["stages"] <= 4 and p["smem"] <= G.SMEM_MAX
-        assert p["passes"] == G.mainloop_params(bm, bk, bn)["passes"]
+        assert pm == min(bm, 128) and pn <= 256 and pn % 64 == 0
+        assert pn == (128 if (bm, bn) == (256, 256) else bn)
+        assert p["passes"] * pm * pn == bm * bn
+        assert p["warpgroups"] == pm // 64 in (1, 2)
+        assert p["threads"] == 128 * p["warpgroups"]
+        assert 1 <= p["blocks"] <= 4
+        assert p["blocks"] * p["warpgroups"] * (pn // 2 + 64) <= 512
+        assert p["swizzle"] == 2 * bk in (32, 64, 128)
+        stage = 2 * bk * (pm + pn)
+        assert stage % G.SWIZZLE_REPEAT == 0
+        assert 2 <= p["stages"] <= G.WGMMA_MAX_STAGES
+        # a group of 64 contraction indices in flight beside the next
+        assert p["stages"] >= 2 * (64 // bk)
+        assert p["smem"] == G.SWIZZLE_REPEAT + p["stages"] * (stage + 16)
+        # the blocks fit the SM with 2 KB more each (static shared memory
+        # and the card's reserve), and one block fits a block's limit
+        assert p["blocks"] * (p["smem"] + 2048) <= G.SMEM_SM
+        assert p["smem"] + 1024 <= G.SMEM_MAX
+        # as deep as the budget allows
+        budget = G.SMEM_SM // p["blocks"] - 4 * G.SWIZZLE_REPEAT
+        assert p["stages"] == G.WGMMA_MAX_STAGES \
+            or (p["stages"] + 1) * stage > budget
+    # the default tile: four blocks an SM, each a ring of 13 stages of 4 KB
+    p = G.mainloop_params(64, 16, 64, torch.bfloat16)
+    assert (p["blocks"], p["stages"], p["smem"]) == (4, 13, 54480)
+    # the mma.sync loop of the bf16 trmm, rank-k and trsm kernels keeps its
+    # own derivation
+    assert G.mma_sync_params(64, 64, 64)["warps"] == (2, 2)
 
 
 # ---------------------------------------------------------------------------

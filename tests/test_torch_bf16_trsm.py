@@ -280,14 +280,14 @@ def test_service_keeps_bf16_and_float32_trsm_apart():
 
 @pytest.mark.parametrize("tile", sorted(T.TILES), ids=lambda t: "%dx%d" % t)
 def test_trsm_bf16_launch_params_fit_the_card(tile):
-    """The bf16 substitution runs the bf16 mainloop of the ``(bm, 64, bn)``
-    tile, its inverse kernel the float32 one's threads and shared bytes,
+    """The bf16 substitution runs the bf16 mma.sync mainloop of the
+    ``(bm, 64, bn)`` tile, its inverse kernel the float32 one's threads and shared bytes,
     and a diagonal block's inverse takes 2 bytes an entry; the float32
     parameters are unchanged."""
     bm, bn = tile
     p = T.trsm_params(bm, bn, torch.bfloat16)
-    assert {k: p[k] for k in G.mainloop_params(bm, 64, bn, torch.bfloat16)} \
-        == G.mainloop_params(bm, 64, bn, torch.bfloat16)
+    assert {k: p[k] for k in G.mma_sync_params(bm, 64, bn)} \
+        == G.mma_sync_params(bm, 64, bn)
     assert p["smem"] <= G.SMEM_MAX and 128 <= p["threads"] <= 256
     assert p["inv_threads"] == T.INV_COLS
     assert p["inv_smem"] == 4 * bm * (T.INV_COLS + 2 * T.INV_ROWS)

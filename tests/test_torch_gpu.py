@@ -1144,18 +1144,23 @@ def test_bf16_masked_equals_padded_bitwise():
 
 @pytest.mark.gpu
 def test_bf16_kernel_is_built_with_its_python_mirror():
-    """The launch parameters compiled into gemm_bf16.cu and its split plan
-    equal ``mainloop_params(..., torch.bfloat16)`` and ``split_plan``."""
+    """The launch parameters compiled into gemm_bf16.cu and
+    gemm_bf16_n256.cu, each tile from its source (threads, stages, shared
+    bytes, passes, warpgroups, swizzle), and the split plan equal
+    ``mainloop_params(..., torch.bfloat16)`` and ``split_plan``."""
     _need_card()
     import ctypes
     from repro_torch.kernels import _build
     lib = _build.load("gemm_bf16")
     out = (ctypes.c_int * 6)()
     for bm, bk, bn in sorted(G.TILES):
-        assert lib.repro_gemm_bf16_config(bm, bk, bn, out) == 0
+        source, symbol = G.bf16_source(bn)
+        config = getattr(_build.load(source), f"{symbol}_config")
+        assert config(bm, bk, bn, out) == 0
         p = G.mainloop_params(bm, bk, bn, torch.bfloat16)
         assert list(out) == [p["threads"], p["stages"], p["smem"],
-                             p["passes"], *p["warps"]], (bm, bk, bn)
+                             p["passes"], p["warpgroups"], p["swizzle"]], \
+            (bm, bk, bn)
         for m, k, n in (*BF16_DIMS, (4, 4096, 14336), (256, 2048, 1408)):
             lib.repro_gemm_bf16_split(m, n, k, bm, bn, out)
             assert (out[0], out[1]) == G.split_plan(m, n, k, bm, bn)
@@ -1192,9 +1197,10 @@ def test_bf16_symm_trmm_kernels_hold_phase_3s_checks():
 
 @pytest.mark.gpu
 def test_bf16_symm_trmm_are_built_with_their_python_mirror():
-    """The launch parameters compiled into symm_bf16.cu, trmm_bf16.cu and
-    trmm_packed_bf16.cu equal ``mainloop_params(bm, 64, bn,
-    torch.bfloat16)``."""
+    """The launch parameters compiled into symm_bf16.cu equal
+    ``mainloop_params(bm, 64, bn, torch.bfloat16)`` (the wgmma loop's),
+    those of trmm_bf16.cu and trmm_packed_bf16.cu ``mma_sync_params(bm,
+    64, bn)``."""
     _need_card()
     import ctypes
     from repro_torch.kernels import _build
@@ -1206,9 +1212,14 @@ def test_bf16_symm_trmm_are_built_with_their_python_mirror():
         config = getattr(_build.load(name), f"repro_{name}_config")
         for bm, bn in sorted(tiles):
             assert config(bm, bn, out) == 0, (name, bm, bn)
-            p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
+            if name == "symm_bf16":
+                p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
+                want = [p["warpgroups"], p["swizzle"]]
+            else:
+                p = G.mma_sync_params(bm, 64, bn)
+                want = list(p["warps"])
             assert list(out) == [p["threads"], p["stages"], p["smem"],
-                                 p["passes"], *p["warps"]], (name, bm, bn)
+                                 p["passes"], *want], (name, bm, bn)
 
 
 # -- the bf16 SYRK and SYR2K (csrc/rank_k_bf16.cu, csrc/rank_k_packed_bf16.cu,

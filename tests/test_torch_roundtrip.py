@@ -108,15 +108,37 @@ def test_backend_binding_and_dtypes():
     assert be.supports_dtype(torch.float32)
     assert be.supports_dtype(np.float32)
     assert not be.supports_dtype(torch.float64)
-    # the GEMM takes bf16 (kernels/gemm.py), the other five ops do not yet:
-    # the backend reports bf16 once every op does
-    assert not be.supports_dtype(torch.bfloat16)
+    # every op takes bf16 (kernels/csrc/*_bf16.cu), and the backend says so
+    assert be.supports_dtype(torch.bfloat16)
+    assert not be.supports_dtype(torch.float16)
     assert be.ops() == ("gemm", "symm", "syrk", "syr2k", "trmm", "trsm")
     with pytest.raises(ValueError, match="float64"):
         calibrate.calibrate_one("gemm", "d", None, backend="hopper",
                                 samples=2, dim_lo=8, dim_hi=16,
                                 footprint_mb=1, sizes=None, tune_trials=1,
                                 seed=0, device="cpu")
+
+
+def test_supports_dtype_matches_the_reference_pallas_backend():
+    """The hopper backend reports float32, bfloat16 and float64 as the
+    reference's Pallas backend does (bfloat16 and float32 taken, float64
+    not under JAX's default 32-bit config); float16 is the one known
+    difference: the reference takes it, the port has no float16 kernels
+    yet."""
+    import jax.numpy as jnp
+    from repro.backends.pallas import PallasBackend
+    ref, port = PallasBackend(), get_backend("hopper")
+    pairs = ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
+             (jnp.float64, torch.float64))
+    for ref_dtype, port_dtype in pairs:
+        assert port.supports_dtype(port_dtype) == \
+            ref.supports_dtype(ref_dtype), port_dtype
+        # the numpy spelling of the same dtype reads the same
+        assert port.supports_dtype(np.dtype(ref_dtype)) == \
+            port.supports_dtype(port_dtype), port_dtype
+    assert [port.supports_dtype(d) for _, d in pairs] == [True, True, False]
+    assert ref.supports_dtype(jnp.float16)
+    assert not port.supports_dtype(torch.float16)
 
 
 def test_calibration_operands_are_seeded_on_the_device():
