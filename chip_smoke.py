@@ -15,13 +15,15 @@ calls, and fails (non-zero exit) if any phase fails:
    source's build seconds.  Fails if any
    instantiation of the kernels spills, or if the launch parameters they
    were built with (threads, stages, shared bytes, passes; trsm's inverse
-   kernel and workspace too; the bf16 gemm and symm kernels' warpgroups
-   and swizzle, the other bf16 kernels' warp grid) or the GEMMs'
+   kernel and workspace too; the bf16 gemm, symm and rank-k kernels'
+   warpgroups and swizzle, rank-k's blocks an SM and park too, the other
+   bf16 kernels' warp grid), the bf16 rank-k kernels' block orders at
+   :data:`RANK_K_ORDER_NBS` or the GEMMs'
    split-k plan differ from their Python mirrors
    (``kernels/gemm.py::mainloop_params`` at float32 and bfloat16,
    ``mma_sync_params``, ``split_plan``,
-   ``kernels/syrk.py::rank_k_params``, ``kernels/trsm.py::trsm_params`` at
-   float32 and bfloat16);
+   ``kernels/syrk.py::rank_k_params`` and ``tile_of_block``,
+   ``kernels/trsm.py::trsm_params`` at float32 and bfloat16);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
    reference conformance harness's 5e-4, so that a TF32 product fails it):
@@ -344,14 +346,15 @@ calls, and fails (non-zero exit) if any phase fails:
    0.8x-1.25x of ``max_memory_allocated`` of a real step, and the
    measured step (median of 3 after a warm-up) not below the roofline's
    ``max(t_compute, t_memory)`` of the dry count.  10b, in a fresh
-   process after phase 7, the last timed phase, so that no timed phase
-   shares the host with its work on fake tensors: the
-   production cells of ``DRYRUN_CELLS`` at full depth on fake worlds of 256
-   and 512 ranks over the card's device type, each ``ok``, with their
+   process at nice 19 beside phases 6 to 9 (one host core of work on fake
+   tensors; none of those phases gates on a time), joined after phase 9:
+   the production cells of ``DRYRUN_CELLS`` at full depth on fake worlds
+   of 256 and 512 ranks over the card's device type, each ``ok``, with their
    peak bytes a rank, FLOPs, bytes and collective bytes a rank, the three
    terms, the bottleneck, ``useful_ratio`` and the collectives by kind.
-   10c, after 10b in its process: the ``cpu_blocked`` backend's gemm
-   install at precisions s and d on the host CPU (named from
+   10c, in a fresh process after phase 7, the last timed phase, with the
+   host to itself (it times the host's BLAS): the ``cpu_blocked``
+   backend's gemm install at precisions s and d on the host CPU (named from
    ``/proc/cpuinfo``), and its tuned knob against its default on held-out
    dims;
 7. times (CUDA events) of every served call: the kernel under the tuned and
@@ -444,6 +447,10 @@ TRMM_PATH_DIMS = ((129, 257), ALIGNED_2D)
 #: syrk/syr2k (n, k) run on unaligned and on zero-padded operands: ragged
 #: (k not a multiple of 4: the 4-byte copies), one row, and aligned
 RANK_K_PATH_DIMS = ((129, 65), (1, 384), ALIGNED_2D)
+#: tile grids at which phase 2 holds the bf16 rank-k kernels' block orders
+#: to their Python mirror (``kernels/syrk.py::tile_of_block``): one tile, a
+#: group and its edges, 5b's calls at bm 64 and 128 (224, 112, 64 and 32)
+RANK_K_ORDER_NBS = (1, 2, 15, 16, 17, 33, 64, 112, 224)
 STACK = 3
 #: max relative error (to the largest output) of the kernel vs a float64
 #: oracle and of a served result vs the plain version.  The reference
@@ -4191,12 +4198,15 @@ def dryrun_count(torch, card: str, root: Path, device, mesh) -> dict:
     return {"dryrun_step_ms": step_ms, "dryrun_bound_ms": bound_ms}
 
 
-def dryrun_main() -> None:
-    """10b and 10c in a process of their own: each cell of
+def dryrun_main(part: str = "all") -> None:
+    """10b and 10c in a process of their own (``part`` "cells": 10b alone,
+    "cpu": 10c alone): each cell of
     :data:`DRYRUN_CELLS` through ``run_cell`` on the card's device type
     (fake tensors: nothing allocated, no kernel launched), printing a
     ``[dryrun]`` line a cell; then the ``cpu_blocked`` install on the host
     (``[cpu_blocked]`` lines).  Exits non-zero when a cell is not ``ok``."""
+    if part not in ("all", "cells", "cpu"):
+        raise SystemExit(f"dryrun_main: no part {part!r}")
     faulthandler.dump_traceback_later(DRYRUN_TIMEOUT_S - 10, exit=True)
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -4205,7 +4215,8 @@ def dryrun_main() -> None:
                "--format=csv,noheader").splitlines()[0]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     try:
-        for arch, shape, mesh in DRYRUN_CELLS:
+        cells_t0 = time.perf_counter()
+        for arch, shape, mesh in DRYRUN_CELLS if part != "cpu" else ():
             t0 = time.perf_counter()
             rec = run_cell(arch, shape, mesh, tmp / "cells")
             if rec["status"] != "ok":
@@ -4229,7 +4240,11 @@ def dryrun_main() -> None:
                   f"{r['t_collective'] * 1e3:.3f} ms, bottleneck "
                   f"{r['bottleneck']}, useful_ratio {r['useful_ratio']:.4f};"
                   f" collectives (count, operand bytes) {coll}", flush=True)
-        cpu_blocked_phase(tmp / "cpu_blocked")
+        if part != "cpu":
+            print(f"[dryrun] 10b's {len(DRYRUN_CELLS)} cells "
+                  f"{time.perf_counter() - cells_t0:.1f} s", flush=True)
+        if part != "cells":
+            cpu_blocked_phase(tmp / "cpu_blocked")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4347,8 +4362,8 @@ def _ptxas_entries(name: str) -> list[tuple[str, int, int]]:
 
 def check_build() -> None:
     """No spill in any instantiation of the kernels, and the launch
-    parameters and split-k plan compiled into the kernels equal their
-    Python mirrors."""
+    parameters, split-k plan and bf16 rank-k block orders compiled into
+    the kernels equal their Python mirrors."""
     import ctypes
 
     import torch
@@ -4479,21 +4494,42 @@ def check_build() -> None:
                 raise SystemExit(f"[build:{name}] tile {(bm, 64, bn)}: "
                                  f"built with {list(out6)}, its Python "
                                  f"mirror {want}")
-    # the bf16 rank-k kernels: B staged as rows, the rounded tile parked
+    # the bf16 rank-k kernels: the wgmma loop's tile at a step of 64, both
+    # sides K-major, the rounded tile parked; and their block orders
+    out8 = (ctypes.c_int * 8)()
+    ij = (ctypes.c_int * 2)()
     for name in ("rank_k_bf16", "rank_k_packed_bf16"):
-        config = getattr(_build.load(name), f"repro_{name}_config")
+        lib = _build.load(name)
+        config = getattr(lib, f"repro_{name}_config")
         for bm, bk in sorted(K.TILES):
             p = K.rank_k_params(bm, bk, torch.bfloat16)
-            want = [p["threads"], p["stages"], p["smem"], p["passes"],
-                    *p["warps"]]
+            want = [p[key] for key in ("threads", "stages", "smem", "passes",
+                                       "warpgroups", "swizzle", "blocks",
+                                       "park")]
             bf16_2d += 1
-            if config(bm, bk, out6) != 0 or list(out6) != want:
+            if config(bm, bk, out8) != 0 or list(out8) != want:
                 raise SystemExit(f"[build:{name}] tile {(bm, bk, bm)}: "
-                                 f"built with {list(out6)}, rank_k_params "
+                                 f"built with {list(out8)}, rank_k_params "
                                  f"{want}")
+        block_tile = getattr(lib, f"repro_{name}_block_tile")
+        block_tile.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                               ctypes.POINTER(ctypes.c_int)]
+        variant = "tri_packed" if name == "rank_k_packed_bf16" else "full"
+        for nb in RANK_K_ORDER_NBS:
+            blocks = nb * (nb + 1) // 2 if variant == "tri_packed" \
+                else nb * nb
+            want = torch.stack(K.tile_of_block(variant, nb,
+                                               torch.arange(blocks)), 1)
+            got = []
+            for t in range(blocks):
+                block_tile(nb, t, ij)
+                got.append(tuple(ij))
+            if got != [tuple(row) for row in want.tolist()]:
+                raise SystemExit(f"[build:{name}] the block order at nb = "
+                                 f"{nb} differs from tile_of_block")
     print(f"[build] launch parameters of "
-          f"{len(configs) + 2 * len(T.TILES) + len(G.TILES) + bf16_2d} tiles "
-          f"and "
+          f"{len(configs) + 2 * len(T.TILES) + len(G.TILES) + bf16_2d} tiles, "
+          f"the bf16 rank-k block orders at nb in {RANK_K_ORDER_NBS} and "
           f"the split plans at {len(dims)} dims x {len(G.TILES)} tiles (bf16: "
           f"{len(bf16_dims)} dims) equal their Python mirrors", flush=True)
 
@@ -6252,6 +6288,7 @@ def main(argv: list[str]) -> int:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH"))))}
+    cells = None
     try:
         for op in ops.HOPPER_OPS:
             calibrate.main(["--out", str(tmp), "--ops", op, "--samples",
@@ -6298,6 +6335,17 @@ def main(argv: list[str]) -> int:
             raise SystemExit(f"[bf16:precond] fresh process failed "
                              f"({bproc.returncode}):\n{bproc.stdout[-4000:]}")
         bf16_precond_s = time.perf_counter() - t0
+        # 10b beside phases 6 to 9: its cells trace on fake tensors in a
+        # process of one host core at the lowest priority (nothing
+        # allocated, no kernel launched), while those phases' processes
+        # keep the card; no phase it overlaps gates on a time
+        cells_out = tempfile.TemporaryFile(mode="w+")
+        cells_t0 = time.perf_counter()
+        cells = subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.dryrun_main('cells')"],
+            cwd=ROOT, env=env, stdout=cells_out, stderr=subprocess.STDOUT,
+            text=True, preexec_fn=lambda: os.nice(19))
         # 6 to 6f. each model from a fresh process of its own, once the
         # last has exited: their weights (32 GB, 62.83 GB, 4.88 GB, 6.46 GB,
         # 3.24 GB, 63.44 GB) never meet each other, phase 5's operands or
@@ -6358,7 +6406,20 @@ def main(argv: list[str]) -> int:
         training.append(train_process((
             "mesh", ["-c", f"import chip_smoke; chip_smoke.mesh_main("
                            f"{str(tmp / 'mesh')!r})"], {}, MESH_TIMEOUT_S)))
+        try:
+            cells.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                   - (time.perf_counter() - cells_t0)))
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"[dryrun] 10b past {DRYRUN_TIMEOUT_S} s")
+        cells_out.seek(0)
+        cells_text = cells_out.read()
+        if cells.returncode != 0:
+            raise SystemExit(f"[dryrun] 10b's process failed "
+                             f"({cells.returncode}):\n{cells_text[-4000:]}")
     finally:
+        if cells is not None and cells.poll() is None:
+            cells.kill()
+            cells.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     served = json.loads(next(line for line in proc.stdout.splitlines()
                              if line.startswith("SERVE_RESULT "))
@@ -6484,21 +6545,26 @@ def main(argv: list[str]) -> int:
     totals = time_rows(torch, card, served["rows"])
     totals["gemm_bf16"], bf16_abs_err = time_bf16_rows(torch, card)
     totals.update(time_bf16_precond_rows(torch, card))
-    # 10b, 10c: host work on fake tensors and numpy, after the last timed
-    # phase, in a fresh process with the host to itself
+    # 10b's lines: its process ran beside phases 6 to 9
+    for line in cells_text.splitlines():
+        if line.startswith("[dryrun"):
+            print(line)
+    # 10c: the host's numpy BLAS timed, after the last timed phase, in a
+    # fresh process with the host to itself
     t0 = time.perf_counter()
     dproc = subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                                                  "chip_smoke.dryrun_main()"],
+                                                  "chip_smoke.dryrun_main("
+                                                  "'cpu')"],
                            cwd=ROOT, env=env, capture_output=True, text=True,
                            timeout=DRYRUN_TIMEOUT_S)
     sys.stderr.write(dproc.stderr[-4000:])
     if dproc.returncode != 0:
-        raise SystemExit(f"[dryrun] fresh process failed "
+        raise SystemExit(f"[cpu_blocked] fresh process failed "
                          f"({dproc.returncode}):\n{dproc.stdout[-4000:]}")
     for line in dproc.stdout.splitlines():
-        if line.startswith(("[dryrun", "[cpu_blocked")):
+        if line.startswith("[cpu_blocked"):
             print(line)
-    print(f"[dryrun] 10b and 10c {time.perf_counter() - t0:.1f} s (a fresh "
+    print(f"[cpu_blocked] 10c {time.perf_counter() - t0:.1f} s (a fresh "
           f"process)", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 

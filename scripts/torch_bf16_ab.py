@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Two versions of the port's bf16 GEMM and SYMM kernels side by side, on
-the card.
+"""Two versions of the port's bf16 GEMM, SYMM and rank-k kernels side by
+side, on the card.
 
 For the checkout whose ``src`` is given (this one by default), this prints
 on the card it runs on:
@@ -15,6 +15,18 @@ on the card it runs on:
   it, and the default tile's total over the 8 calls;
 - ``[ab:symm_bf16]``: the bf16 SYMM at phase 5b's two calls, at the
   default tile and the best, and the default's total;
+- ``[ab:rank_k_bf16]``: the bf16 SYRK and SYR2K at phase 5b's five calls
+  (the L = G G^T and R = G^T G updates, the (4096,4096) syr2k, both
+  (8,512,512) stacks) under ``full``, ``tri`` and ``tri_packed``, each at
+  the default tile and the best tile of the variant, with its share of the
+  bf16 bound, beside ``torch.addmm`` (``torch.matmul`` without C) in bf16;
+  then each kernel's default total over the calls (``rank_k_bf16``:
+  ``full`` and ``tri``; ``rank_k_packed_bf16``: ``tri_packed``), as phase 7
+  sums them;
+- ``[ab:precond]``: the other bf16 kernels at phase 5b's calls at the
+  default tile, whose times a change to the rank-k kernels must leave
+  alone: ``trmm_bf16`` (``full`` and ``tri``), ``trmm_packed_bf16`` and
+  the trsm call (``trsm_inv_bf16`` then ``trsm_bf16``), and each total;
 - ``[ab:6g]``: the device time a call (``torch.profiler``, the kernels'
   own time) of the bf16 GEMM at the default tile at phase 6g's shapes,
   llama3-8b's four kinds of linear and its LM head in a prefill of 4 x 128
@@ -24,11 +36,11 @@ on the card it runs on:
 - with ``--build``, first ``[ab:build]``: every kernel source of that
   ``src`` (``chip_smoke.KERNEL_SOURCES``) built at once into a fresh
   directory, as phase 2 builds them, and each source's seconds of nvcc;
-- with ``--checks``, ``chip_smoke.check_gemm_bf16`` and
-  ``check_symm_trmm_bf16`` (phase 3's bf16 gemm, symm and trmm checks,
-  this checkout's version of them) run on that ``src``: their lines carry
-  each kernel's largest elementwise excess over one bf16 ulp plus the
-  float32 slack.
+- with ``--checks``, ``chip_smoke.check_gemm_bf16``,
+  ``check_symm_trmm_bf16`` and ``check_rank_k_bf16`` (phase 3's bf16
+  gemm, symm, trmm, syrk and syr2k checks, this checkout's version of
+  them) run on that ``src``: their lines carry each kernel's largest
+  elementwise excess over one bf16 ulp plus the float32 slack.
 
 Run from the root of a checkout, the versions in turns (a parent unpacked
 with ``git archive`` into a directory ``.gitignore`` lists)::
@@ -161,6 +173,7 @@ def main(argv: list[str]) -> int:
         del sets
     print(f"[ab:symm_bf16] {label}: default over 5b's 2 calls "
           f"{total:.4f} ms", flush=True)
+    rank_k_and_precond(torch, cs, ops, gen, label)
     matmul.allow_bf16_reduced_precision_reduction = reduced
 
     # phase 6g's GEMMs: a layer's q, k, v, o, gate, up, down, and the head
@@ -192,7 +205,72 @@ def main(argv: list[str]) -> int:
         print(f"[ab:checks] {label}:", flush=True)
         cs.check_gemm_bf16(torch, rand)
         cs.check_symm_trmm_bf16(torch, rand)
+        cs.check_rank_k_bf16(torch, rand)
     return 0
+
+
+def rank_k_and_precond(torch, cs, ops, gen, label: str) -> None:
+    """The ``[ab:rank_k_bf16]`` and ``[ab:precond]`` lines: phase 5b's
+    calls on bf16 operands (``cs.make_operands``, cycled through > 120
+    MB), CUDA events around back-to-back calls."""
+    from repro_torch.core.knobs import HOPPER_2D_VARIANTS
+    totals = {}
+    for case in cs.bf16_precond_cases():
+        op, shapes, kw = case["op"], case["shapes"], case["kw"]
+        if op not in ("syrk", "syr2k", "trmm", "trsm"):
+            continue
+        per_set = 2 * sum(math.prod(s) for s in shapes)
+        sets = [[x.bfloat16() for x in cs.make_operands(
+                    torch, gen, op, shapes,
+                    coupled=case.get("coupled", False))]
+                for _ in range(max(1, math.ceil(120e6 / per_set)))]
+        default = ops.default_knob(op).dict
+        bound_ms, _ = cs._bound(op, shapes, kw, bf16=True)
+        if op == "trsm":
+            ms = cs._time_ms(torch, cs._kernel_fn(op, default, kw), sets)
+            totals["trsm"] = totals.get("trsm", 0.0) + ms
+            print(f"[ab:precond] {label} {case['label']}: trsm call "
+                  f"(trsm_inv_bf16, trsm_bf16) default "
+                  f"{cs._knob_str(op, default)} {ms:.4f} ms", flush=True)
+            del sets
+            continue
+        parts = []
+        for var in HOPPER_2D_VARIANTS[op]:
+            kd = {**default, "variant": var}
+            ms = cs._time_ms(torch, cs._kernel_fn(op, kd, kw), sets)
+            name = cs.kernel_of(op, kd, torch.bfloat16)
+            totals[name] = totals.get(name, 0.0) + ms
+            if op == "trmm":
+                parts.append(f"{var} {ms:.4f} ms")
+                continue
+            best_ms, best = min(
+                ((cs._time_ms(torch, cs._kernel_fn(op, k.dict, kw), sets,
+                              iters=3), k.dict)
+                 for k in ops.knob_space_for(op) if k["variant"] == var),
+                key=lambda v: v[0])
+            parts.append(f"{var} default {ms:.4f} ms "
+                         f"({100 * bound_ms / ms:.1f} % of bound), best "
+                         f"{cs._knob_str(op, best)} {best_ms:.4f} ms "
+                         f"({100 * bound_ms / best_ms:.1f} %)")
+        if op == "trmm":
+            print(f"[ab:precond] {label} {case['label']}: default "
+                  f"{cs._knob_str(op, default)} " + ", ".join(parts),
+                  flush=True)
+        else:
+            lib, _ = cs._library_fn(torch, op, kw, shapes)
+            library_ms = cs._time_ms(torch, lib, sets)
+            print(f"[ab:rank_k_bf16] {label} {case['label']}: "
+                  + " | ".join(parts) + f" | library "
+                  f"({'torch.addmm' if kw else 'torch.matmul'} bf16) "
+                  f"{library_ms:.4f} ms ({100 * bound_ms / library_ms:.1f} "
+                  f"%) | bound {bound_ms:.4f} ms", flush=True)
+        del sets
+    for name in ("rank_k_bf16", "rank_k_packed_bf16"):
+        print(f"[ab:rank_k_bf16] {label}: {name} default over 5b's 5 calls "
+              f"{totals[name]:.4f} ms", flush=True)
+    print(f"[ab:precond] {label}: default over 5b's calls "
+          + ", ".join(f"{name} {totals[name]:.4f} ms" for name in
+                      ("trmm_bf16", "trmm_packed_bf16", "trsm")), flush=True)
 
 
 if __name__ == "__main__":

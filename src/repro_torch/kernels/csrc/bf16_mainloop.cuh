@@ -1,8 +1,9 @@
 // The bfloat16 mainloop on the tensor cores with mma.sync, beside the
 // float32 one (sgemm_mainloop.cuh): one block computes its BM x BN tile of
 // float32 accumulators over a range of the contraction from bfloat16 A and
-// B, with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The trmm, rank-k
-// and trsm kernels run it (gemm_bf16.cu and symm_bf16.cu run the wgmma
+// B, with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The trmm kernels
+// (trmm_bf16.cu, trmm_packed_bf16.cu) and trsm_bf16.cu's substitution run
+// it (gemm_bf16.cu, symm_bf16.cu and the rank-k kernels run the wgmma
 // loop, bf16_wgmma_mainloop.cuh); what feeds the tiles is a producer, as
 // in the float32 loop: trmm_tile_bf16.cuh stages tril(A) with a per-row
 // column limit (load_tile's LOWER mode).
@@ -41,11 +42,7 @@
 // the (k, m) window it is stored in, [BK][PM + 8]: that step loads its A
 // fragments with ldmatrix.x4.trans, which hands each lane the same
 // elements as ldmatrix.x4 of the row-major tile, so a step's products do
-// not depend on its layout.  A tile whose B_ROWS
-// is true stages B as rows, [PN][BK + 8] (the rank-k kernels, whose two
-// sides are both rows of a row-major (n, k) matrix): its B fragments come
-// from ldmatrix.x4 without .trans, the same elements mma's k-major B
-// operand wants.
+// not depend on its layout.
 //
 // Order.  The sums inside one mma are the tensor core's own, not IEEE
 // sequential; across mma they add in increasing k.  Whatever the copy path
@@ -94,9 +91,6 @@ struct Tile {
   static constexpr int MT = WM / 16, NT = WN / 8;
   // shared row strides in elements (LDAT: an A tile staged transposed)
   static constexpr int LDA = BK + kPad, LDB = PN + kPad, LDAT = PM + kPad;
-  // B staged [BK][LDB] (k-major); a tile that stages it as rows,
-  // [PN][BK + 8], says so and sets its own LDB and stage sizes
-  static constexpr bool B_ROWS = false;
   // room for either A layout; PM >= BK, so the row-major one is the larger
   static constexpr int A_ELEMS = cmax(PM * LDA, BK * LDAT);
   static constexpr int STAGE_ELEMS = A_ELEMS + BK * LDB;
@@ -193,11 +187,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // addressing k row (l % 8) + (l / 16) * 8 at row offset ((l / 8) % 2) * 8,
 // the same four matrices, each transposed into place.  ldmatrix.x4.trans
 // of B: lane l addresses k row (l % 8) + ((l / 8) % 2) * 8 at column
-// (l / 16) * 8, the (k0-7, k8-15) halves of two n8 tiles.  B_ROWS, B
-// staged [PN][LDB]: ldmatrix.x4, lane l addressing n row (l % 8) +
-// (l / 16) * 8 at k offset ((l / 8) % 2) * 8, the same four matrices (an
-// 8 x 8 block of rows n, columns k is mma's k-major B fragment as it
-// lies: lane l takes n = l / 4, k = (l % 4) * 2 and the one after).
+// (l / 16) * 8, the (k0-7, k8-15) halves of two n8 tiles.
 template <class T, bool A_T>
 __device__ __forceinline__ void mma_step(const bf16* As, const bf16* Bs,
                                          int wm0, int wn0, int live,
@@ -209,12 +199,8 @@ __device__ __forceinline__ void mma_step(const bf16* As, const bf16* Bs,
 #pragma unroll
     for (int np = 0; np < T::NT / 2; ++np) {
       unsigned r[4];
-      if constexpr (T::B_ROWS)
-        ldsm_x4(r, Bs + (wn0 + np * 16 + lane % 8 + (lane / 16) * 8) * T::LDB +
-                       kk + ((lane / 8) % 2) * 8);
-      else
-        ldsm_x4_trans(r, Bs + (kk + lane % 8 + ((lane / 8) % 2) * 8) * T::LDB +
-                             wn0 + np * 16 + (lane / 16) * 8);
+      ldsm_x4_trans(r, Bs + (kk + lane % 8 + ((lane / 8) % 2) * 8) * T::LDB +
+                           wn0 + np * 16 + (lane / 16) * 8);
       b[2 * np][0] = r[0];
       b[2 * np][1] = r[1];
       b[2 * np + 1][0] = r[2];
@@ -258,8 +244,7 @@ __device__ __forceinline__ int live_tiles(int prow0, int m) {
 // producer P supplies
 //   void load(bf16* As, bf16* Bs, int k0)  issue the copies of step k0,
 //                                          A as [PM][LDA] (or [BK][LDAT]),
-//                                          B as [BK][LDB] ([PN][LDB] under
-//                                          B_ROWS);
+//                                          B as [BK][LDB];
 //   bool transposed(int k0)                its A layout ([BK][LDAT] if
 //                                          true; a constant false folds
 //                                          the transposed step away).

@@ -3,10 +3,12 @@
 // contraction from bfloat16 A and B with wgmma.mma_async (m64nNk16, bf16
 // in, f32 accumulate), both operands read from shared memory, fed by TMA
 // (cp.async.bulk.tensor) through a ring of stages guarded by mbarriers.
-// gemm_bf16.cu and symm_bf16.cu run it; what fills a stage is a producer
-// (GemmProducer below; symm_bf16.cu's SymmProducer stitches sym(A) from
-// the stored triangle).  bf16_mainloop.cuh, the mma.sync loop it replaces
-// for those two, stays for the trmm, rank-k and trsm kernels.
+// gemm_bf16.cu, symm_bf16.cu and the rank-k kernels (rank_k_tile_bf16.cuh)
+// run it; what fills a stage is a producer (GemmProducer below;
+// symm_bf16.cu's SymmProducer stitches sym(A) from the stored triangle;
+// rank-k's stages rows of A or B on both sides).  bf16_mainloop.cuh, the
+// mma.sync loop it replaces for those, stays for the trmm and trsm
+// kernels.
 //
 // Replaces, with the float32 loop, the reference package's Pallas dot
 // src/repro/kernels/gemm.py::_gemm_kernel (jnp.dot(...,
@@ -41,12 +43,16 @@
 // wgmma (its transpose flag): PN / 64 slabs of BK rows of 128 bytes, each
 // swizzled over 128 bytes.  A producer may stage a step's A MN-major too,
 // the (k, rows) window as it is stored, in slabs of 64 rows (symm above
-// the diagonal), and read it with the transpose flag for A.  Descriptors:
-// K-major, 8-row groups SBO = 16 BK bytes apart; MN-major, 8-row (k) groups
-// 1024 bytes apart and 64-column slabs LBO = 128 BK bytes apart.  A k16
-// step advances the start address by 32 bytes (K-major) or 16 rows (2048
-// bytes, MN-major).  Every stage and slab starts on a 1024-byte boundary,
-// the swizzle's repeat, so the swizzle is a function of the offset.
+// the diagonal), and read it with the transpose flag for A.  A tile whose
+// B_KMAJOR is true stages B's PN x BK tile K-major, laid out as A's
+// (rank-k: both sides are rows of a row-major (n, k) matrix), and reads it
+// without the transpose flag for B; gemm and symm compile with it false.
+// Descriptors: K-major, 8-row groups SBO = 16 BK bytes apart; MN-major,
+// 8-row (k) groups 1024 bytes apart and 64-column slabs LBO = 128 BK bytes
+// apart.  A k16 step advances the start address by 32 bytes (K-major) or
+// 16 rows (2048 bytes, MN-major).  Every stage and slab starts on a
+// 1024-byte boundary, the swizzle's repeat, so the swizzle is a function
+// of the offset.
 //
 // Thread-written stages.  An operand TMA cannot take (the wrapper's `vec`
 // false: an odd pointer, leading or batch stride) and symm's steps across
@@ -113,10 +119,12 @@ constexpr long long kWaitTrap = 1LL << 32;
 
 // The launch parameters of a BM x BN tile with contraction step BK, all
 // derived from the tile (kernels/gemm.py::mainloop_params with
-// dtype=torch.bfloat16 mirrors them).
-template <int BM_, int BN_, int BK_>
+// dtype=torch.bfloat16 mirrors them), and B's layout in a stage: MN-major
+// slabs, or K-major as A (B_KMAJOR; the same bytes).
+template <int BM_, int BN_, int BK_, bool B_KMAJOR_ = false>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_;
+  static constexpr bool B_KMAJOR = B_KMAJOR_;
   // a pass: at most 128 rows (two warpgroups), and every column but in
   // the tile of 256 x 256, which runs four passes of 128 x 128 (as two of
   // 128 x 256, ptxas serialised its wgmma for want of registers)
@@ -130,7 +138,8 @@ struct Tile {
   static constexpr int ACC = PN / 2;
   static constexpr int BLOCKS =
       cmax(1, cmin(4, 512 / (WARPGROUPS * (ACC + 64))));
-  // A's row bytes and swizzle span; its tile; a B slab; a stage
+  // A's (and a K-major B's) row bytes and swizzle span; its tile; a B
+  // slab (K-major: PN x BK as A, the same bytes); a stage
   static constexpr int SWIZZLE = 2 * BK;
   static constexpr int A_BYTES = PM * BK * 2;
   static constexpr int SLAB_BYTES = BK * 2 * kSlab;
@@ -260,9 +269,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A @ B on one m64nNk16, B MN-major (transposed), A K-major (TA = 0)
-// or MN-major (TA = 1), both from shared memory
-template <int TA>
+// d += A @ B on one m64nNk16, A K-major (TA = 0) or MN-major (TA = 1), B
+// K-major (TB = 0) or MN-major (TB = 1, wgmma's transpose flag), both from
+// shared memory
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -272,7 +282,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15,\n"
       "%16, %17, %18, %19, %20, %21, %22, %23,\n"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, 1;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -281,11 +291,11 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB)
       : "memory");
 }
 
-template <int TA>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -299,7 +309,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47,\n"
       "%48, %49, %50, %51, %52, %53, %54, %55,\n"
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -316,11 +326,11 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB)
       : "memory");
 }
 
-template <int TA>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -342,7 +352,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111,\n"
       "%112, %113, %114, %115, %116, %117, %118, %119,\n"
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -375,19 +385,19 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TA)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB)
       : "memory");
 }
 
-template <int N, int TA>
+template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
                                       uint64_t db) {
   if constexpr (N == 64)
-    wgmma_n64<TA>(d, da, db);
+    wgmma_n64<TA, TB>(d, da, db);
   else if constexpr (N == 128)
-    wgmma_n128<TA>(d, da, db);
+    wgmma_n128<TA, TB>(d, da, db);
   else
-    wgmma_n256<TA>(d, da, db);
+    wgmma_n256<TA, TB>(d, da, db);
 }
 
 // -- the ring ----------------------------------------------------------------
@@ -516,13 +526,16 @@ __device__ __forceinline__ void stage_mma(uint32_t a, uint32_t b, int wg,
                                           float (&acc)[T::ACC]) {
 #pragma unroll
   for (int j = 0; j < T::BK / 16; ++j) {
-    const uint64_t db = make_desc(b + j * 16 * 128, T::SLAB_BYTES, 1024, 1);
+    const uint64_t db =
+        T::B_KMAJOR ? make_desc(b + j * 32, 16, 8 * T::SWIZZLE,
+                                swizzle_layout(T::SWIZZLE))
+                    : make_desc(b + j * 16 * 128, T::SLAB_BYTES, 1024, 1);
     const uint64_t da =
         TA ? make_desc(a + wg * T::SLAB_BYTES + j * 16 * 128, T::SLAB_BYTES,
                        1024, 1)
            : make_desc(a + wg * 64 * T::SWIZZLE + j * 32, 16,
                        8 * T::SWIZZLE, swizzle_layout(T::SWIZZLE));
-    wgmma<T::PN, TA>(acc, da, db);
+    wgmma<T::PN, TA, T::B_KMAJOR ? 0 : 1>(acc, da, db);
   }
 }
 

@@ -8,11 +8,13 @@
 // src/repro/kernels/syrk.py::_rank_k_kernel (via _rank_k_call: bf16
 // operands, jnp.dot(..., preferred_element_type=jnp.float32) into a float32
 // VMEM scratch, the output in A's dtype).  rank_k.cu is its float32 twin:
-// the same grid (x walks j, y walks i, z the batch), the same runtime flags
-// (two: syr2k, tri, has_c, vec), the tile of rank_k_tile_bf16.cuh (the
-// rank-k producer, both sides staged as rows, on the bf16 mainloop of
-// bf16_mainloop.cuh) in place of the float32 one.  Variants, as in the
-// reference:
+// the same grid (x and y the tile grid, z the batch), the same runtime
+// flags (two: syr2k, tri, has_c, vec), the tile of rank_k_tile_bf16.cuh
+// (both sides K-major rows of A or B, copied by TMA into the wgmma
+// mainloop's ring of bf16_wgmma_mainloop.cuh) in place of the float32 one.
+// A block's index y * nb + x is mapped to its tile by groups of tile rows
+// (brank_k::grouped), so that the blocks in flight share rows of A in L2.
+// Variants, as in the reference:
 //   full: every tile is computed, both triangles, and C is added as given;
 //   tri:  the whole nb x nb grid is launched, but the tiles above the
 //         diagonal (j > i) return at once; a tile (i, j <= i) is stored at
@@ -35,29 +37,29 @@ using brank_k::Args;
 using brank_k::bf16;
 
 template <int BM, int BK>
-__global__ void __launch_bounds__(brank_k::Tile<BM, BK>::THREADS, 1)
-rank_k_bf16_kernel(const Args p, int tri) {
+__global__ void __launch_bounds__(brank_k::Tile<BM, BK>::THREADS,
+                                  brank_k::Tile<BM, BK>::BLOCKS)
+rank_k_bf16_kernel(const __grid_constant__ CUtensorMap ma,
+                   const __grid_constant__ CUtensorMap mb, const Args p,
+                   int tri) {
   using T = brank_k::Tile<BM, BK>;
-  const int ti = blockIdx.y, tj = blockIdx.x;
+  int ti, tj;
+  brank_k::grouped(static_cast<long long>(blockIdx.y) * gridDim.x +
+                       blockIdx.x,
+                   gridDim.x, ti, tj);
   if (tri && tj > ti) return;  // tri: no arithmetic above the diagonal
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_bytes);
-  const long long z = blockIdx.z;
-  const bf16* A = p.A + z * p.sAb;
-  const bf16* B = p.two ? p.B + z * p.sBb : nullptr;
-  const bf16* C = p.has_c ? p.C + z * p.sCb : nullptr;
-  bf16* O = p.O + z * p.sOb;
-  // the variant's epilogue compiled in: tri runs the code tri_packed runs
-  if (tri)
-    brank_k::tile<T, true>(p, A, B, C, O, ti * BM, tj * BM, smem);
-  else
-    brank_k::tile<T, false>(p, A, B, C, O, ti * BM, tj * BM, smem);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  brank_k::tile<T>(&ma, &mb, p, blockIdx.z, ti * BM, tj * BM, tri != 0,
+                   smem_raw);
 }
 
 template <int BM, int BK>
-cudaError_t launch(const Args& p, int batch, int tri, cudaStream_t stream,
-                   int* launched) {
+int launch(Args p, bool vec, int batch, int tri, cudaStream_t stream,
+           int* launched) {
   using T = brank_k::Tile<BM, BK>;
+  CUtensorMap ma{}, mb{};
+  const int rc = brank_k::encode<T>(p, vec, batch, &ma, &mb);
+  if (rc != 0) return rc;
   const cudaError_t e = cudaFuncSetAttribute(
       rank_k_bf16_kernel<BM, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::SMEM);
@@ -65,7 +67,8 @@ cudaError_t launch(const Args& p, int batch, int tri, cudaStream_t stream,
   const int nb = (p.n + BM - 1) / BM;
   const dim3 grid(nb, nb, batch);
   set_grid(launched, grid);
-  rank_k_bf16_kernel<BM, BK><<<grid, T::THREADS, T::SMEM, stream>>>(p, tri);
+  rank_k_bf16_kernel<BM, BK><<<grid, T::THREADS, T::SMEM, stream>>>(ma, mb, p,
+                                                                    tri);
   return cudaGetLastError();
 }
 
@@ -74,9 +77,11 @@ cudaError_t launch(const Args& p, int batch, int tri, cudaStream_t stream,
 // One launcher for every instantiated (bm, bk) of the Hopper syrk/syr2k
 // knob space (bk is the knob's bn), with repro_rank_k_f32's arguments (A,
 // B, C and O bf16).  Returns the cudaError_t of the launch (0 on success);
-// cudaErrorInvalidValue for a tile with no instantiation.  Writes the grid
-// it launched (x, y, z) to launched[0..2].  Does not synchronise.  vec says
-// that A, B, their leading strides and batch strides are 16-byte aligned.
+// cudaErrorInvalidValue for a tile with no instantiation;
+// wgemm::kEncodeFailed + the CUresult when a tensor map cannot be encoded.
+// Writes the grid it launched (x, y, z) to launched[0..2].  Does not
+// synchronise.  vec says that A, B, their leading strides and batch
+// strides are 16-byte aligned (TMA reads them).
 extern "C" int repro_rank_k_bf16(int bm, int bk, const void* a, const void* b,
                                  const void* c, void* o, int n, int k,
                                  int batch, long long sAb, long long lda,
@@ -89,24 +94,31 @@ extern "C" int repro_rank_k_bf16(int bm, int bk, const void* a, const void* b,
   const Args p{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
                static_cast<const bf16*>(c), static_cast<bf16*>(o),
                n, k, sAb, lda, sBb, ldb, sCb, ldc, sOb, ldo,
-               alpha, beta, two, has_c, vec};
+               alpha, beta, two, has_c, 0, -1, -1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TimedLaunch timed(ev_start, ev_end, s);
 #define REPRO_RANK_K_BF16_LAUNCH(BM, BK) \
   if (bm == BM && bk == BK)                \
-    return int(launch<BM, BK>(p, batch, tri, s, launched));
+    return launch<BM, BK>(p, vec != 0, batch, tri, s, launched);
   REPRO_RANK_K_TILES(REPRO_RANK_K_BF16_LAUNCH)
 #undef REPRO_RANK_K_BF16_LAUNCH
   return int(cudaErrorInvalidValue);
 }
 
 // The launch parameters the kernel of a tile was built with: threads,
-// stages, dynamic shared bytes, passes and the warp grid (m, n), to
-// out[0..5].
+// stages, dynamic shared bytes, passes, warpgroups, the swizzle bytes, the
+// blocks an SM and the park's bytes, to out[0..7].
 extern "C" int repro_rank_k_bf16_config(int bm, int bk, int* out) {
 #define REPRO_RANK_K_BF16_CONFIG(BM, BK) \
   if (bm == BM && bk == BK) return brank_k::config<BM, BK>(out), 0;
   REPRO_RANK_K_TILES(REPRO_RANK_K_BF16_CONFIG)
 #undef REPRO_RANK_K_BF16_CONFIG
   return int(cudaErrorInvalidValue);
+}
+
+// The tile (i, j) the block with index t = y * nb + x of an nb x nb grid
+// computes, to ij[0..1].
+extern "C" int repro_rank_k_bf16_block_tile(int nb, long long t, int* ij) {
+  brank_k::grouped(t, nb, ij[0], ij[1]);
+  return 0;
 }

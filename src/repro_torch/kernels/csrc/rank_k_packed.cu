@@ -31,11 +31,8 @@ using rank_k::Args;
 
 // t -> (i, j) with j <= i, row-major over the lower triangle
 __device__ __forceinline__ void detri(long long t, int& i, int& j) {
-  int r = int((sqrtf(8.f * float(t) + 1.f) - 1.f) * 0.5f);
-  while (static_cast<long long>(r) * (r + 1) / 2 > t) --r;
-  while (static_cast<long long>(r + 1) * (r + 2) / 2 <= t) ++r;
-  i = r;
-  j = int(t - static_cast<long long>(r) * (r + 1) / 2);
+  i = rank_k::tri_row(t);
+  j = int(t - static_cast<long long>(i) * (i + 1) / 2);
 }
 
 template <int BM, int BK>

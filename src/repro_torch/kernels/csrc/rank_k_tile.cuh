@@ -47,10 +47,21 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 #include "sgemm_mainloop.cuh"
 
 namespace rank_k {
+
+// the row r of the lower triangle's row-major index t: r (r + 1) / 2 <= t
+// < (r + 1) (r + 2) / 2 (a float sqrt seed, then an exact integer fix-up);
+// both packed kernels, float32 and bf16, map their blocks by it
+__host__ __device__ inline int tri_row(long long t) {
+  int r = int((sqrtf(8.f * float(t) + 1.f) - 1.f) * 0.5f);
+  while (static_cast<long long>(r) * (r + 1) / 2 > t) --r;
+  while (static_cast<long long>(r + 1) * (r + 2) / 2 <= t) ++r;
+  return r;
+}
 
 struct Args {
   const float* A;

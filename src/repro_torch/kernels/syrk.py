@@ -1,7 +1,7 @@
 """SYRK / SYR2K on the H100, lower-triangle rank-k updates, with CUDA C++
 kernels written for Hopper: on the GEMM's f32 mainloop
 (``csrc/sgemm_mainloop.cuh``) for float32 operands, on the bf16 GEMM's
-tensor-core mainloop (``csrc/bf16_mainloop.cuh``) for bfloat16:
+wgmma + TMA mainloop (``csrc/bf16_wgmma_mainloop.cuh``) for bfloat16:
 
   syrk : O = alpha * A @ A^T + beta * C            A (n, k), C (n, n)
   syr2k: O = alpha * (A @ B^T + B @ A^T) + beta * C
@@ -27,11 +27,17 @@ ADSALA knob selects:
 The kernels of a dtype run one tile body (``csrc/rank_k_tile.cuh``, bf16
 ``csrc/rank_k_tile_bf16.cuh``): the A side of a
 tile staged as the GEMM stages A, the B side (rows of A again, or of B) as
-rows with the contraction innermost; syr2k as one contraction of twice the
+rows with the contraction innermost (bf16: both K-major boxes of 64
+contraction indices copied by TMA, wgmma's B without its transpose flag);
+syr2k as one contraction of twice the
 steps, all ``A B^T`` products of an element before all ``B A^T`` ones.  The
 knob's ``bm`` is the square output tile and its ``bn`` the contraction
-block (the reference's ``bk = kb["bn"]``); :func:`rank_k_params` gives the
-launch parameters a tile compiles to.  A leading batch axis is the kernels'
+block (the reference's ``bk = kb["bn"]``; the bf16 kernels stage
+:data:`BF16_STEP` indices at every ``bn``, which sets nothing there);
+:func:`rank_k_params` gives the launch parameters a tile compiles to.
+The bf16 kernels map a launched block to its tile by groups of
+:data:`BLOCK_GROUP` tile rows, so that the blocks in flight share rows of
+A in L2 (:func:`tile_of_block`).  A leading batch axis is the kernels'
 grid z; ragged n and k need no padding.  When the operands and their
 strides are 16-byte aligned (:func:`~repro_torch.kernels.gemm.vec_aligned`,
 no copy) the kernels move 16 bytes a copy, else one element, with the same
@@ -57,13 +63,13 @@ import torch
 from repro_torch.core.knobs import HOPPER_2D_VARIANTS, hopper_2d_knob_space
 
 from . import _build
-from .gemm import (BF16_PAD, mainloop_params, mma_sync_params, ring_stages,
-                   vec_aligned)
+from .gemm import mainloop_params, ring_stages, vec_aligned
 from .introspect import launch_events, record_launch
 from .ref import sym_lower
 
-__all__ = ["syrk", "syr2k", "rank_k_plain", "rank_k_params", "TILES",
-           "VARIANTS", "KERNEL_OF"]
+__all__ = ["syrk", "syr2k", "rank_k_plain", "rank_k_params",
+           "tile_of_block", "TILES", "VARIANTS", "KERNEL_OF", "BF16_STEP",
+           "BLOCK_GROUP"]
 
 #: the ``(bm, bk)`` tiles every kernel is instantiated for (bk = knob bn)
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("syrk"))
@@ -77,6 +83,13 @@ KERNEL_OF = {torch.float32: {"rank_k": ("rank_k", "repro_rank_k_f32"),
              torch.bfloat16: {"rank_k": ("rank_k_bf16", "repro_rank_k_bf16"),
                               "rank_k_packed": ("rank_k_packed_bf16",
                                                 "repro_rank_k_packed_bf16")}}
+
+#: contraction indices a stage of the bf16 kernels holds, at every knob
+#: ``bn``: 128-byte rows under TMA's 128-byte swizzle
+#: (``csrc/rank_k_tile_bf16.cuh`` ``kStep``)
+BF16_STEP = 64
+#: tile rows of a group in the bf16 kernels' block order (``kGroup``)
+BLOCK_GROUP = 16
 
 #: grid x / y / z limits of a launch
 _MAX_GRID_X = 2 ** 31 - 1
@@ -101,27 +114,74 @@ def rank_k_params(bm: int, bk: int,
                   dtype: torch.dtype = torch.float32) -> dict:
     """The launch parameters ``csrc/rank_k_tile.cuh`` (float32) or
     ``csrc/rank_k_tile_bf16.cuh`` (bfloat16) derives from the tile
-    ``(bm, bk)``: the mainloop's ``bm x bm`` tile with contraction step
-    ``bk`` (:func:`~repro_torch.kernels.gemm.mainloop_params`: threads,
-    register tile, one pass; bf16 :func:`~repro_torch.kernels.gemm.
-    mma_sync_params`: threads, warp grid, one pass), but a stage of its A side and
-    its B side staged as rows (float32: ``bm x bk`` and ``bm x (bk + 4)``
-    floats; bf16: ``bm x (bk + 8)`` elements each), as many stages of 2-4
-    as fit in the ring budget, and the epilogue's parked tile, which reuses
-    the ring (float32 ``bm x (bm + 1)`` floats; bf16 ``bm x (bm + 2)``
-    elements, rounded; the shared bytes are the larger of ring and park)."""
+    ``(bm, bk)``.
+
+    float32: the mainloop's ``bm x bm`` tile with contraction step ``bk``
+    (:func:`~repro_torch.kernels.gemm.mainloop_params`: threads, register
+    tile, one pass), but a stage of its A side and its B side staged as
+    rows (``bm x bk`` and ``bm x (bk + 4)`` floats), as many stages of 2-4
+    as fit in the ring budget, and the epilogue's parked tile, ``bm x
+    (bm + 1)`` floats, which reuses the ring.
+
+    bfloat16: the wgmma loop's ``bm x bm`` tile at a step of
+    :data:`BF16_STEP` whatever ``bk`` (:func:`~repro_torch.kernels.gemm.
+    mainloop_params` at ``bk`` = 64: one pass, a warpgroup per 64 rows,
+    the blocks an SM is meant to hold, the 128-byte swizzle, the ring's
+    stages of two ``bm x 64`` K-major regions and its shared bytes; a
+    K-major B takes the bytes of the slabs it replaces), and the park,
+    ``bm x (bm + 2)`` rounded elements in the idle ring; the shared bytes
+    are the larger of the two."""
     if dtype == torch.bfloat16:
-        p = mma_sync_params(bm, bk, bm)
-        stage = 2 * 2 * bm * (bk + BF16_PAD)
-        stages = ring_stages(stage)
+        p = mainloop_params(bm, BF16_STEP, bm, torch.bfloat16)
         park = 2 * bm * (bm + 2)
-        p.update(stages=stages, smem=max(stages * stage, park), park=park)
+        p.update(step=BF16_STEP, park=park, smem=max(p["smem"], park))
         return p
     p = mainloop_params(bm, bk, bm, dtype)
     stage = 4 * bm * (2 * bk + 4)
     stages = ring_stages(stage)
     p.update(stages=stages, smem=stages * stage, park=4 * bm * (bm + 1))
     return p
+
+
+def _tri_row(t: torch.Tensor) -> torch.Tensor:
+    """The row r of the lower triangle's row-major index t: r (r + 1) / 2
+    <= t < (r + 1) (r + 2) / 2."""
+    r = ((torch.sqrt(8.0 * t.double() + 1.0) - 1.0) / 2.0).floor().long()
+    r = torch.where(r * (r + 1) // 2 > t, r - 1, r)
+    return torch.where((r + 1) * (r + 2) // 2 <= t, r + 1, r)
+
+
+def tile_of_block(variant: str, nb: int,
+                  block) -> tuple[torch.Tensor, torch.Tensor]:
+    """The output tiles ``(i, j)`` that the bf16 kernels' launched blocks
+    ``block`` (linear indices, an int or a tensor: ``y * nb + x`` of the
+    ``nb x nb`` grid of ``full`` and ``tri``, ``x`` of the ``nb (nb + 1) /
+    2`` grid of ``tri_packed``) compute: the mirror of
+    ``csrc/rank_k_tile_bf16.cuh``'s ``grouped`` and ``packed``.
+
+    ``full``/``tri``: groups of :data:`BLOCK_GROUP` tile rows (the last may
+    hold fewer), each walked column by column.  ``tri_packed``: bands of as
+    many tile rows, each band's rectangle left of its diagonal block column
+    by column, then that block's lower triangle column by column.  Under
+    ``tri`` the blocks whose tile has ``j > i`` return at once."""
+    t = torch.as_tensor(block, dtype=torch.int64)
+    if variant != "tri_packed":
+        x = t // (BLOCK_GROUP * nb) * BLOCK_GROUP
+        g = torch.clamp(nb - x, max=BLOCK_GROUP)
+        u = t - x * nb
+        return x + u % g, u // g
+    x = _tri_row(t) // BLOCK_GROUP * BLOCK_GROUP
+    g = torch.clamp(nb - x, max=BLOCK_GROUP)
+    u = t - x * (x + 1) // 2
+    rect = u < g * x
+    # the diagonal block: column c of its lower triangle holds g - c tiles
+    v, c = u - g * x, torch.zeros_like(t)
+    for _ in range(BLOCK_GROUP - 1):
+        step = ~rect & (v >= g - c)
+        v = torch.where(step, v - (g - c), v)
+        c = c + step.long()
+    return (torch.where(rect, x + u % g, x + c + v),
+            torch.where(rect, u // g, x + c))
 
 
 def rank_k_plain(a: torch.Tensor, b: torch.Tensor | None = None,

@@ -7,8 +7,10 @@ On the CPU the port's ``run_op`` computes the kernels' plain version
 (``rank_k_plain``: float32 products and sums, one rounding to bf16, the
 rounded lower triangle mirrored under ``tri`` and ``tri_packed``); the
 tensor-core kernels themselves (``csrc/rank_k_bf16.cu``,
-``csrc/rank_k_packed_bf16.cu``) are held to the same plain version on the
-card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
+``csrc/rank_k_packed_bf16.cu``, on the wgmma loop) are held to the same
+plain version on the card by ``test_torch_gpu.py`` and ``chip_smoke.py``;
+here their launch parameters' and block order's Python mirrors are
+checked against the card's limits.
 """
 
 import functools
@@ -247,27 +249,68 @@ def test_service_keeps_bf16_and_float32_syrk_apart():
 
 @pytest.mark.parametrize("bm,bk", sorted(K.TILES))
 def test_rank_k_bf16_launch_params_fit_the_card(bm, bk):
-    """Both bf16 rank-k kernels run the bf16 mainloop's ``bm x bm`` tile in
-    one pass with a stage of two ``bm x (bk + 8)`` regions (the A side and
-    the B side, both staged as rows), a ring of 2-4 stages within the ring
-    budget, and the epilogue's rounded ``bm x (bm + 2)`` park within the
-    shared bytes; ldmatrix's eight rows fall in distinct 16-byte bank
-    groups, and the park's transposed reads in distinct banks."""
+    """Both bf16 rank-k kernels run the wgmma loop's ``bm x bm`` tile in
+    one pass, a warpgroup per 64 rows, at a step of 64 contraction indices
+    whatever the knob's ``bk``: a stage of two K-major ``bm x 64`` regions
+    of 128-byte rows under the 128-byte swizzle, each region and the stage
+    on the swizzle's 1024-byte repeat; 2-16 stages, as many as fit in the
+    SM's shared memory over the blocks an SM is meant to hold; the
+    epilogue's rounded ``bm x (bm + 2)`` park inside the ring, and the
+    transposed reads of 32 neighbouring park rows in distinct banks."""
     p = K.rank_k_params(bm, bk, torch.bfloat16)
-    assert p["threads"] == (128 if bm == 64 else 256)
-    assert p["warps"] == ((2, 2) if bm == 64 else (2, 4))
-    assert p["passes"] == 1 and p["pass"] == (bm, bm)
-    stage = 2 * 2 * bm * (bk + G.BF16_PAD)
-    assert 2 <= p["stages"] <= 4 and p["stages"] * stage <= G.RING_BUDGET
-    assert p["stages"] == 4 or (p["stages"] + 1) * stage > G.RING_BUDGET
-    assert p["park"] == 2 * bm * (bm + 2)
-    assert p["smem"] == max(p["stages"] * stage, p["park"]) <= G.SMEM_MAX
-    row = 2 * (bk + G.BF16_PAD)
-    assert len({(r * row // 16) % 8 for r in range(8)}) == 8
+    assert p == K.rank_k_params(bm, 64, torch.bfloat16)
+    assert p["step"] == K.BF16_STEP == 64 and p["swizzle"] == 2 * 64
+    assert p["pass"] == (bm, bm) and p["passes"] == 1
+    assert p["warpgroups"] == bm // 64 and p["threads"] == 128 * (bm // 64)
+    # a thread's bm / 2 accumulators and 64 registers beside them, over
+    # the SM's 2048 threads of 64K registers
+    assert p["blocks"] == min(4, 512 // (p["warpgroups"] * (bm // 2 + 64)))
+    region = bm * 2 * K.BF16_STEP
+    stage = 2 * region
+    assert region % G.SWIZZLE_REPEAT == 0 and stage % G.SWIZZLE_REPEAT == 0
+    budget = G.SMEM_SM // p["blocks"] - 4 * G.SWIZZLE_REPEAT
+    assert 2 <= p["stages"] <= G.WGMMA_MAX_STAGES
+    assert p["stages"] * stage <= budget
+    assert p["stages"] == G.WGMMA_MAX_STAGES or \
+        (p["stages"] + 1) * stage > budget
+    ring = p["stages"] * stage
+    assert p["park"] == 2 * bm * (bm + 2) <= ring
+    assert p["smem"] == max(G.SWIZZLE_REPEAT + p["stages"] * (stage + 16),
+                            p["park"]) <= G.SMEM_MAX
+    assert p["blocks"] * (p["smem"] + 1024) <= G.SMEM_SM
     words = (bm + 2) // 2
     assert len({(r * words) % 32 for r in range(32)}) == 32
     # the float32 kernels' parameters are their own
     assert K.rank_k_params(bm, bk)["park"] == 4 * bm * (bm + 1)
+    assert "step" not in K.rank_k_params(bm, bk)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_rank_k_bf16_block_order_is_a_bijection(variant):
+    """The bf16 kernels' block order (``tile_of_block``, the mirror of
+    ``csrc/rank_k_tile_bf16.cuh``'s maps) sends every launched block of
+    the variant's grid to a distinct tile inside the grid, at every nb of
+    1-300; ``tri_packed`` covers exactly the tiles on and below the
+    diagonal, and under ``tri`` the blocks that return at once (j > i) are
+    exactly the tiles above it.  The blocks in flight cover compact groups:
+    the first ``BLOCK_GROUP * nb`` blocks of ``full`` lie in the first
+    ``BLOCK_GROUP`` tile rows."""
+    for nb in range(1, 301):
+        blocks = nb * (nb + 1) // 2 if variant == "tri_packed" else nb * nb
+        i, j = K.tile_of_block(variant, nb, torch.arange(blocks))
+        assert bool(((0 <= j) & (j < nb) & (0 <= i) & (i < nb)).all()), nb
+        assert torch.unique(i * nb + j).numel() == blocks, nb
+        if variant == "tri_packed":
+            assert bool((j <= i).all()), nb
+        elif variant == "tri":
+            returning = j > i
+            assert int(returning.sum()) == nb * (nb - 1) // 2, nb
+            assert torch.unique(i[~returning] * nb + j[~returning]).numel() \
+                == nb * (nb + 1) // 2
+        else:
+            first = min(K.BLOCK_GROUP, nb) * nb
+            assert bool((i[:first] < K.BLOCK_GROUP).all()), nb
+    assert K.tile_of_block(variant, 40, 0) == (0, 0)
 
 
 @pytest.mark.parametrize("variant,dtype,kernel", (
@@ -344,3 +387,26 @@ def test_chip_smoke_bf16_limit_rejects_a_wrong_rank_k_kernel(op):
     wrong_c = K.rank_k_plain(ys[0], b, None, alpha=kw["alpha"])
     assert cs._bf16_excess(wrong_k, plain, slack) > 1.0
     assert cs._bf16_excess(wrong_c, plain, slack) > 1.0
+
+
+def test_rank_k_variants_script_applies_to_the_checkout(tmp_path):
+    """``scripts/torch_rank_k_variants.py`` times the bf16 rank-k kernels
+    under variants that change one constant of ``csrc/`` each: every
+    substitution applies exactly once to this checkout's sources, and
+    ``base`` is the sources as they are."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_rank_k_variants.py"
+    spec = importlib.util.spec_from_file_location("rank_k_variants", path)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    from repro_torch.kernels import _build
+    for name in variants.VARIANTS:
+        out = variants.csrc_copy(name, tmp_path)
+        changed = sorted(p.name for p in out.iterdir()
+                         if p.read_text() != (_build.CSRC / p.name)
+                         .read_text())
+        assert changed == sorted({f for f, _, _ in
+                                  variants.VARIANTS[name]}), name
+    assert variants.VARIANTS["base"] == []

@@ -1223,7 +1223,7 @@ def test_bf16_symm_trmm_are_built_with_their_python_mirror():
 
 
 # -- the bf16 SYRK and SYR2K (csrc/rank_k_bf16.cu, csrc/rank_k_packed_bf16.cu,
-# on the bf16 mainloop with B staged as rows) --------------------------------
+# on the wgmma mainloop with both sides K-major) ----------------------------
 
 @pytest.mark.gpu
 def test_bf16_rank_k_kernels_hold_phase_3s_checks():
@@ -1245,19 +1245,34 @@ def test_bf16_rank_k_kernels_hold_phase_3s_checks():
 def test_bf16_rank_k_are_built_with_their_python_mirror():
     """The launch parameters compiled into rank_k_bf16.cu and
     rank_k_packed_bf16.cu equal ``rank_k_params(bm, bk,
-    torch.bfloat16)``."""
+    torch.bfloat16)`` (threads, stages, shared bytes, passes, warpgroups,
+    swizzle, blocks an SM, park), and their block orders
+    ``tile_of_block`` at a grid of 40 tiles a side."""
     _need_card()
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import syrk as K
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
+    ij = (ctypes.c_int * 2)()
+    keys = ("threads", "stages", "smem", "passes", "warpgroups", "swizzle",
+            "blocks", "park")
     for name in ("rank_k_bf16", "rank_k_packed_bf16"):
-        config = getattr(_build.load(name), f"repro_{name}_config")
+        lib = _build.load(name)
+        config = getattr(lib, f"repro_{name}_config")
         for bm, bk in sorted(K.TILES):
             assert config(bm, bk, out) == 0, (name, bm, bk)
             p = K.rank_k_params(bm, bk, torch.bfloat16)
-            assert list(out) == [p["threads"], p["stages"], p["smem"],
-                                 p["passes"], *p["warps"]], (name, bm, bk)
+            assert list(out) == [p[key] for key in keys], (name, bm, bk)
+        block_tile = getattr(lib, f"repro_{name}_block_tile")
+        block_tile.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                               ctypes.POINTER(ctypes.c_int)]
+        variant = "tri_packed" if name == "rank_k_packed_bf16" else "full"
+        nb = 40
+        blocks = nb * (nb + 1) // 2 if variant == "tri_packed" else nb * nb
+        i, j = K.tile_of_block(variant, nb, torch.arange(blocks))
+        for t in range(blocks):
+            block_tile(nb, t, ij)
+            assert tuple(ij) == (i[t].item(), j[t].item()), (name, t)
 
 
 # -- the bf16 TRSM (csrc/trsm_bf16.cu: the inverses in float32 rounded once,
