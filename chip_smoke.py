@@ -15,14 +15,16 @@ calls, and fails (non-zero exit) if any phase fails:
    source's build seconds.  Fails if any
    instantiation of the kernels spills, or if the launch parameters they
    were built with (threads, stages, shared bytes, passes; trsm's inverse
-   kernel and workspace too; the bf16 gemm, symm and rank-k kernels'
-   warpgroups and swizzle, rank-k's blocks an SM and park too, the other
-   bf16 kernels' warp grid), the bf16 rank-k kernels' block orders at
-   :data:`RANK_K_ORDER_NBS` or the GEMMs'
+   kernel and workspace too; the bf16 gemm, symm, trmm and rank-k
+   kernels' warpgroups and swizzle, rank-k's blocks an SM and park too,
+   the bf16 trsm's warp grid), the bf16 rank-k kernels' block orders at
+   :data:`RANK_K_ORDER_NBS`, the bf16 trmm kernels' at
+   :data:`TRMM_ORDER_GRIDS` or the GEMMs'
    split-k plan differ from their Python mirrors
    (``kernels/gemm.py::mainloop_params`` at float32 and bfloat16,
    ``mma_sync_params``, ``split_plan``,
    ``kernels/syrk.py::rank_k_params`` and ``tile_of_block``,
+   ``kernels/trmm.py::tile_of_block``,
    ``kernels/trsm.py::trsm_params`` at float32 and bfloat16);
 3. kernel vs oracle: every kernel under every candidate of its Hopper knob
    space against a float64 oracle, held to ``F32_TOL`` (tighter than the
@@ -451,6 +453,11 @@ RANK_K_PATH_DIMS = ((129, 65), (1, 384), ALIGNED_2D)
 #: to their Python mirror (``kernels/syrk.py::tile_of_block``): one tile, a
 #: group and its edges, 5b's calls at bm 64 and 128 (224, 112, 64 and 32)
 RANK_K_ORDER_NBS = (1, 2, 15, 16, 17, 33, 64, 112, 224)
+#: (column tiles, row blocks) of the bf16 trmm grids whose block orders
+#: phase 2 holds to their mirror: small and ragged ones, groups cut short,
+#: and the preconditioner's big call at 64x64 and 128x128
+TRMM_ORDER_GRIDS = ((1, 1), (1, 2), (3, 1), (7, 5), (8, 9), (17, 3),
+                    (224, 64), (112, 32))
 STACK = 3
 #: max relative error (to the largest output) of the kernel vs a float64
 #: oracle and of a served result vs the plain version.  The reference
@@ -4474,30 +4481,45 @@ def check_build() -> None:
             raise SystemExit(f"[build:gemm_bf16] split at {(m, k, n)} tile "
                              f"{bm}x{bn}: C {(out[0], out[1])}, Python "
                              f"{G.split_plan(m, n, k, bm, bn)}")
-    # the bf16 symm and trmm kernels at bk 64: symm's wgmma loop (a
-    # stage's A region holds either layout), trmm's mma.sync loop
+    # the bf16 symm and trmm kernels at bk 64: the wgmma loop's tile (a
+    # stage's A region holds either layout), and trmm's block orders
     bf16_2d = 0
+    ij = (ctypes.c_int * 2)()
     for name, tiles in (("symm_bf16", S.TILES), ("trmm_bf16", TM.TILES),
                         ("trmm_packed_bf16", TM.TILES)):
-        config = getattr(_build.load(name), f"repro_{name}_config")
+        lib = _build.load(name)
+        config = getattr(lib, f"repro_{name}_config")
         for bm, bn in sorted(tiles):
-            if name == "symm_bf16":
-                p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
-                want = [p["warpgroups"], p["swizzle"]]
-            else:
-                p = G.mma_sync_params(bm, 64, bn)
-                want = list(p["warps"])
+            p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
             want = [p["threads"], p["stages"], p["smem"], p["passes"],
-                    *want]
+                    p["warpgroups"], p["swizzle"]]
             bf16_2d += 1
             if config(bm, bn, out6) != 0 or list(out6) != want:
                 raise SystemExit(f"[build:{name}] tile {(bm, 64, bn)}: "
                                  f"built with {list(out6)}, its Python "
                                  f"mirror {want}")
+        if name == "symm_bf16":
+            continue
+        block_tile = getattr(lib, f"repro_{name}_block_tile")
+        block_tile.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                               ctypes.POINTER(ctypes.c_int)]
+        block_tile.restype = None
+        variant = "tri_packed" if name == "trmm_packed_bf16" else "tri"
+        for nx, nb in TRMM_ORDER_GRIDS:
+            blocks = nx * (-(-nb // 2) if variant == "tri_packed" else nb)
+            want = torch.stack(TM.tile_of_block(variant, nx, nb,
+                                                torch.arange(blocks)), 1)
+            got = []
+            for t in range(blocks):
+                block_tile(nx, nb, t, ij)
+                got.append(tuple(ij))
+            if got != [tuple(row) for row in want.tolist()]:
+                raise SystemExit(f"[build:{name}] the block order at "
+                                 f"(nx, nb) = {(nx, nb)} differs from "
+                                 f"tile_of_block")
     # the bf16 rank-k kernels: the wgmma loop's tile at a step of 64, both
     # sides K-major, the rounded tile parked; and their block orders
     out8 = (ctypes.c_int * 8)()
-    ij = (ctypes.c_int * 2)()
     for name in ("rank_k_bf16", "rank_k_packed_bf16"):
         lib = _build.load(name)
         config = getattr(lib, f"repro_{name}_config")
@@ -4529,7 +4551,8 @@ def check_build() -> None:
                                  f"{nb} differs from tile_of_block")
     print(f"[build] launch parameters of "
           f"{len(configs) + 2 * len(T.TILES) + len(G.TILES) + bf16_2d} tiles, "
-          f"the bf16 rank-k block orders at nb in {RANK_K_ORDER_NBS} and "
+          f"the bf16 rank-k block orders at nb in {RANK_K_ORDER_NBS}, the "
+          f"bf16 trmm ones at (nx, nb) in {TRMM_ORDER_GRIDS} and "
           f"the split plans at {len(dims)} dims x {len(G.TILES)} tiles (bf16: "
           f"{len(bf16_dims)} dims) equal their Python mirrors", flush=True)
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Two versions of the port's bf16 GEMM, SYMM and rank-k kernels side by
-side, on the card.
+"""Two versions of the port's bf16 GEMM, SYMM, rank-k and TRMM kernels
+side by side, on the card.
 
 For the checkout whose ``src`` is given (this one by default), this prints
 on the card it runs on:
@@ -23,10 +23,21 @@ on the card it runs on:
   then each kernel's default total over the calls (``rank_k_bf16``:
   ``full`` and ``tri``; ``rank_k_packed_bf16``: ``tri_packed``), as phase 7
   sums them;
-- ``[ab:precond]``: the other bf16 kernels at phase 5b's calls at the
-  default tile, whose times a change to the rank-k kernels must leave
-  alone: ``trmm_bf16`` (``full`` and ``tri``), ``trmm_packed_bf16`` and
-  the trsm call (``trsm_inv_bf16`` then ``trsm_bf16``), and each total;
+- ``[ab:trmm_bf16]``: the bf16 TRMM at phase 5b's two calls (the big
+  tril(L) against G and the (8,512,512) stack) under ``full``, ``tri``
+  and ``tri_packed``, each at the default tile and the best tile of the
+  variant, with its share of the bf16 bound, beside ``torch.matmul`` of
+  ``tril(A)`` in bf16; then each kernel's default total over the calls
+  (``trmm_bf16``: ``full`` and ``tri``; ``trmm_packed_bf16``:
+  ``tri_packed``), as phase 7 sums them;
+- ``[ab:precond]``: the bf16 trsm call at phase 5b's calls at the default
+  tile (``trsm_inv_bf16`` then ``trsm_bf16``), and the default totals of
+  the trmm kernels and of trsm;
+- with ``--orders``, ``[variants:trmm]``: the bf16 trmm kernels of that
+  ``src`` built once more under the block order before the column groups
+  (``scripts/torch_trmm_bf16_variants.py``'s ``rows``) and timed beside
+  its own at the big call, bit for bit the same (a checkout whose sources
+  have no column groups fails);
 - ``[ab:6g]``: the device time a call (``torch.profiler``, the kernels'
   own time) of the bf16 GEMM at the default tile at phase 6g's shapes,
   llama3-8b's four kinds of linear and its LM head in a prefill of 4 x 128
@@ -37,16 +48,17 @@ on the card it runs on:
   ``src`` (``chip_smoke.KERNEL_SOURCES``) built at once into a fresh
   directory, as phase 2 builds them, and each source's seconds of nvcc;
 - with ``--checks``, ``chip_smoke.check_gemm_bf16``,
-  ``check_symm_trmm_bf16`` and ``check_rank_k_bf16`` (phase 3's bf16
-  gemm, symm, trmm, syrk and syr2k checks, this checkout's version of
-  them) run on that ``src``: their lines carry each kernel's largest
-  elementwise excess over one bf16 ulp plus the float32 slack.
+  ``check_symm_trmm_bf16``, ``check_rank_k_bf16`` and
+  ``check_trsm_bf16`` (phase 3's bf16 gemm, symm, trmm, syrk, syr2k and
+  trsm checks, this checkout's version of them) run on that ``src``:
+  their lines carry each kernel's largest elementwise excess over one
+  bf16 ulp plus the float32 slack.
 
 Run from the root of a checkout, the versions in turns (a parent unpacked
 with ``git archive`` into a directory ``.gitignore`` lists)::
 
     python3 -u scripts/torch_bf16_ab.py --src build/parent/src --label parent
-    python3 -u scripts/torch_bf16_ab.py --label change --checks
+    python3 -u scripts/torch_bf16_ab.py --label change --checks --orders
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--checks", action="store_true")
     parser.add_argument("--build", action="store_true")
+    parser.add_argument("--orders", action="store_true")
     args = parser.parse_args(argv)
     sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
 
@@ -175,6 +188,13 @@ def main(argv: list[str]) -> int:
           f"{total:.4f} ms", flush=True)
     rank_k_and_precond(torch, cs, ops, gen, label)
     matmul.allow_bf16_reduced_precision_reduction = reduced
+    if args.orders:
+        sys.path.insert(0, str(ROOT / "scripts"))
+        import torch_trmm_bf16_variants as variants
+        variants.compare(torch, ["base", "rows"], 2,
+                         knobs=[(bm, bn, var)
+                                for bm, bn in ((64, 64), (128, 128))
+                                for var in ("full", "tri", "tri_packed")])
 
     # phase 6g's GEMMs: a layer's q, k, v, o, gate, up, down, and the head
     layer = ((cs.D_MODEL, cs.D_MODEL), (cs.D_MODEL, cs.KV_WIDTH),
@@ -206,13 +226,14 @@ def main(argv: list[str]) -> int:
         cs.check_gemm_bf16(torch, rand)
         cs.check_symm_trmm_bf16(torch, rand)
         cs.check_rank_k_bf16(torch, rand)
+        cs.check_trsm_bf16(torch, rand)
     return 0
 
 
 def rank_k_and_precond(torch, cs, ops, gen, label: str) -> None:
-    """The ``[ab:rank_k_bf16]`` and ``[ab:precond]`` lines: phase 5b's
-    calls on bf16 operands (``cs.make_operands``, cycled through > 120
-    MB), CUDA events around back-to-back calls."""
+    """The ``[ab:rank_k_bf16]``, ``[ab:trmm_bf16]`` and ``[ab:precond]``
+    lines: phase 5b's calls on bf16 operands (``cs.make_operands``, cycled
+    through > 120 MB), CUDA events around back-to-back calls."""
     from repro_torch.core.knobs import HOPPER_2D_VARIANTS
     totals = {}
     for case in cs.bf16_precond_cases():
@@ -240,9 +261,6 @@ def rank_k_and_precond(torch, cs, ops, gen, label: str) -> None:
             ms = cs._time_ms(torch, cs._kernel_fn(op, kd, kw), sets)
             name = cs.kernel_of(op, kd, torch.bfloat16)
             totals[name] = totals.get(name, 0.0) + ms
-            if op == "trmm":
-                parts.append(f"{var} {ms:.4f} ms")
-                continue
             best_ms, best = min(
                 ((cs._time_ms(torch, cs._kernel_fn(op, k.dict, kw), sets,
                               iters=3), k.dict)
@@ -252,21 +270,23 @@ def rank_k_and_precond(torch, cs, ops, gen, label: str) -> None:
                          f"({100 * bound_ms / ms:.1f} % of bound), best "
                          f"{cs._knob_str(op, best)} {best_ms:.4f} ms "
                          f"({100 * bound_ms / best_ms:.1f} %)")
+        lib, prep = cs._library_fn(torch, op, kw, shapes)
+        lib_sets = [prep(xs) for xs in sets] if prep else sets
+        library_ms = cs._time_ms(torch, lib, lib_sets)
+        what = "torch.addmm" if kw else "torch.matmul"
         if op == "trmm":
-            print(f"[ab:precond] {label} {case['label']}: default "
-                  f"{cs._knob_str(op, default)} " + ", ".join(parts),
-                  flush=True)
-        else:
-            lib, _ = cs._library_fn(torch, op, kw, shapes)
-            library_ms = cs._time_ms(torch, lib, sets)
-            print(f"[ab:rank_k_bf16] {label} {case['label']}: "
-                  + " | ".join(parts) + f" | library "
-                  f"({'torch.addmm' if kw else 'torch.matmul'} bf16) "
-                  f"{library_ms:.4f} ms ({100 * bound_ms / library_ms:.1f} "
-                  f"%) | bound {bound_ms:.4f} ms", flush=True)
-        del sets
+            what += " of tril(A)"
+        tag = "trmm_bf16" if op == "trmm" else "rank_k_bf16"
+        print(f"[ab:{tag}] {label} {case['label']}: "
+              + " | ".join(parts) + f" | library ({what} bf16) "
+              f"{library_ms:.4f} ms ({100 * bound_ms / library_ms:.1f} "
+              f"%) | bound {bound_ms:.4f} ms", flush=True)
+        del sets, lib_sets
     for name in ("rank_k_bf16", "rank_k_packed_bf16"):
         print(f"[ab:rank_k_bf16] {label}: {name} default over 5b's 5 calls "
+              f"{totals[name]:.4f} ms", flush=True)
+    for name in ("trmm_bf16", "trmm_packed_bf16"):
+        print(f"[ab:trmm_bf16] {label}: {name} default over 5b's 2 calls "
               f"{totals[name]:.4f} ms", flush=True)
     print(f"[ab:precond] {label}: default over 5b's calls "
           + ", ".join(f"{name} {totals[name]:.4f} ms" for name in

@@ -66,12 +66,13 @@ KNOBS = [(bm, var) for bm in (64, 128)
          for var in ("full", "tri", "tri_packed")]
 
 
-def csrc_copy(variant: str, root: Path) -> Path:
-    """A copy of ``csrc/`` with the substitutions of ``variant``."""
+def csrc_copy(variant: str, root: Path, table: dict | None = None) -> Path:
+    """A copy of ``csrc/`` with the substitutions of ``variant`` in
+    ``table`` (:data:`VARIANTS` by default)."""
     from repro_torch.kernels import _build
     out = root / variant
     shutil.copytree(_build.CSRC, out)
-    for name, text, new in VARIANTS[variant]:
+    for name, text, new in (VARIANTS if table is None else table)[variant]:
         path = out / name
         src = path.read_text()
         if src.count(text) != 1:

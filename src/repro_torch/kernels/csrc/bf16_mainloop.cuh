@@ -1,12 +1,10 @@
 // The bfloat16 mainloop on the tensor cores with mma.sync, beside the
 // float32 one (sgemm_mainloop.cuh): one block computes its BM x BN tile of
 // float32 accumulators over a range of the contraction from bfloat16 A and
-// B, with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The trmm kernels
-// (trmm_bf16.cu, trmm_packed_bf16.cu) and trsm_bf16.cu's substitution run
-// it (gemm_bf16.cu, symm_bf16.cu and the rank-k kernels run the wgmma
-// loop, bf16_wgmma_mainloop.cuh); what feeds the tiles is a producer, as
-// in the float32 loop: trmm_tile_bf16.cuh stages tril(A) with a per-row
-// column limit (load_tile's LOWER mode).
+// B, with mma.sync m16n8k16 (bf16 in, f32 accumulate).  trsm_bf16.cu's
+// substitution is its last user (gemm_bf16.cu, symm_bf16.cu, the rank-k
+// and the trmm kernels run the wgmma loop, bf16_wgmma_mainloop.cuh); what
+// feeds the tiles is a producer, as in the float32 loop.
 //
 // Replaces, with the float32 loop, the reference package's Pallas dot
 // src/repro/kernels/gemm.py::_gemm_kernel (jnp.dot(...,
@@ -116,11 +114,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 // Stages the R x C window starting at (i0, j0) of the row-major bf16
 // matrix p (leading stride ld, rows x cols stored) into s, row-major with
 // stride LD, in chunks of 8 elements; elements past rows or cols read zero.
-// With LOWER, row gi is stored in its columns 0 .. gi only (the lower
-// triangle of a square matrix): a chunk at (gi, gj) reads clamp(min(cols,
-// gi + 1) - gj, 0, 8) elements and zero-fills the rest, so no element above
-// the diagonal is read.  p is a safe address for the zero-byte copies.
-template <int R, int C, int THREADS, int LD, bool LOWER = false>
+// p is a safe address for the zero-byte copies.
+template <int R, int C, int THREADS, int LD>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* p,
                                           long long ld, int rows, int cols,
                                           int i0, int j0, bool vec) {
@@ -132,12 +127,10 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* p,
     if (N % THREADS != 0 && t >= N) break;
     const int i = t / CH, jc = (t % CH) * 8;
     const int gi = i0 + i, gj = j0 + jc;
-    // the end of row gi's stored columns
-    const int lim = LOWER ? cmin(cols, gi + 1) : cols;
     bf16* d = s + i * LD + jc;
     const bf16* row = p + gi * ld;
     if (vec) {
-      const int nv = gi < rows ? cmin(cmax(lim - gj, 0), 8) : 0;
+      const int nv = gi < rows ? cmin(cmax(cols - gj, 0), 8) : 0;
       cp_async16(d, nv ? row + gj : p, 2 * nv);
     } else {
       const unsigned short* src =
@@ -145,7 +138,7 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* p,
       unsigned v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        v[e] = gi < rows && gj + e < lim ? __ldg(src + e) : 0u;
+        v[e] = gi < rows && gj + e < cols ? __ldg(src + e) : 0u;
       *reinterpret_cast<uint4*>(d) =
           make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
                      v[6] | v[7] << 16);

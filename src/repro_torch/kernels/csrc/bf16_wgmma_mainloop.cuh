@@ -3,12 +3,13 @@
 // contraction from bfloat16 A and B with wgmma.mma_async (m64nNk16, bf16
 // in, f32 accumulate), both operands read from shared memory, fed by TMA
 // (cp.async.bulk.tensor) through a ring of stages guarded by mbarriers.
-// gemm_bf16.cu, symm_bf16.cu and the rank-k kernels (rank_k_tile_bf16.cuh)
-// run it; what fills a stage is a producer (GemmProducer below;
-// symm_bf16.cu's SymmProducer stitches sym(A) from the stored triangle;
-// rank-k's stages rows of A or B on both sides).  bf16_mainloop.cuh, the
-// mma.sync loop it replaces for those, stays for the trmm and trsm
-// kernels.
+// gemm_bf16.cu, symm_bf16.cu, the rank-k kernels (rank_k_tile_bf16.cuh)
+// and the trmm kernels (trmm_tile_bf16.cuh) run it; what fills a stage is
+// a producer (GemmProducer below; symm_bf16.cu's SymmProducer stitches
+// sym(A) from the stored triangle; rank-k's stages rows of A or B on both
+// sides; trmm's TrmmProducer stages tril(A)), and a step plan says which
+// steps each pass runs.  bf16_mainloop.cuh, the mma.sync loop it replaces
+// for those, stays for trsm_bf16.cu's substitution.
 //
 // Replaces, with the float32 loop, the reference package's Pallas dot
 // src/repro/kernels/gemm.py::_gemm_kernel (jnp.dot(...,
@@ -60,7 +61,9 @@
 // step's `full` barrier (which then guards the TMA parts alone): 2-byte
 // loads, zero past an edge, into the same swizzled layout with 16-byte
 // shared stores, then fence.proxy.async (the generic proxy's stores
-// before the async proxy's reads) and __syncthreads.
+// before the async proxy's reads) and __syncthreads.  trmm's steps across
+// the diagonal go the same way, the threads zeroing what lies above the
+// diagonal in the stage that TMA filled.
 // Both paths put the same values in the same places and feed identical
 // wgmma instructions, so odd strides == aligned copies bit for bit.
 //
@@ -458,14 +461,26 @@ struct Where {
 //   bool trans_a(Where w)            A staged MN-major (a constant false
 //                                    folds the transposed step away).
 
+// A step plan S gives a block's passes and their contraction steps, one
+// sequence through the ring (step g is the ring's stage g % STAGES in its
+// phase g / STAGES):
+//   int total()                      the steps of every pass;
+//   int first(int pass), count(int pass)
+//                                    the pass's first step and its steps;
+//   Where origin(int pass)           its first row, column and index;
+//   Where at(int g)                  where step g reads.
+// Steps below is the plan of gemm, symm and rank-k, the same steps in every
+// pass; trmm_tile_bf16.cuh's TrmmSteps ends each pass where its rows do.
+
 // The block's steps: `steps` contraction steps of BK from kbeg in each of
 // its `passes` passes, `passes_n` of them across the columns from col0 and
-// the rest down the rows from row0; step g is the ring's stage
-// g % STAGES in its phase g / STAGES.
+// the rest down the rows from row0.
 template <class T>
 struct Steps {
   int row0, col0, kbeg, steps, passes, passes_n;
   __device__ int total() const { return steps * passes; }
+  __device__ int first(int pass) const { return pass * steps; }
+  __device__ int count(int) const { return steps; }
   __device__ Where origin(int pass) const {
     // passes_n is 1, or 2 with PASSES_N 2
     const int pm = T::PASSES_N == 1 ? pass : pass / passes_n;
@@ -494,9 +509,9 @@ __device__ __forceinline__ Steps<T> block_steps(int row0, int col0, int m,
 }
 
 // Step g's copies into its stage, which no warp reads any more.
-template <class T, class P>
+template <class T, class P, class S>
 __device__ __forceinline__ void fill(const Ring<T>& ring, const P& prod,
-                                     const Steps<T>& st, int g) {
+                                     const S& st, int g) {
   const int s = g % T::STAGES;
   const Where w = st.at(g);
   const int bytes = prod.tma_bytes(w);
@@ -511,9 +526,9 @@ __device__ __forceinline__ void fill(const Ring<T>& ring, const P& prod,
 
 // Before the first pass: the first STAGES steps' copies, lane g of warp 0
 // issuing step g.
-template <class T, class P>
+template <class T, class P, class S>
 __device__ __forceinline__ void prime(const Ring<T>& ring, const P& prod,
-                                      const Steps<T>& st) {
+                                      const S& st) {
   static_assert(T::STAGES <= 32, "a lane a stage");
   if (threadIdx.x < cmin(T::STAGES, st.total()))
     fill(ring, prod, st, threadIdx.x);
@@ -550,9 +565,9 @@ __device__ __forceinline__ void stage_mma(uint32_t a, uint32_t b, int wg,
 // committed as one, and once the group before has retired its stages are
 // released together, a lane a stage.  So a small BK costs a barrier wait
 // a stage but one commit and wait a group.  Leaves no wgmma in flight.
-template <class T, class P>
+template <class T, class P, class S>
 __device__ __forceinline__ void consume(const Ring<T>& ring, const P& prod,
-                                        const Steps<T>& st, int pass,
+                                        const S& st, int pass,
                                         float (&acc)[T::ACC]) {
   const int tid = threadIdx.x, wg = tid / 128;
 #pragma unroll
@@ -575,7 +590,7 @@ __device__ __forceinline__ void consume(const Ring<T>& ring, const P& prod,
     }
     __syncwarp();
   };
-  const int g0 = pass * st.steps, g1 = g0 + st.steps;
+  const int g0 = st.first(pass), g1 = g0 + st.count(pass);
   const Where o = st.origin(pass);
   int held = g0, n_held = 0;  // the group in flight
   for (int g = g0; g < g1; g += T::GROUP) {

@@ -27,7 +27,8 @@ a per-call workspace and the last slice of a tile adds them in slice order,
 inside the same launch.  :func:`mainloop_params` gives the launch
 parameters ``csrc/sgemm_mainloop.cuh`` and ``csrc/bf16_wgmma_mainloop.cuh``
 derive from a tile (:func:`mma_sync_params` those of
-``csrc/bf16_mainloop.cuh``, the bf16 trmm and trsm kernels').
+``csrc/bf16_mainloop.cuh``, whose last user is the bf16 trsm
+substitution).
 """
 
 from __future__ import annotations
@@ -115,8 +116,8 @@ def ring_stages(stage_bytes: int) -> int:
 
 def mma_sync_params(bm: int, bk: int, bn: int) -> dict:
     """The launch parameters ``csrc/bf16_mainloop.cuh`` (the ``mma.sync``
-    loop of the bf16 trmm and trsm kernels) derives from the tile
-    ``(bm, bk, bn)`` (trmm: ``bk`` = 64): the pass (at most 128 x 128
+    loop of the bf16 trsm substitution, its last user) derives from the
+    tile ``(bm, bk, bn)`` (trsm: ``bk`` = 64): the pass (at most 128 x 128
     accumulators; a larger tile runs its passes one after the other),
     threads (128-256), the warp grid and a warp's tile (its A and B rows
     padded by :data:`BF16_PAD` elements in shared memory; a stage's A region
@@ -140,10 +141,10 @@ def mma_sync_params(bm: int, bk: int, bn: int) -> dict:
 def mainloop_params(bm: int, bk: int, bn: int,
                     dtype: torch.dtype = torch.float32) -> dict:
     """The launch parameters ``csrc/sgemm_mainloop.cuh`` (float32) or
-    ``csrc/bf16_wgmma_mainloop.cuh`` (bfloat16: the gemm and symm kernels,
-    symm at ``bk`` = 64; the rank-k kernels' ``bm x bm`` tile at ``bk`` =
-    64, its B K-major in the same bytes) derives from the tile ``(bm, bk,
-    bn)``.
+    ``csrc/bf16_wgmma_mainloop.cuh`` (bfloat16: the gemm, symm and trmm
+    kernels, symm and trmm at ``bk`` = 64; the rank-k kernels' ``bm x bm``
+    tile at ``bk`` = 64, its B K-major in the same bytes) derives from the
+    tile ``(bm, bk, bn)``.
 
     float32: the pass (at most 128 x 128 accumulators; a larger tile runs
     its passes one after the other), threads (128-256), the register tile,

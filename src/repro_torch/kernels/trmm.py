@@ -1,8 +1,8 @@
 """TRMM on the H100: ``O = alpha * tril(A) @ B`` (left, lower, non-unit),
 with CUDA C++ kernels written for Hopper, tiled by the knob's ``bm x bn``
 output tile: on the GEMM's f32 mainloop (``csrc/sgemm_mainloop.cuh``) for
-float32 operands, on the bf16 GEMM's tensor-core mainloop
-(``csrc/bf16_mainloop.cuh``) for bfloat16.
+float32 operands, on the bf16 GEMM's wgmma + TMA mainloop
+(``csrc/bf16_wgmma_mainloop.cuh``) for bfloat16.
 
 It takes the place of the reference package's Pallas kernels
 (``src/repro/kernels/trmm.py::trmm_pallas``) with the same semantics and
@@ -20,14 +20,24 @@ the same three variants, which the ADSALA knob selects:
   equals ``tri`` bit for bit.
 
 The kernels of a dtype stage tril(A) through one producer
-(``csrc/trmm_tile.cuh``, bf16 ``csrc/trmm_tile_bf16.cuh``):
-the GEMM's row-major copies with a per-row column limit, so A is read only
-on and below its diagonal and whatever it holds above changes no bit.  A
-is ``(m, m)`` or ``(batch, m, m)``; B is ``(m, n)`` or ``(batch, m, n)``,
-stacked as A is.  Ragged m and n need no padding: the kernels mask A's
-columns and B's rows alike past m.  When A, B and their strides are
-16-byte aligned (:func:`~repro_torch.kernels.gemm.vec_aligned`, no copy)
-the kernels move 16 bytes a copy, else one element, with the same bits.
+(``csrc/trmm_tile.cuh``, bf16 ``csrc/trmm_tile_bf16.cuh``), so whatever A
+holds above its diagonal changes no bit.  float32: the GEMM's row-major
+copies with a per-row column limit, A read only on and below its
+diagonal.  bfloat16: wgmma reads A's steps from shared memory, each step
+(64 contraction indices of a pass of rows) staged by where it lies
+(:func:`step_plan`): below the diagonal TMA's boxes as the GEMM's,
+across it TMA's boxes with the part above the diagonal then zeroed by the
+threads, above it (``full`` only) zeros; a pass's contraction ends at m
+(``full``) or at the end of its rows (``tri``, ``tri_packed``).  The bf16
+kernels map a launched block to its tile by groups of
+:data:`BLOCK_GROUP` column tiles (:func:`tile_of_block`), so that the
+blocks in flight share B's columns in L2.  A is ``(m, m)`` or ``(batch,
+m, m)``; B is ``(m, n)`` or ``(batch, m, n)``, stacked as A is.  Ragged m
+and n need no padding: the kernels mask A's columns and B's rows alike
+past m.  When A, B and their strides are 16-byte aligned
+(:func:`~repro_torch.kernels.gemm.vec_aligned`, no copy) the kernels
+move 16 bytes a copy (bf16: TMA's boxes), else one element, with the same
+bits.
 A and B are both float32 or both bfloat16; the result is a new tensor of
 A's dtype, accumulated in float32 (bf16 rounded once, at the store, as
 the reference's kernel writes its float32 scratch).
@@ -51,7 +61,9 @@ from . import _build
 from .gemm import vec_aligned
 from .introspect import launch_events, record_launch
 
-__all__ = ["trmm", "trmm_plain", "TILES", "VARIANTS", "KERNEL_OF"]
+__all__ = ["trmm", "trmm_plain", "step_plan", "block_rows",
+           "tile_of_block", "TILES", "VARIANTS", "KERNEL_OF", "BF16_STEP",
+           "BLOCK_GROUP"]
 
 #: the ``(bm, bn)`` output tiles every kernel is instantiated for
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("trmm"))
@@ -65,6 +77,12 @@ KERNEL_OF = {torch.float32: {"trmm": ("trmm", "repro_trmm_f32"),
              torch.bfloat16: {"trmm": ("trmm_bf16", "repro_trmm_bf16"),
                               "trmm_packed": ("trmm_packed_bf16",
                                               "repro_trmm_packed_bf16")}}
+
+#: contraction indices a step of the bf16 kernels holds
+#: (``csrc/trmm_tile_bf16.cuh`` ``BK``)
+BF16_STEP = 64
+#: column tiles of a group in the bf16 kernels' block order (``kGroup``)
+BLOCK_GROUP = 16
 
 #: grid y and z limits of a launch (m-tiles and batch)
 _MAX_GRID_YZ = 65535
@@ -87,6 +105,63 @@ def trmm_plain(a: torch.Tensor, b: torch.Tensor, *,
     in float32, cast to A's dtype."""
     out = alpha * torch.matmul(torch.tril(a.float()), b.float())
     return out.to(a.dtype)
+
+
+def block_rows(variant: str, m: int, bm: int, rank: int) -> list[int]:
+    """The first rows of the output tiles that the block of row block
+    ``rank`` (``full``, ``tri``) or of pair ``rank`` (``tri_packed``: row
+    blocks ``rank`` and ``nb - 1 - rank``, once when they are one)
+    computes, in order."""
+    lo, hi = rank * bm, (-(-m // bm) - 1 - rank) * bm
+    return [lo] if variant != "tri_packed" or hi == lo else [lo, hi]
+
+
+def step_plan(variant: str, m: int, bm: int,
+              rows: list[int]) -> list[tuple[int, list[str]]]:
+    """The passes of a bf16 block computing the tiles whose first rows are
+    ``rows`` (:func:`block_rows`), as ``(prow0, kinds)`` in the order they
+    run through the block's ring: the mirror of
+    ``csrc/trmm_tile_bf16.cuh``'s ``TrmmSteps`` and its producer.
+
+    A tile runs passes of ``min(bm, 128)`` rows that start inside m.  The
+    contraction of the pass at ``prow0`` ends at m under ``full`` and at
+    ``min(prow0 + pass rows, m)`` under ``tri`` and ``tri_packed``; its
+    steps of :data:`BF16_STEP` indices from 0 are each ``"below"`` the
+    diagonal (every element stored: ``k0 + 64 <= prow0 + 1``), ``"above"``
+    it (every element zero: ``k0 >= prow0 +`` pass rows) or ``"across"``
+    it."""
+    pm = min(bm, 128)
+    plan = []
+    for row0 in rows:
+        for prow0 in range(row0, min(row0 + bm, m), pm):
+            kend = m if variant == "full" else min(prow0 + pm, m)
+            plan.append((prow0, [
+                "below" if k0 + BF16_STEP <= prow0 + 1 else
+                "above" if k0 >= prow0 + pm else "across"
+                for k0 in range(0, kend, BF16_STEP)]))
+    return plan
+
+
+def tile_of_block(variant: str, nx: int, nb: int,
+                  block) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``(rank, column tile)`` that the bf16 kernels' launched blocks
+    ``block`` (linear indices ``y * nx + x``, an int or a tensor) compute,
+    in a grid of ``nx`` column tiles and ``nb`` row blocks: the row block
+    (``full``, ``tri``) or the pair (``tri_packed``, ``ceil(nb / 2)`` of
+    them): the mirror of ``csrc/trmm_bf16.cu``'s and
+    ``csrc/trmm_packed_bf16.cu``'s ``block_tile``.
+
+    Groups of :data:`BLOCK_GROUP` column tiles (the last may hold fewer),
+    each walked row by row with its columns fastest: from the last row
+    block up under ``full`` and ``tri`` (the longest first), from the
+    first pair on under ``tri_packed``."""
+    t = torch.as_tensor(block, dtype=torch.int64)
+    ny = nb if variant != "tri_packed" else -(-nb // 2)
+    x0 = t // (BLOCK_GROUP * ny) * BLOCK_GROUP
+    g = torch.clamp(nx - x0, max=BLOCK_GROUP)
+    u = t - x0 * ny
+    rank = u // g
+    return (rank if variant == "tri_packed" else nb - 1 - rank), x0 + u % g
 
 
 def _check(a, b, bm, bn, variant) -> tuple[int, int, int | None]:

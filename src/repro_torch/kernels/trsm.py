@@ -19,8 +19,9 @@ steps with the reference's rounding points: each inverse entry computed in
 float32 as ``trsm_inv`` computes it and rounded once, and per block row
 ``R_i = bf16(float(bf16(alpha B_i)) - float(bf16(A[i, :i] @ X[:i])))``
 (block row 0 included, its contraction empty) and ``X_i = bf16(D_i^-1 @
-R_i)``, every product summed in float32 on the bf16 mainloop
-(``csrc/bf16_mainloop.cuh``).  X is bf16 between block rows, as in the
+R_i)``, every product summed in float32 on the bf16 ``mma.sync``
+mainloop (``csrc/bf16_mainloop.cuh``, of which the substitution is the
+last user).  X is bf16 between block rows, as in the
 reference, whose every intermediate is in A's dtype.  alpha multiplies in
 float32 (the reference's bf16 product rounds alpha to bf16 first: the two
 agree where alpha is a bf16 value).

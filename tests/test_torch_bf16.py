@@ -171,7 +171,7 @@ def test_bf16_mainloop_params_fit_the_card():
     # the default tile: four blocks an SM, each a ring of 13 stages of 4 KB
     p = G.mainloop_params(64, 16, 64, torch.bfloat16)
     assert (p["blocks"], p["stages"], p["smem"]) == (4, 13, 54480)
-    # the mma.sync loop of the bf16 trmm and trsm kernels keeps its own
+    # the mma.sync loop of the bf16 trsm substitution keeps its own
     # derivation
     assert G.mma_sync_params(64, 64, 64)["warps"] == (2, 2)
 

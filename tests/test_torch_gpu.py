@@ -1197,29 +1197,42 @@ def test_bf16_symm_trmm_kernels_hold_phase_3s_checks():
 
 @pytest.mark.gpu
 def test_bf16_symm_trmm_are_built_with_their_python_mirror():
-    """The launch parameters compiled into symm_bf16.cu equal
-    ``mainloop_params(bm, 64, bn, torch.bfloat16)`` (the wgmma loop's),
-    those of trmm_bf16.cu and trmm_packed_bf16.cu ``mma_sync_params(bm,
-    64, bn)``."""
+    """The launch parameters compiled into symm_bf16.cu, trmm_bf16.cu and
+    trmm_packed_bf16.cu equal ``mainloop_params(bm, 64, bn,
+    torch.bfloat16)`` (the wgmma loop's), and the trmm kernels' block
+    orders ``trmm.tile_of_block``."""
     _need_card()
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import symm as S
     from repro_torch.kernels import trmm as TM
     out = (ctypes.c_int * 6)()
+    ij = (ctypes.c_int * 2)()
     for name, tiles in (("symm_bf16", S.TILES), ("trmm_bf16", TM.TILES),
                         ("trmm_packed_bf16", TM.TILES)):
-        config = getattr(_build.load(name), f"repro_{name}_config")
+        lib = _build.load(name)
+        config = getattr(lib, f"repro_{name}_config")
         for bm, bn in sorted(tiles):
             assert config(bm, bn, out) == 0, (name, bm, bn)
-            if name == "symm_bf16":
-                p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
-                want = [p["warpgroups"], p["swizzle"]]
-            else:
-                p = G.mma_sync_params(bm, 64, bn)
-                want = list(p["warps"])
+            p = G.mainloop_params(bm, 64, bn, torch.bfloat16)
             assert list(out) == [p["threads"], p["stages"], p["smem"],
-                                 p["passes"], *want], (name, bm, bn)
+                                 p["passes"], p["warpgroups"],
+                                 p["swizzle"]], (name, bm, bn)
+        if name == "symm_bf16":
+            continue
+        block_tile = getattr(lib, f"repro_{name}_block_tile")
+        block_tile.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                               ctypes.POINTER(ctypes.c_int)]
+        block_tile.restype = None
+        variant = "tri_packed" if name == "trmm_packed_bf16" else "tri"
+        for nx, nb in ((1, 1), (3, 5), (17, 9), (224, 64)):
+            blocks = nx * (-(-nb // 2) if variant == "tri_packed" else nb)
+            rank, col = TM.tile_of_block(variant, nx, nb,
+                                         torch.arange(blocks))
+            for t in range(blocks):
+                block_tile(nx, nb, t, ij)
+                assert tuple(ij) == (int(rank[t]), int(col[t])), \
+                    (name, nx, nb, t)
 
 
 # -- the bf16 SYRK and SYR2K (csrc/rank_k_bf16.cu, csrc/rank_k_packed_bf16.cu,
