@@ -17,12 +17,13 @@ calls, and fails (non-zero exit) if any phase fails:
    were built with (threads, stages, shared bytes, passes; trsm's inverse
    kernel and workspace too; the bf16 gemm, symm, trmm and rank-k
    kernels' warpgroups and swizzle, rank-k's blocks an SM and park too,
-   the bf16 trsm's warp grid), the bf16 rank-k kernels' block orders at
+   the bf16 trsm's warpgroups, blocks an SM and shared region), the bf16
+   rank-k kernels' block orders at
    :data:`RANK_K_ORDER_NBS`, the bf16 trmm kernels' at
    :data:`TRMM_ORDER_GRIDS` or the GEMMs'
    split-k plan differ from their Python mirrors
    (``kernels/gemm.py::mainloop_params`` at float32 and bfloat16,
-   ``mma_sync_params``, ``split_plan``,
+   ``split_plan``,
    ``kernels/syrk.py::rank_k_params`` and ``tile_of_block``,
    ``kernels/trmm.py::tile_of_block``,
    ``kernels/trsm.py::trsm_params`` at float32 and bfloat16);
@@ -4438,13 +4439,15 @@ def check_build() -> None:
                 or list(trsm_out) != want:
             raise SystemExit(f"[build:trsm] tile {(bm, bn)}: built with "
                              f"{list(trsm_out)}, trsm_params {want}")
-    # the bf16 trsm: the substitution's warp grid too, the bf16 workspace
-    trsm_bf16_out = (ctypes.c_int * 9)()
+    # the bf16 trsm: the substitution's warpgroups, blocks an SM and shared
+    # region too, the bf16 workspace
+    trsm_bf16_out = (ctypes.c_int * 10)()
     for bm, bn in sorted(T.TILES):
         p = T.trsm_params(bm, bn, torch.bfloat16)
-        want = [p["threads"], p["stages"], p["smem"], p["passes"],
-                *p["warps"], p["inv_threads"], p["inv_smem"],
-                p["block_workspace"]]
+        want = [p[key] for key in ("threads", "stages", "smem", "passes",
+                                   "warpgroups", "blocks", "region",
+                                   "inv_threads", "inv_smem",
+                                   "block_workspace")]
         if _build.load("trsm_bf16").repro_trsm_bf16_config(
                 bm, bn, trsm_bf16_out) != 0 or list(trsm_bf16_out) != want:
             raise SystemExit(f"[build:trsm_bf16] tile {(bm, bn)}: built "

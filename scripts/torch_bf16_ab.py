@@ -33,6 +33,12 @@ on the card it runs on:
 - ``[ab:precond]``: the bf16 trsm call at phase 5b's calls at the default
   tile (``trsm_inv_bf16`` then ``trsm_bf16``), and the default totals of
   the trmm kernels and of trsm;
+- ``[ab:trsm_bf16]``: the bf16 TRSM's substitution (``trsm_bf16``, from
+  its bm's inverses) at phase 5b's two calls, at the default tile and the
+  best tile of the space, with its share of the bf16 bound, beside
+  ``torch.linalg.solve_triangular`` (bf16 where PyTorch takes it, else
+  float32 on upcast operands); then the default's total over the calls,
+  as phase 7 sums it;
 - with ``--orders``, ``[variants:trmm]``: the bf16 trmm kernels of that
   ``src`` built once more under the block order before the column groups
   (``scripts/torch_trmm_bf16_variants.py``'s ``rows``) and timed beside
@@ -187,6 +193,7 @@ def main(argv: list[str]) -> int:
     print(f"[ab:symm_bf16] {label}: default over 5b's 2 calls "
           f"{total:.4f} ms", flush=True)
     rank_k_and_precond(torch, cs, ops, gen, label)
+    trsm_ab(torch, cs, ops, gen, label)
     matmul.allow_bf16_reduced_precision_reduction = reduced
     if args.orders:
         sys.path.insert(0, str(ROOT / "scripts"))
@@ -291,6 +298,60 @@ def rank_k_and_precond(torch, cs, ops, gen, label: str) -> None:
     print(f"[ab:precond] {label}: default over 5b's calls "
           + ", ".join(f"{name} {totals[name]:.4f} ms" for name in
                       ("trmm_bf16", "trmm_packed_bf16", "trsm")), flush=True)
+
+
+def _trsm_sets(torch, cs, gen, case):
+    """A trsm case's bf16 operand sets (coupled, cycled through > 120
+    MB)."""
+    shapes = case["shapes"]
+    per_set = 2 * sum(math.prod(s) for s in shapes)
+    return [[x.bfloat16() for x in cs.make_operands(
+                torch, gen, "trsm", shapes, coupled=True)]
+            for _ in range(max(1, math.ceil(120e6 / per_set)))]
+
+
+def trsm_ab(torch, cs, ops, gen, label: str) -> None:
+    """The ``[ab:trsm_bf16]`` lines: ``trsm_bf16`` at phase 5b's two trsm
+    calls, from each bm's inverses (made once, outside the timing), CUDA
+    events around back-to-back calls, as phase 7 times it."""
+    from repro_torch.kernels import trsm as T
+    default = ops.default_knob("trsm").dict
+    lib_dtype = cs._solve_dtype(torch)
+    total = 0.0
+    for case in cs.bf16_precond_cases():
+        if case["op"] != "trsm":
+            continue
+        shapes, kw = case["shapes"], case["kw"]
+        sets = _trsm_sets(torch, cs, gen, case)
+        invs = {bm: [(a, b, T.diag_inverses(a, bm=bm)) for a, b in sets]
+                for bm in sorted({t[0] for t in T.TILES})}
+
+        def sub(kd):
+            return lambda a, b, inv: T.substitute(a, b, inv, bm=kd["bm"],
+                                                  bn=kd["bn"], **kw)
+
+        ms = cs._time_ms(torch, sub(default), invs[default["bm"]])
+        best_ms, best = min(
+            ((cs._time_ms(torch, sub(k.dict), invs[k["bm"]], iters=3),
+              k.dict) for k in ops.knob_space_for("trsm")),
+            key=lambda v: v[0])
+        lib_sets = [[x.to(lib_dtype) for x in xs] for xs in sets]
+        library_ms = cs._time_ms(
+            torch, lambda a, b: torch.linalg.solve_triangular(
+                a, b, upper=False), lib_sets)
+        bound_ms, bound_by = cs._bound("trsm", shapes, kw, bf16=True)
+        total += ms
+        print(f"[ab:trsm_bf16] {label} {case['label']}: default "
+              f"{cs._knob_str('trsm', default)} {ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f} % of bound), best "
+              f"{cs._knob_str('trsm', best)} {best_ms:.4f} ms "
+              f"({100 * bound_ms / best_ms:.1f} %) | library "
+              f"({str(lib_dtype).removeprefix('torch.')} solve_triangular) "
+              f"{library_ms:.4f} ms ({100 * bound_ms / library_ms:.1f} %) "
+              f"| bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        del sets, invs, lib_sets
+    print(f"[ab:trsm_bf16] {label}: trsm_bf16 default over 5b's 2 calls "
+          f"{total:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@
 // a producer (GemmProducer below; symm_bf16.cu's SymmProducer stitches
 // sym(A) from the stored triangle; rank-k's stages rows of A or B on both
 // sides; trmm's TrmmProducer stages tril(A)), and a step plan says which
-// steps each pass runs.  bf16_mainloop.cuh, the mma.sync loop it replaces
-// for those, stays for trsm_bf16.cu's substitution.
+// steps each pass runs.  trsm_bf16.cu's substitution runs its ring, its
+// stages' layouts and its products with a consumer of its own, whose
+// refills wait for rows of X the block has yet to store.
 //
 // Replaces, with the float32 loop, the reference package's Pallas dot
 // src/repro/kernels/gemm.py::_gemm_kernel (jnp.dot(...,

@@ -26,9 +26,7 @@ A grid of fewer output tiles than the card has SMs splits the contraction
 a per-call workspace and the last slice of a tile adds them in slice order,
 inside the same launch.  :func:`mainloop_params` gives the launch
 parameters ``csrc/sgemm_mainloop.cuh`` and ``csrc/bf16_wgmma_mainloop.cuh``
-derive from a tile (:func:`mma_sync_params` those of
-``csrc/bf16_mainloop.cuh``, whose last user is the bf16 trsm
-substitution).
+derive from a tile.
 """
 
 from __future__ import annotations
@@ -44,7 +42,7 @@ from . import _build
 from .introspect import launch_events, record_launch
 
 __all__ = ["gemm", "gemm_plain", "TILES", "KERNEL_OF", "split_plan",
-           "mainloop_params", "mma_sync_params", "bf16_source", "ring_stages",
+           "mainloop_params", "bf16_source", "ring_stages",
            "vec_aligned", "HOPPER_SMS"]
 
 #: the ``(bm, bk, bn)`` tiles ``csrc/gemm.cu`` is instantiated for
@@ -71,8 +69,6 @@ MAX_PASS = 128 * 128
 #: the operand dtypes a GEMM kernel takes: dtype -> (kernel, C launcher)
 KERNEL_OF = {torch.float32: ("gemm", "repro_gemm_f32"),
              torch.bfloat16: ("gemm_bf16", "repro_gemm_bf16")}
-#: elements a row of the bf16 mma.sync mainloop's shared tiles is padded by
-BF16_PAD = 8
 #: the bf16 wgmma mainloop: the swizzle's repeat, which its stages are
 #: aligned to, and its deepest ring
 SWIZZLE_REPEAT = 1024
@@ -114,37 +110,15 @@ def ring_stages(stage_bytes: int) -> int:
     return next((s for s in (4, 3) if s * stage_bytes <= RING_BUDGET), 2)
 
 
-def mma_sync_params(bm: int, bk: int, bn: int) -> dict:
-    """The launch parameters ``csrc/bf16_mainloop.cuh`` (the ``mma.sync``
-    loop of the bf16 trsm substitution, its last user) derives from the
-    tile ``(bm, bk, bn)`` (trsm: ``bk`` = 64): the pass (at most 128 x 128
-    accumulators; a larger tile runs its passes one after the other),
-    threads (128-256), the warp grid and a warp's tile (its A and B rows
-    padded by :data:`BF16_PAD` elements in shared memory; a stage's A region
-    holds either A layout, ``[pm][bk + 8]`` or a transposed ``[bk][pm +
-    8]``), the stages of the cp.async ring (as many of 2-4 as fit in
-    :data:`RING_BUDGET`, else 2) and the dynamic shared bytes."""
-    pm, pn = (bm, bn) if bm * bn <= MAX_PASS else (min(bm, 128), min(bn, 128))
-    threads = min(256, max(128, pm * pn // 64))
-    warps = threads // 32
-    warps_n = 4 if pn >= 128 and warps == 8 else 2
-    warps_m = warps // warps_n
-    a_elems = max(pm * (bk + BF16_PAD), bk * (pm + BF16_PAD))
-    stage = 2 * (a_elems + bk * (pn + BF16_PAD))
-    stages = ring_stages(stage)
-    return {"pass": (pm, pn), "passes": (bm // pm) * (bn // pn),
-            "threads": threads, "warps": (warps_m, warps_n),
-            "warp_tile": (pm // warps_m, pn // warps_n),
-            "stages": stages, "smem": stages * stage}
-
-
 def mainloop_params(bm: int, bk: int, bn: int,
                     dtype: torch.dtype = torch.float32) -> dict:
     """The launch parameters ``csrc/sgemm_mainloop.cuh`` (float32) or
-    ``csrc/bf16_wgmma_mainloop.cuh`` (bfloat16: the gemm, symm and trmm
-    kernels, symm and trmm at ``bk`` = 64; the rank-k kernels' ``bm x bm``
-    tile at ``bk`` = 64, its B K-major in the same bytes) derives from the
-    tile ``(bm, bk, bn)``.
+    ``csrc/bf16_wgmma_mainloop.cuh`` (bfloat16: the gemm, symm, trmm and
+    trsm kernels, symm, trmm and trsm at ``bk`` = 64, trsm with its own
+    blocks an SM and ring beside its shared regions,
+    :func:`~repro_torch.kernels.trsm.trsm_params`; the rank-k kernels'
+    ``bm x bm`` tile at ``bk`` = 64, its B K-major in the same bytes)
+    derives from the tile ``(bm, bk, bn)``.
 
     float32: the pass (at most 128 x 128 accumulators; a larger tile runs
     its passes one after the other), threads (128-256), the register tile,

@@ -19,9 +19,12 @@ steps with the reference's rounding points: each inverse entry computed in
 float32 as ``trsm_inv`` computes it and rounded once, and per block row
 ``R_i = bf16(float(bf16(alpha B_i)) - float(bf16(A[i, :i] @ X[:i])))``
 (block row 0 included, its contraction empty) and ``X_i = bf16(D_i^-1 @
-R_i)``, every product summed in float32 on the bf16 ``mma.sync``
-mainloop (``csrc/bf16_mainloop.cuh``, of which the substitution is the
-last user).  X is bf16 between block rows, as in the
+R_i)``, every product summed in float32 on the bf16 GEMM's wgmma + TMA
+mainloop (``csrc/bf16_wgmma_mainloop.cuh``).  The substitution runs every
+step of a strip's block rows as one sequence through one ring
+(:func:`step_plan`), keeps ``R_i`` in shared memory for the products
+that read it next, and copies rows of X by TMA only once the epilogue that
+stored them has ended.  X is bf16 between block rows, as in the
 reference, whose every intermediate is in A's dtype.  alpha multiplies in
 float32 (the reference's bf16 product rounds alpha to bf16 first: the two
 agree where alpha is a bf16 value).
@@ -50,6 +53,7 @@ the whole solve.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -62,7 +66,7 @@ from .introspect import launch_events, record_launch
 
 __all__ = ["trsm", "trsm_plain", "diag_inverses", "diag_inverses_plain",
            "substitute", "substitute_plain", "inverse_blocks", "trsm_params",
-           "TILES", "INV_COLS", "INV_ROWS", "KERNEL_OF"]
+           "step_plan", "Step", "TILES", "INV_COLS", "INV_ROWS", "KERNEL_OF"]
 
 #: the ``(bm, bn)`` tiles ``csrc/trsm.cu`` is instantiated for
 TILES = frozenset((k["bm"], k["bn"]) for k in hopper_2d_knob_space("trsm"))
@@ -100,20 +104,86 @@ def trsm_params(bm: int, bn: int, dtype: torch.dtype = torch.float32) -> dict:
     """The launch parameters ``csrc/trsm.cu`` (float32) or
     ``csrc/trsm_bf16.cu`` (bfloat16) derives from the tile: the
     substitution's (the mainloop's of ``dtype`` at ``(bm, 64, bn)``,
-    :func:`~repro_torch.kernels.gemm.mainloop_params`; bf16 the mma.sync
-    loop's, :func:`~repro_torch.kernels.gemm.mma_sync_params`, with its warp
-    grid), the inverse kernel's threads and dynamic shared bytes (its x
-    columns and two groups' rows of D, float32 for both dtypes), and the
-    workspace bytes of one diagonal block's inverse, in ``dtype`` (a call
-    holds ``batch * ceil(m / bm)`` of them)."""
+    :func:`~repro_torch.kernels.gemm.mainloop_params`), the inverse
+    kernel's threads and dynamic shared bytes (its x columns and two
+    groups' rows of D, float32 for both dtypes), and the workspace bytes of
+    one diagonal block's inverse, in ``dtype`` (a call holds ``batch *
+    ceil(m / bm)`` of them).
+
+    bfloat16: the wgmma loop's tile with the substitution's own shared
+    region (``region``: ``bm x bn`` bf16 values, which receives B_i's copy
+    and then holds R_i), blocks an SM (the grid is a block a strip and
+    item, so at most 2, and 1 where 2 would leave the ring fewer than 3
+    stages beside the region) and ring (2 to 16 stages, as many as fit ``1
+    / blocks`` of the SM's shared memory less 4 KB and the region), and the
+    dynamic shared bytes (1024 to align, the region, the ring and 28 bytes
+    a stage: its barrier, release count and pending step)."""
     if dtype not in KERNEL_OF:
         raise TypeError(f"no TRSM kernels for {dtype}")
-    p = (_gemm.mma_sync_params(bm, HOPPER_CONTRACTION_STEP, bn)
-         if dtype == torch.bfloat16 else
-         _gemm.mainloop_params(bm, HOPPER_CONTRACTION_STEP, bn, dtype))
+    step = HOPPER_CONTRACTION_STEP
+    p = _gemm.mainloop_params(bm, step, bn, dtype)
+    if dtype == torch.bfloat16:
+        pm, pn = p["pass"]
+        stage = 2 * step * (pm + pn)
+        region = 2 * bm * pn
+
+        def budget(blocks):
+            return _gemm.SMEM_SM // blocks - 4 * _gemm.SWIZZLE_REPEAT \
+                - region
+
+        blocks = 2 if min(p["blocks"], 2) == 2 and budget(2) >= 3 * stage \
+            else 1
+        stages = max(2, min(_gemm.WGMMA_MAX_STAGES, budget(blocks) // stage))
+        p.update(blocks=blocks, stages=stages, region=region,
+                 smem=_gemm.SWIZZLE_REPEAT + region + stages * (stage + 28))
     return {**p, "inv_threads": INV_COLS,
             "inv_smem": 4 * bm * (INV_COLS + 2 * INV_ROWS),
             "block_workspace": dtype.itemsize * bm * bm}
+
+
+class Step(NamedTuple):
+    """A step of the bf16 substitution: block row ``i``, ``step`` 0 (A's
+    block row against X) or 1 (``D_i^-1`` against ``R_i``), the first row
+    ``prow`` of its pass in the block row, its first contraction index
+    ``k0``; where its A (``"A"`` or ``"inv"``) and its B (``"x_tma"``: X's
+    rows by TMA, or ``"r_region"``: R_i's shared region) come from; and
+    ``epoch``, the end of the step after which its TMA copies may be
+    issued: ``2 i + 1`` after step 0 of block row i, ``2 i + 2`` after its
+    step 1 (0: any time)."""
+    i: int
+    step: int
+    prow: int
+    k0: int
+    a: str
+    b: str
+    epoch: int
+
+
+def step_plan(m: int, bm: int, bn: int) -> list[Step]:
+    """The steps of a block of ``csrc/trsm_bf16.cu``'s substitution under
+    the tile ``bm x bn``, in the order they run through its ring: the
+    mirror of ``TrsmSteps`` and ``TrsmProducer``.
+
+    Block rows in order; per block row ``i`` (``r = min(bm, m - i bm)``
+    rows), step 0's passes of ``min(bm, 128)`` rows that start below r,
+    each over the ``lo / 64`` steps of ``A[i, :lo] @ X[:lo]``, then step
+    1's passes, the pass at ``prow`` over ``ceil(min(prow + pass rows, r) /
+    64)`` steps, passes top-down.  Step 0 reads X's rows by TMA, step 1
+    ``R_i`` from its shared region.  A copy of X's rows of block row q
+    waits for the fence after their stores, at the end of q's step 1."""
+    if (bm, bn) not in TILES:
+        raise ValueError(f"no TRSM kernel for tile bm={bm} bn={bn}")
+    step, pm = HOPPER_CONTRACTION_STEP, min(bm, 128)
+    plan = []
+    for i in range(-(-m // bm)):
+        lo, r = i * bm, min(bm, m - i * bm)
+        for prow in range(0, r, pm):
+            plan += [Step(i, 0, prow, k0, "A", "x_tma", 2 * (k0 // bm) + 2)
+                     for k0 in range(0, lo, step)]
+        for prow in range(0, r, pm):
+            plan += [Step(i, 1, prow, k0, "inv", "r_region", 0)
+                     for k0 in range(0, min(prow + pm, r), step)]
+    return plan
 
 
 def trsm_plain(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,

@@ -28,6 +28,7 @@ import repro_torch.configs as pconfigs
 from repro_torch.core import AdsalaRuntime
 from repro_torch.kernels import gemm as G
 from repro_torch.kernels import ops
+from repro_torch.kernels.trsm import trsm_params
 from repro_torch.models import transformer as ptf
 
 #: one bf16 ulp at the top binade: two roundings of float32 sums that
@@ -171,9 +172,13 @@ def test_bf16_mainloop_params_fit_the_card():
     # the default tile: four blocks an SM, each a ring of 13 stages of 4 KB
     p = G.mainloop_params(64, 16, 64, torch.bfloat16)
     assert (p["blocks"], p["stages"], p["smem"]) == (4, 13, 54480)
-    # the mma.sync loop of the bf16 trsm substitution keeps its own
-    # derivation
-    assert G.mma_sync_params(64, 64, 64)["warps"] == (2, 2)
+    # the bf16 trsm substitution's tile at a step of 64: the wgmma loop's
+    # threads and passes, its own blocks an SM, ring and shared region
+    p, t = G.mainloop_params(64, 64, 64, torch.bfloat16), \
+        trsm_params(64, 64, torch.bfloat16)
+    keep = ("pass", "passes", "threads", "warpgroups", "swizzle")
+    assert {k: t[k] for k in keep} == {k: p[k] for k in keep}
+    assert (t["blocks"], t["stages"], t["region"]) == (2, 6, 8192)
 
 
 # ---------------------------------------------------------------------------

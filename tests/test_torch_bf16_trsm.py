@@ -280,15 +280,46 @@ def test_service_keeps_bf16_and_float32_trsm_apart():
 
 @pytest.mark.parametrize("tile", sorted(T.TILES), ids=lambda t: "%dx%d" % t)
 def test_trsm_bf16_launch_params_fit_the_card(tile):
-    """The bf16 substitution runs the bf16 mma.sync mainloop of the
-    ``(bm, 64, bn)`` tile, its inverse kernel the float32 one's threads and shared bytes,
+    """The bf16 substitution runs the wgmma loop's tile of ``(bm, 64,
+    bn)``: passes of ``min(bm, 128)`` rows and every column, a warpgroup per
+    64 rows of a pass, A's K-major rows swizzled over 128 bytes.  Its
+    shared region (``bm x bn`` bf16 values for B_i and R_i) and the ring
+    fit the SM over the blocks an SM is meant to hold (2 at most, the grid
+    being a block a strip; 1 where 2 leave fewer than 3 stages), with 2-16
+    stages, as many as fit, every stage, slab and the region on the
+    swizzle's 1024-byte repeat.
+    Its inverse kernel keeps the float32 one's threads and shared bytes,
     and a diagonal block's inverse takes 2 bytes an entry; the float32
     parameters are unchanged."""
     bm, bn = tile
     p = T.trsm_params(bm, bn, torch.bfloat16)
-    assert {k: p[k] for k in G.mma_sync_params(bm, 64, bn)} \
-        == G.mma_sync_params(bm, 64, bn)
-    assert p["smem"] <= G.SMEM_MAX and 128 <= p["threads"] <= 256
+    loop = G.mainloop_params(bm, 64, bn, torch.bfloat16)
+    keep = ("pass", "passes", "threads", "warpgroups", "swizzle")
+    assert {k: p[k] for k in keep} == {k: loop[k] for k in keep}
+    pm, pn = p["pass"]
+    assert pm == min(bm, 128) and pn == bn and p["passes"] == bm // pm
+    assert p["warpgroups"] == pm // 64 and p["swizzle"] == 128
+    assert p["region"] == 2 * bm * bn
+    assert p["region"] % G.SWIZZLE_REPEAT == 0
+    stage = 2 * 64 * (pm + pn)
+    assert stage % G.SWIZZLE_REPEAT == 0
+
+    def budget(blocks):
+        return G.SMEM_SM // blocks - 4 * G.SWIZZLE_REPEAT - p["region"]
+
+    assert 1 <= p["blocks"] <= min(2, loop["blocks"])
+    assert p["blocks"] == (2 if loop["blocks"] >= 2
+                           and budget(2) >= 3 * stage else 1)
+    assert 2 <= p["stages"] <= G.WGMMA_MAX_STAGES
+    assert p["stages"] == G.WGMMA_MAX_STAGES or \
+        (p["stages"] + 1) * stage > budget(p["blocks"])
+    assert p["stages"] == 2 or p["stages"] * stage <= budget(p["blocks"])
+    assert p["smem"] == G.SWIZZLE_REPEAT + p["region"] \
+        + p["stages"] * (stage + 28)
+    # one block within a block's limit, the blocks within the SM with the
+    # card's 1 KB a block
+    assert p["smem"] <= G.SMEM_MAX
+    assert p["blocks"] * (p["smem"] + 1024) <= G.SMEM_SM
     assert p["inv_threads"] == T.INV_COLS
     assert p["inv_smem"] == 4 * bm * (T.INV_COLS + 2 * T.INV_ROWS)
     assert p["block_workspace"] == 2 * bm * bm

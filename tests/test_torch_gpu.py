@@ -1289,7 +1289,7 @@ def test_bf16_rank_k_are_built_with_their_python_mirror():
 
 
 # -- the bf16 TRSM (csrc/trsm_bf16.cu: the inverses in float32 rounded once,
-# the substitution on the bf16 mainloop with the reference's roundings) -----
+# the substitution on the wgmma loop with the reference's roundings) -------
 
 @pytest.mark.gpu
 def test_bf16_trsm_kernels_hold_phase_3s_checks():
@@ -1312,16 +1312,32 @@ def test_bf16_trsm_kernels_hold_phase_3s_checks():
 @pytest.mark.gpu
 def test_bf16_trsm_is_built_with_its_python_mirror():
     """The launch parameters compiled into trsm_bf16.cu equal
-    ``trsm_params(bm, bn, torch.bfloat16)`` for every tile."""
+    ``trsm_params(bm, bn, torch.bfloat16)`` for every tile, and the
+    substitution's step sequence as the kernel reckons it (its length, its
+    first step and the step its refill cursor moves on to from each)
+    equals ``step_plan``'s."""
     _need_card()
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import trsm as T
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 10)()
     config = _build.load("trsm_bf16").repro_trsm_bf16_config
     for bm, bn in sorted(T.TILES):
         assert config(bm, bn, out) == 0, (bm, bn)
         p = T.trsm_params(bm, bn, torch.bfloat16)
         assert list(out) == [p["threads"], p["stages"], p["smem"],
-                             p["passes"], *p["warps"], p["inv_threads"],
-                             p["inv_smem"], p["block_workspace"]], (bm, bn)
+                             p["passes"], p["warpgroups"], p["blocks"],
+                             p["region"], p["inv_threads"], p["inv_smem"],
+                             p["block_workspace"]], (bm, bn)
+    # the substitution's step sequence as the kernel reckons it
+    step = _build.load("trsm_bf16").repro_trsm_bf16_step
+    now = (ctypes.c_int * 4)()
+    for bm, bn in sorted(T.TILES):
+        for m in (*range(1, 601, 7), 600, 4096):
+            plan = T.step_plan(m, bm, bn)
+            for g, s in enumerate(plan):
+                now[:] = s[:4]
+                assert step(bm, bn, m, now, out) == len(plan), (bm, bn, m)
+                assert tuple(out[4:8]) == plan[0][:4], (bm, bn, m)
+                if g + 1 < len(plan):
+                    assert tuple(out[:4]) == plan[g + 1][:4], (bm, bn, m, g)
